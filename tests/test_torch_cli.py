@@ -1,0 +1,77 @@
+"""The port's CLI end to end against tomojax's, on the CPU.
+
+The port's ``simulate`` (slab_plane) writes a 32³ dataset; tomojax's and
+the port's ``reconstruct`` both read it and run CGLS on slab_plane. Both
+run float32 (tomojax's CLI operator is float32), so the volumes agree to
+float32 rounding grown over the iterations: 1e-4 relative.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tomojax import cli as jcli
+from tomojax.utils import io as jio
+
+from tomojax_torch import cli as tcli
+
+SIM = ["--size", "32", "--views", "10", "--set", "simulate.family=slab_plane",
+       "--set", "simulate.max_shift_px=3"]
+RECON = ["--set", "solver.family=slab_plane", "--set", "solver.method=cgls",
+         "--set", "solver.niter=8"]
+
+
+@pytest.fixture(scope="module")
+def dataset(tmp_path_factory):
+    path = tmp_path_factory.mktemp("cli") / "d.h5"
+    tcli.main(["simulate", *SIM, "-o", str(path), "--device", "cpu"])
+    return path
+
+
+def test_simulate_matches_tomojax(dataset, tmp_path):
+    ref_path = tmp_path / "ref.h5"
+    jcli.main(["simulate", *SIM, "-o", str(ref_path)])
+    got, ref = jio.load_dataset(dataset), jio.load_dataset(ref_path)
+    assert sorted(got) == sorted(ref)
+    for k in ("phi", "alpha", "beta", "xyz", "phantom"):
+        np.testing.assert_array_equal(got[k], ref[k])
+    p, q = got["projections"], ref["projections"]
+    assert p.dtype == q.dtype == np.float32 and p.shape == q.shape
+    assert np.linalg.norm(p - q) / np.linalg.norm(q) < 1e-6
+
+
+@pytest.mark.parametrize("pre_align", ["none", "com"])
+def test_reconstruct_matches_tomojax(dataset, tmp_path, pre_align):
+    args = ["reconstruct", "-i", str(dataset), *RECON, "--pre-align",
+            pre_align]
+    jcli.main([*args, "-o", str(tmp_path / "j.npy")])
+    out = tcli.main([*args, "-o", str(tmp_path / "t.npy"), "--device",
+                     "cpu"])
+    ref, got = np.load(tmp_path / "j.npy"), np.load(tmp_path / "t.npy")
+    assert got.shape == ref.shape == (32, 32, 32)
+    assert np.linalg.norm(got - ref) / np.linalg.norm(ref) < 1e-4
+    assert out["result"].n_iter == 8
+    assert ("pre_align_residual" in out) == (pre_align == "com")
+
+
+@pytest.mark.parametrize("argv, match", [
+    (["align", "-i", "x.h5", "-o", "y.npy"], "ROADMAP"),
+    (["reconstruct", "-i", "x.h5", "-o", "y.npy", "--shard"], "item 18"),
+    (["reconstruct", "-i", "x.h5", "-o", "y.npy", "--pre-align", "cc"],
+     "item 9"),
+    (["reconstruct", "-i", "x.h5", "-o", "y.npy", "--set",
+      "solver.method=fista_tv"], "item 13"),
+    (["simulate", "-o", "x.h5"], "item 12"),     # default family "ray"
+    (["simulate", "-o", "x.h5", "--set", "simulate.family=slab"], "K3/K4"),
+])
+def test_unported_paths_raise(argv, match):
+    with pytest.raises(NotImplementedError, match=match):
+        tcli.main([*argv, "--device", "cpu"])
+
+
+def test_cuda_device_raises_without_card(dataset, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tcli.main(["reconstruct", "-i", str(dataset), "-o",
+                   str(tmp_path / "t.npy"), *RECON])

@@ -1,0 +1,26 @@
+"""tomojax_torch — the PyTorch/CUDA port of tomojax for NVIDIA Hopper.
+
+Same layout and names as ``tomojax`` so each module's counterpart is easy to
+find, written in PyTorch's idiom: plain functions on tensors, an explicit
+``device=`` argument, explicit ``torch.Generator``s, and a
+``torch.autograd.Function`` around each hand-written kernel pair.
+
+- ``core``    : geometry, rotations, phantoms, the slab-marching projector
+                (plane quadrature) and the matrix-free operator.
+- ``kernels`` : hand-written CUDA kernels for ``sm_90a`` and their plain
+                PyTorch versions (a CPU tensor takes the plain version).
+- ``recon``   : CGLS and SIRT as host loops over the operator.
+- ``align``   : COM pre-alignment.
+- ``utils``   : config dataclasses, dataset IO, and interop with tomojax's
+                state (as numpy arrays).
+
+This package imports neither ``jax`` nor ``tomojax``.
+"""
+
+__version__ = "0.1.0"
+
+from tomojax_torch.core.geometry import Geometry, Views
+from tomojax_torch.core import rotations
+from tomojax_torch.core import phantom
+
+__all__ = ["Geometry", "Views", "rotations", "phantom", "__version__"]

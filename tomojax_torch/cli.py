@@ -1,0 +1,253 @@
+"""Command-line entry point: ``python -m tomojax_torch.cli <cmd> [...]``.
+
+The same subcommands, flags and ``--set`` overrides as ``tomojax.cli``,
+plus ``--device`` (default ``cuda``; asking for CUDA without a card
+raises). Ported so far:
+
+- ``simulate``    with ``simulate.family=slab_plane``;
+- ``reconstruct`` with ``solver.method`` ``sirt`` or ``cgls`` on
+  ``solver.family=slab_plane``, and ``--pre-align none|com``.
+
+``align``, ``--shard``, the other solvers, families and pre-aligners raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+import torch
+
+
+def _add_common(p):
+    p.add_argument("--config", help="ExperimentConfig json", default=None)
+    p.add_argument("--size", type=int, default=None, help="cubic volume size")
+    p.add_argument("--views", type=int, default=None)
+    p.add_argument("--set", action="append", default=[], dest="overrides",
+                   metavar="SECTION.FIELD=VALUE",
+                   help="override any config field, e.g. "
+                        "--set solver.family=slab_plane --set solver.niter=40 "
+                        "(repeatable; typed from the dataclass default)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; no CPU fallback)")
+
+
+def _coerce(value: str, ref):
+    """Parse a --set VALUE string to the type of the dataclass default."""
+    import json as _json
+    if value.lower() in ("none", "null"):
+        return None
+    if isinstance(ref, bool):
+        return value.lower() in ("1", "true", "yes", "on")
+    for t in (int, float):
+        if isinstance(ref, t):
+            return t(value)
+    if isinstance(ref, (tuple, list)) or ref is None:
+        try:
+            v = _json.loads(value)
+            return tuple(v) if isinstance(v, list) else v
+        except _json.JSONDecodeError:
+            return value
+    return value
+
+
+def _load_config(args):
+    from tomojax_torch.utils.config import ExperimentConfig
+    cfg = (ExperimentConfig.from_json(args.config) if args.config
+           else ExperimentConfig())
+    if args.size:
+        n = args.size
+        cfg.geometry.vox_shape = (n, n, n)
+        cfg.geometry.det_shape = (n, n)
+    if args.views:
+        cfg.geometry.n_proj = args.views
+    for ov in getattr(args, "overrides", []):
+        key, _, value = ov.partition("=")
+        section, _, field = key.partition(".")
+        if not (value and field and hasattr(cfg, section)):
+            sys.exit(f"--set wants SECTION.FIELD=VALUE; got {ov!r}")
+        sec = getattr(cfg, section)
+        if not hasattr(sec, field):
+            sys.exit(f"unknown config field {key!r}")
+        setattr(sec, field, _coerce(value, getattr(sec, field)))
+    return cfg
+
+
+def _infer_vox_shape(args, d, nu, nv):
+    """Volume shape for a loaded dataset: explicit --vox-shape wins, then
+    the stored phantom's shape, then the cubic (nu, nu, nv) guess."""
+    if getattr(args, "vox_shape", None):
+        parts = [int(v) for v in args.vox_shape.split(",")]
+        if len(parts) == 1:
+            parts = parts * 3
+        if len(parts) != 3:
+            sys.exit(f"--vox-shape wants nx,ny,nz; got {parts}")
+        return tuple(parts)
+    gt = d.get("phantom")
+    if gt is not None:
+        return gt.shape
+    print(f"warning: no phantom in dataset and no --vox-shape given; "
+          f"assuming cubic ({nu}, {nu}, {nv})", file=sys.stderr)
+    return (nu, nu, nv)
+
+
+def cmd_simulate(args):
+    """Phantom → jittered slab_plane projections → HDF5 dataset."""
+    from tomojax_torch.core import phantom as ph
+    from tomojax_torch.core import slab_projector as sp
+    from tomojax_torch.core.geometry import Views
+    from tomojax_torch.core.operators import NOT_PORTED, resolve_device
+    from tomojax_torch.utils import io
+
+    cfg = _load_config(args)
+    fam = cfg.simulate.family
+    if fam != "slab_plane":
+        raise NotImplementedError(NOT_PORTED.get(
+            fam, f"unknown simulate.family {fam!r}"))
+    device = resolve_device(args.device)
+    geom = cfg.geometry.build()
+    rng = np.random.default_rng(cfg.simulate.seed)
+    vol = (ph.shepp3d(geom.vox_shape) if cfg.simulate.phantom == "shepp"
+           else ph.arbitrary_phantom(geom.vox_shape, seed=cfg.simulate.seed))
+
+    n_proj = geom.n_proj
+    phi = np.linspace(0.0, np.pi, n_proj)
+    amax = np.deg2rad(cfg.simulate.max_angle_deg)
+    alpha = rng.uniform(-amax, amax, n_proj)
+    beta = rng.uniform(-amax, amax, n_proj)
+    xyz = np.zeros((n_proj, 3))
+    # motion along the beam (y) does not affect parallel projections
+    xyz[:, 0] = rng.uniform(-cfg.simulate.max_shift_px,
+                            cfg.simulate.max_shift_px, n_proj)
+    xyz[:, 2] = rng.uniform(-cfg.simulate.max_shift_px,
+                            cfg.simulate.max_shift_px, n_proj)
+
+    views = Views.create(n_proj, phi=phi, alpha=alpha, beta=beta, t=xyz,
+                         device=device)
+    with torch.no_grad():
+        proj = sp.project(torch.as_tensor(vol, device=device), geom, views)
+    io.save_dataset(args.output, projections=proj.reshape(
+        n_proj, *geom.det_shape).cpu().numpy(), phi=phi, alpha=alpha,
+        beta=beta, xyz=xyz, phantom=vol)
+    print(f"wrote {args.output}: {n_proj} views of {geom.det_shape}, "
+          f"volume {geom.vox_shape}")
+    return {"output": args.output}
+
+
+def cmd_reconstruct(args):
+    """Iterative reconstruction of a dataset; returns a dict with the
+    solver result (``result``) and, with ``--pre-align com``, the
+    per-axis mean/max pre-alignment residuals in px when the dataset
+    holds the true shifts (``pre_align_residual``)."""
+    from tomojax_torch import recon
+    from tomojax_torch.align import com_align
+    from tomojax_torch.core.geometry import Geometry, Views
+    from tomojax_torch.core.operators import make_operator, resolve_device
+    from tomojax_torch.utils import io
+
+    if args.shard:
+        raise NotImplementedError("--shard: ROADMAP Queue 1 item 18")
+    if args.pre_align == "cc":
+        raise NotImplementedError("--pre-align cc: ROADMAP Queue 1 item 9")
+    cfg = _load_config(args)
+    m = cfg.solver.method
+    if m not in ("sirt", "cgls"):
+        raise NotImplementedError(
+            f"solver {m!r}: ROADMAP Queue 1 item 13")
+    device = resolve_device(args.device)
+    dtype = getattr(torch, cfg.solver.dtype)
+    d = io.load_dataset(args.input)
+    n_proj, nu, nv = d["projections"].shape
+    gt = d.get("phantom")
+    if gt is not None:
+        gt = torch.as_tensor(gt, dtype=dtype, device=device)
+    geom = Geometry(n_proj=n_proj, vox_shape=_infer_vox_shape(args, d, nu,
+                                                              nv),
+                    det_shape=(nu, nv))
+    views = io.views_from_dataset(d, device=device)
+    proj = torch.as_tensor(d["projections"], device=device)
+    b = proj.reshape(n_proj, -1).to(dtype)
+
+    out = {}
+    if args.pre_align == "com":
+        # BASELINE config 3 flow: consistency pre-alignment then recon;
+        # shifts only (tilt jitter stays unknown)
+        est = com_align(proj, geom, d["phi"], dtype=torch.float32,
+                        device=device).cpu().numpy()
+        t0 = np.zeros((n_proj, 3), np.float32)
+        t0[:, 0] = est[:, 0]
+        t0[:, 2] = est[:, 1]
+        views = Views.create(n_proj, phi=d["phi"], t=t0, device=device)
+        if "xyz" in d:
+            ex = np.abs(t0[:, 0] - d["xyz"][:, 0])
+            ez = np.abs(t0[:, 2] - d["xyz"][:, 2])
+            out["pre_align_residual"] = {
+                "tx": (float(ex.mean()), float(ex.max())),
+                "tz": (float(ez.mean()), float(ez.max()))}
+            print(f"pre-align ({args.pre_align}) residual: "
+                  f"tx {ex.mean():.3f}/{ex.max():.3f} px "
+                  f"tz {ez.mean():.3f}/{ez.max():.3f} px (mean/max)")
+
+    op = make_operator(geom, views, family=cfg.solver.family, dtype=dtype,
+                       device=device)
+    if m == "sirt":
+        res = recon.sirt(op, b, niter=cfg.solver.niter,
+                         positivity=cfg.solver.positivity, ground_truth=gt)
+    else:
+        res = recon.cgls(op, b, niter=cfg.solver.niter, ground_truth=gt)
+
+    k = int(res.n_iter)
+    print(f"{m}: {k} iterations, final rms {float(res.rms_error[k-1]):.5f}")
+    io.save_volume(args.output, res.x)
+    print(f"wrote {args.output}")
+    out["result"] = res
+    return out
+
+
+def cmd_align(args):
+    raise NotImplementedError(
+        "align: ROADMAP Queue 1 items 7-10 (slab Jacobian, batched LM, "
+        "CC, the alternating driver)")
+
+
+def main(argv=None):
+    """Parse ``argv`` and run the subcommand; returns what it returns."""
+    ap = argparse.ArgumentParser(prog="tomojax_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("simulate", help="phantom → jittered projections")
+    _add_common(p)
+    p.add_argument("--output", "-o", required=True)
+    p.set_defaults(fn=cmd_simulate)
+
+    p = sub.add_parser("reconstruct", help="iterative reconstruction")
+    _add_common(p)
+    p.add_argument("--input", "-i", required=True)
+    p.add_argument("--output", "-o", required=True)
+    p.add_argument("--shard", action="store_true",
+                   help="angle-shard over all devices (not ported)")
+    p.add_argument("--pre-align", default="none",
+                   choices=["none", "com", "cc"],
+                   help="shift pre-alignment before reconstruction "
+                        "(BASELINE config 3: com + cgls)")
+    p.add_argument("--vox-shape", default=None,
+                   help="volume shape 'nx,ny,nz' (required for phantom-free "
+                        "datasets with non-cubic volumes)")
+    p.set_defaults(fn=cmd_reconstruct)
+
+    p = sub.add_parser("align", help="joint alignment + reconstruction "
+                                     "(not ported)")
+    _add_common(p)
+    p.add_argument("--input", "-i", required=True)
+    p.add_argument("--output", "-o", required=True)
+    p.add_argument("--vox-shape", default=None)
+    p.set_defaults(fn=cmd_align)
+
+    args = ap.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,145 @@
+"""Parallel-beam acquisition geometry and per-view rigid parameters.
+
+Counterpart of ``tomojax.core.geometry``:
+
+- ``Geometry`` is the same immutable dataclass of static scalars, with the
+  same grid conventions (voxel centers on ``linspace(-s/2, s/2, n,
+  endpoint=False) + 0.5`` per axis; ``vox_origin`` the minimum corner).
+  Grids are host numpy in float64.
+- ``Views`` is a dataclass of tensors with leading axis ``n_proj`` (tomojax
+  uses a pytree NamedTuple).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+
+def _as_tuple(x, n, cast):
+    if np.isscalar(x):
+        return (cast(x),) * n
+    t = tuple(cast(v) for v in np.asarray(x).ravel())
+    if len(t) != n:
+        raise ValueError(f"expected {n} entries, got {t}")
+    return t
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """Static parallel-beam setup (hashable).
+
+    :param n_proj: number of projection views.
+    :param vox_shape: ``(nx, ny, nz)`` voxel grid shape.
+    :param det_shape: ``(nu, nv)`` detector shape; ``u`` maps to volume x
+        and ``v`` to volume z.
+    :param vox_pix: voxel pitch per axis.
+    :param det_pix: detector pitch per axis.
+    :param step_size: ray-march step.
+    """
+
+    n_proj: int
+    vox_shape: tuple
+    det_shape: tuple
+    vox_pix: tuple = (1.0, 1.0, 1.0)
+    det_pix: tuple = (1.0, 1.0)
+    step_size: float = 1.0
+    vox_ds: tuple = (1.0, 1.0, 1.0)
+
+    def __post_init__(self):
+        object.__setattr__(self, "n_proj", int(self.n_proj))
+        object.__setattr__(self, "vox_shape", _as_tuple(self.vox_shape, 3, int))
+        object.__setattr__(self, "det_shape", _as_tuple(self.det_shape, 2, int))
+        object.__setattr__(self, "vox_pix", _as_tuple(self.vox_pix, 3, float))
+        object.__setattr__(self, "det_pix", _as_tuple(self.det_pix, 2, float))
+        object.__setattr__(self, "step_size", float(self.step_size))
+        object.__setattr__(self, "vox_ds", _as_tuple(self.vox_ds, 3, float))
+
+    @property
+    def n_vox(self) -> int:
+        nx, ny, nz = self.vox_shape
+        return nx * ny * nz
+
+    @property
+    def n_det(self) -> int:
+        nu, nv = self.det_shape
+        return nu * nv
+
+    @property
+    def vox_size(self) -> tuple:
+        return tuple(n * p for n, p in zip(self.vox_shape, self.vox_pix))
+
+    @property
+    def det_size(self) -> tuple:
+        return tuple(n * p for n, p in zip(self.det_shape, self.det_pix))
+
+    @property
+    def ray_length(self) -> float:
+        """Source-to-detector distance = 2 × voxel y-extent."""
+        return 2.0 * self.vox_size[1]
+
+    @property
+    def n_steps(self) -> int:
+        """Samples per ray: ``int(ray_length / step_size)``."""
+        return int(self.ray_length / self.step_size)
+
+    def _axis_centers(self, n: int, size: float) -> np.ndarray:
+        return np.linspace(-size / 2.0, size / 2.0, n, endpoint=False) + 0.5
+
+    def vox_origin_np(self) -> np.ndarray:
+        nx, ny, nz = self.vox_shape
+        sx, sy, sz = self.vox_size
+        return np.array([self._axis_centers(nx, sx).min(),
+                         self._axis_centers(ny, sy).min(),
+                         self._axis_centers(nz, sz).min()])
+
+
+@dataclasses.dataclass(frozen=True)
+class Views:
+    """Per-view rigid parameters, tensors with leading axis ``n_proj``.
+
+    A view's ray transform is ``R_z(phi) R_x(alpha) (R_y(beta) p + t)``;
+    the 6-DoF parameter order is ``(tx, ty, tz, phi, alpha, beta)``.
+    """
+
+    phi: torch.Tensor    # (n_proj,) tomographic angle about Z
+    alpha: torch.Tensor  # (n_proj,) jitter about X
+    beta: torch.Tensor   # (n_proj,) jitter about Y
+    t: torch.Tensor      # (n_proj, 3) translations
+    cor: torch.Tensor    # (n_proj, 3) center-of-rotation shift
+
+    @classmethod
+    def create(cls, n_proj, phi=None, alpha=None, beta=None, t=None,
+               cor=None, *, dtype=torch.float32, device=None) -> "Views":
+        """Views with defaults as ``tomojax.core.geometry.Views.create``:
+        phi over ``[0, π]`` (endpoint included), zero jitter. Array-likes
+        are cast to ``dtype`` (float32 by default, as tomojax)."""
+        def arr(val, shape, default):
+            if val is None:
+                return torch.full(shape, default, dtype=dtype, device=device)
+            return torch.as_tensor(np.asarray(val) if not torch.is_tensor(val)
+                                   else val, dtype=dtype,
+                                   device=device).broadcast_to(shape
+                                                               ).contiguous()
+
+        if phi is None:
+            phi = torch.linspace(0.0, math.pi, n_proj, dtype=dtype,
+                                 device=device)
+        else:
+            phi = arr(phi, (n_proj,), 0.0)
+        return cls(phi=phi, alpha=arr(alpha, (n_proj,), 0.0),
+                   beta=arr(beta, (n_proj,), 0.0),
+                   t=arr(t, (n_proj, 3), 0.0),
+                   cor=arr(cor, (n_proj, 3), 0.0))
+
+    @property
+    def n_proj(self) -> int:
+        return self.phi.shape[0]
+
+    def numpy(self) -> dict:
+        """Host float64 copies of the fields (for the host-side scalars)."""
+        return {f.name: getattr(self, f.name).detach().cpu().numpy()
+                .astype(np.float64) for f in dataclasses.fields(self)}

@@ -1,0 +1,109 @@
+"""Matrix-free linear-operator layer (counterpart of
+``tomojax.core.operators``): solvers program against ``TomoOperator`` and
+never see how A is applied.
+
+Ported families:
+
+- ``family="slab_plane"`` — the slab-marching operator with one sample
+  per slab plane (``core.slab_projector``); on a CUDA device it runs the
+  hand-written kernels K1/K2.
+
+``voxel_mask`` reproduces the masked system matrix: masked voxels
+contribute nothing to A and receive nothing from Aᵀ.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from tomojax_torch.core import slab_projector as slabp
+from tomojax_torch.core.geometry import Geometry, Views
+
+NOT_PORTED = {
+    "ray": "exact ray family: ROADMAP Queue 1 item 12",
+    "voxel": "voxel family: ROADMAP Queue 1 item 15",
+    "fast": "fast family: ROADMAP Queue 1 item 16 (kernels K7/K8/K9)",
+    "slab": slabp.ARC_NOT_PORTED,
+}
+
+
+def resolve_device(device=None) -> torch.device:
+    """``torch.device`` of ``device`` (default ``cuda``). Raises when CUDA
+    is asked for and absent: the port never falls back to the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but "
+                           "torch.cuda.is_available() is False")
+    return device
+
+
+@dataclasses.dataclass(frozen=True)
+class TomoOperator:
+    """Matrix-free A: volume → sinogram, with exact adjoint."""
+
+    geom: Geometry
+    views: Views
+    A: Callable    # vol (vox_shape or flat) -> (n_proj, n_det)
+    AT: Callable   # sino (n_proj, n_det) or flat -> vol (vox_shape)
+    family: str
+    dtype: torch.dtype
+    device: torch.device
+
+    @property
+    def vol_shape(self):
+        return self.geom.vox_shape
+
+    @property
+    def shape(self):
+        return (self.geom.n_proj * self.geom.n_det, self.geom.n_vox)
+
+    def row_sums(self):
+        """A @ 1 — SIRT's W normalizer."""
+        return self.A(torch.ones(self.geom.vox_shape, dtype=self.dtype,
+                                 device=self.device))
+
+    def col_sums(self):
+        """Aᵀ @ 1 — SIRT's V normalizer."""
+        return self.AT(torch.ones((self.geom.n_proj, self.geom.n_det),
+                                  dtype=self.dtype, device=self.device))
+
+
+def make_operator(geom: Geometry, views: Views, *,
+                  family: str = "slab_plane", dtype=torch.float32,
+                  voxel_mask=None, device=None) -> TomoOperator:
+    """Build the projection operator for a set of views on ``device``.
+
+    The per-view scalars and orientation groups are computed once, here.
+
+    :param voxel_mask: optional boolean volume; False voxels are excluded
+        from the system.
+    """
+    if family in NOT_PORTED:
+        raise NotImplementedError(NOT_PORTED[family])
+    if family != "slab_plane":
+        raise ValueError(f"unknown projector family: {family!r}")
+    device = resolve_device(device)
+    mask = None
+    if voxel_mask is not None:
+        mask = torch.as_tensor(voxel_mask, device=device).to(
+            dtype).reshape(geom.vox_shape)
+    gstruct, scalars = slabp.scalar_groups(geom, views, "plane",
+                                           dtype=dtype, device=device)
+
+    def A(x):
+        x = x.reshape(geom.vox_shape).to(dtype)
+        if mask is not None:
+            x = x * mask
+        return slabp.project_scalars(x, geom, gstruct, scalars)
+
+    def AT(y):
+        out = slabp.backproject_scalars(
+            y.reshape(geom.n_proj, geom.n_det).to(dtype), geom, gstruct,
+            scalars)
+        return out * mask if mask is not None else out
+
+    return TomoOperator(geom=geom, views=views, A=A, AT=AT, family=family,
+                        dtype=dtype, device=device)

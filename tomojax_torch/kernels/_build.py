@@ -1,0 +1,81 @@
+"""Build ``csrc/*.cu`` with nvcc into a shared library and load it (ctypes).
+
+The library has a plain C interface, so it builds in seconds (no PyTorch
+headers). It goes into ``build/kernels/`` at the repository root (listed
+in ``.gitignore``), named by a hash of the sources and flags, so an edited
+source is rebuilt and never loaded stale. nvcc is ``$CUDA_HOME/bin/nvcc``,
+else ``/usr/local/cuda/bin/nvcc``, else the one on ``PATH``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (CSRC / "slab_plane.cu",)
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# int fn(const float* in, const float* scalars, float* out,
+#        int V, int nx, int ny, int nz, int nu, int nv, cudaStream_t)
+_SIGNATURES = {
+    "slab_plane_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "slab_plane_adj": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+}
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if os.path.isfile(cand):
+            return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on "
+                           "PATH to build the CUDA kernels")
+    return found
+
+
+def library_path() -> Path:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libtomojax_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless the hashed library exists; returns its
+    path."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *map(str, SOURCES)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """Build if needed, load, and declare each entry point's signature."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

@@ -19,6 +19,24 @@ script exits non-zero:
    the dataset's true views. rel-L2 against the phantom must not rise
    from iteration 20 to 40 to 60, the true-views run must end at ≤ 0.25,
    and both kernels' launch counters must have risen in this phase.
+5. The arc kernels K3/K4/K5 against their plain versions, fp32, at 256³ ×
+   90 jittered views (full circle, ±0.5° tilts, ±2 px shifts) × 256²
+   detector with at least four orientation groups: K3 per-view relative
+   L2 ≤ 5e-4, K4 relative L2 ≤ 5e-4, arc adjoint identity ≤ 1e-5·‖K3 x‖·‖y‖
+   (float64 dot products), each K5 field per-view relative L2 ≤ 2e-3, and
+   the single-field entry bit-equal to its K5 field; times per 90-view
+   apply.
+6. Main path through the CLI (BASELINE config 4): ``simulate`` 256³/90
+   views in arc quadrature with ±2 px / ±0.5° jitter, then ``align`` with
+   COM pre-alignment, 6 outers of 30 CGLS iterations (arc) and 10 lm_slab
+   iterations on (tx, tz, α, β), the moment hook every outer and Aitken
+   every 4. Per outer it prints the volume rel-L2, the refinement cost and
+   the gauge-corrected parameter errors; at outer 5 the rel-L2 must be
+   below outer 0's and ≤ 0.21, the gauge-corrected max |tx|, |tz| errors
+   ≤ 0.05 px, the α and β mean errors below their values at the start, and
+   the K3, K4 and K5 launch counters must have risen in this phase. The
+   single-field entry keeps a counter of its own; lm_slab takes the fused
+   K5, so config 4 reports it as 0.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``nvidia-smi`` name and power limit, and before that the kernels' JSON.
@@ -36,18 +54,29 @@ import numpy as np
 import torch
 
 from tomojax_torch import cli
+from tomojax_torch.align import com_align
 from tomojax_torch.core import phantom
 from tomojax_torch.core import slab_projector as sp
 from tomojax_torch.core.geometry import Geometry, Views
 from tomojax_torch.core.operators import make_operator
 from tomojax_torch.kernels import _build
 from tomojax_torch.kernels import slab as slabk
+from tomojax_torch.utils import io
 
 N, N_PROJ, SEED = 256, 180, 0
+N_ARC = 90                 # config 4: 90 views
 TOL_FWD = TOL_ADJ = 5e-4
 TOL_DOT = 1e-5
+TOL_JAC = 2e-3
 REL_L2_TRUE_MAX = 0.25
+C4_REL_L2_MAX = 0.21       # config 4, outer 5 (reference: 0.193 plane,
+                           # 0.180 arc)
+C4_T_MAX = 0.05            # px, gauge-corrected max |tx|, |tz| error
 KERNEL_SOURCE = "tomojax_torch/kernels/csrc/slab_plane.cu"
+ARC_SOURCE = "tomojax_torch/kernels/csrc/slab_arc.cu"
+COUNTED = (slabk.slab_plane_fwd, slabk.slab_plane_adj, slabk.slab_arc_fwd,
+           slabk.slab_arc_adj, slabk.slab_project_jac,
+           slabk.slab_project_field)
 
 
 def check(ok, msg):
@@ -67,14 +96,25 @@ def cuda_ms(fn, reps):
     warm-up run (CUDA events)."""
     fn()
     torch.cuda.synchronize()
+    return timed(fn, reps)[1]
+
+
+def timed(fn, reps=1):
+    """``(last output, mean ms)`` of ``reps`` runs of ``fn`` (CUDA
+    events, no warm-up)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        fn()
+        out = fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    return out, start.elapsed_time(end) / reps
+
+
+def reset_counts():
+    for fn in COUNTED:
+        fn.launches = 0
 
 
 def phase_kernels(dev):
@@ -99,12 +139,12 @@ def phase_kernels(dev):
 
     fwd_rel, fwd_abs, adj_rel, adj_abs, dot_rel = [], [], [], [], []
     for vol_or, sc, y in groups:
-        ker = slabk.slab_project(vol_or, sc, geom)
+        ker = slabk.slab_plane_fwd(vol_or, sc, geom)
         ref = slabk.slab_project_plain(vol_or, sc, geom)
         fwd_rel.append(float((torch.linalg.norm(ker - ref, dim=(1, 2))
                               / torch.linalg.norm(ref, dim=(1, 2))).max()))
         fwd_abs.append(float((ker - ref).abs().max()))
-        kadj = slabk.slab_backproject(y, sc, geom)
+        kadj = slabk.slab_plane_adj(y, sc, geom)
         radj = slabk.slab_backproject_plain(y, sc, geom)
         adj_rel.append(float(torch.linalg.norm(kadj - radj)
                              / torch.linalg.norm(radj)))
@@ -129,9 +169,9 @@ def phase_kernels(dev):
     def adj(fn):
         return lambda: [fn(y, sc, geom) for _, sc, y in groups]
 
-    t = {"fwd": cuda_ms(fwd(slabk.slab_project), 5),
+    t = {"fwd": cuda_ms(fwd(slabk.slab_plane_fwd), 5),
          "fwd_plain": cuda_ms(fwd(slabk.slab_project_plain), 2),
-         "adj": cuda_ms(adj(slabk.slab_backproject), 5),
+         "adj": cuda_ms(adj(slabk.slab_plane_adj), 5),
          "adj_plain": cuda_ms(adj(slabk.slab_backproject_plain), 2)}
     print(f"K1 {t['fwd']:.3f} ms vs plain {t['fwd_plain']:.3f} ms per "
           f"{N_PROJ}-view apply ({N}^3)")
@@ -160,8 +200,7 @@ def phase_main_path(tmp):
     data = os.path.join(tmp, "config3.npz")
     common = ["--set", "solver.method=cgls", "--set",
               "solver.family=slab_plane", "--set", "solver.niter=60"]
-    slabk.slab_project.launches = 0
-    slabk.slab_backproject.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     cli.main(["simulate", "--size", str(N), "--views", str(N_PROJ),
               "--set", "simulate.family=slab_plane",
@@ -195,14 +234,217 @@ def phase_main_path(tmp):
         print(line)
         check(rel[0] >= rel[1] >= rel[2], f"{name}: rel-L2 rose {rel}")
     print(f"simulate wall {t_sim:.2f} s")
-    launches = {"fwd": slabk.slab_project.launches,
-                "adj": slabk.slab_backproject.launches}
+    launches = {"fwd": slabk.slab_plane_fwd.launches,
+                "adj": slabk.slab_plane_adj.launches}
     print(f"main-path kernel launches: K1 {launches['fwd']}, "
           f"K2 {launches['adj']}")
     check(runs["true"][2] <= REL_L2_TRUE_MAX,
           f"true-views rel-L2 {runs['true'][2]} > {REL_L2_TRUE_MAX}")
     check(launches["fwd"] > 0 and launches["adj"] > 0,
           f"main path did not launch both kernels: {launches}")
+    return launches
+
+
+def per_view_rel(ker, ref):
+    return (torch.linalg.norm(ker - ref, dim=(-2, -1))
+            / torch.linalg.norm(ref, dim=(-2, -1)))
+
+
+def phase_arc_kernels(dev):
+    """K3/K4/K5 (and the single-field entry) against their plain versions
+    at config 4's shapes."""
+    rng = np.random.default_rng(SEED)
+    geom = Geometry(n_proj=N_ARC, vox_shape=(N,) * 3, det_shape=(N, N))
+    amax = np.deg2rad(0.5)
+    views = Views.create(
+        N_ARC, phi=0.3 + np.linspace(0, 2 * np.pi, N_ARC, endpoint=False),
+        alpha=rng.uniform(-amax, amax, N_ARC),
+        beta=rng.uniform(-amax, amax, N_ARC),
+        t=rng.uniform(-2, 2, (N_ARC, 3)), device=dev)
+    gstruct, scalars = sp.scalar_groups(geom, views, "arc", device=dev)
+    check(len(gstruct) >= 4, f"expected >= 4 orientation groups: {gstruct}")
+    vol = torch.as_tensor(phantom.shepp3d(N), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    nu, nv = geom.det_shape
+    groups = []
+    for (idx, sw, yf, uf), sc in zip(gstruct, scalars):
+        vol_or = sp.orient_volume(vol, geom, sw, yf).contiguous()
+        y = torch.randn((len(idx), nu, nv), generator=gen, device=dev)
+        groups.append((vol_or, sc, y))
+
+    err = {k: [] for k in ("fwd_rel", "fwd_abs", "adj_rel", "adj_abs",
+                           "dot", "jac_abs", "field_abs")}
+    jac_rel = torch.zeros(slabk.NJP, dtype=torch.float64)
+    t = {"jac_plain": 0.0}
+    for vol_or, sc, y in groups:
+        ker = slabk.slab_arc_fwd(vol_or, sc, geom)
+        ref = slabk.slab_project_plain(vol_or, sc, geom, "arc")
+        err["fwd_rel"].append(float(per_view_rel(ker, ref).max()))
+        err["fwd_abs"].append(float((ker - ref).abs().max()))
+        kadj = slabk.slab_arc_adj(y, sc, geom)
+        radj = slabk.slab_backproject_plain(y, sc, geom, "arc")
+        err["adj_rel"].append(float(torch.linalg.norm(kadj - radj)
+                                    / torch.linalg.norm(radj)))
+        err["adj_abs"].append(float((kadj - radj).abs().max()))
+        lhs = torch.dot(ker.double().reshape(-1), y.double().reshape(-1))
+        rhs = torch.dot(vol_or.double().reshape(-1),
+                        kadj.double().reshape(-1))
+        err["dot"].append(float(abs(lhs - rhs) / (
+            torch.linalg.norm(ker.double()) * torch.linalg.norm(y.double()))))
+        del ker, ref, kadj, radj
+        kj = slabk.slab_project_jac(vol_or, sc, geom)
+        rj, ms = timed(lambda: slabk.slab_project_jac_plain(vol_or, sc, geom))
+        t["jac_plain"] += ms
+        jac_rel = torch.maximum(jac_rel, per_view_rel(kj, rj).max(dim=0)
+                                .values.double().cpu())
+        err["jac_abs"].append(float((kj - rj).abs().max()))
+        err["field_abs"].append(float((kj[:, 1] - rj[:, 1]).abs().max()))
+        for i, (name, dv, jw, rw) in enumerate(sp.JAC_PASSES[1:], start=1):
+            one = slabk.slab_project(vol_or, sc, geom, "arc", dv, jw, rw)
+            check(torch.equal(one, kj[:, i]),
+                  f"single-field entry {name} differs from its K5 field")
+        del kj, rj
+    fields = dict(zip(slabk.JAC_PASSES, (f"{v:.2e}" for v in jac_rel)))
+    print(f"K3 vs plain: max per-view rel L2 {max(err['fwd_rel']):.3e} "
+          f"(tol {TOL_FWD}), max abs {max(err['fwd_abs']):.3e}")
+    print(f"K4 vs plain vjp: max rel L2 {max(err['adj_rel']):.3e} "
+          f"(tol {TOL_ADJ}), max abs {max(err['adj_abs']):.3e}")
+    print(f"arc adjoint identity |<K3x,y>-<x,K4y>|/(|K3x||y|): max "
+          f"{max(err['dot']):.3e} (tol {TOL_DOT})")
+    print(f"K5 vs 12 plain passes: max per-view rel L2 per field {fields} "
+          f"(tol {TOL_JAC}), max abs {max(err['jac_abs']):.3e}")
+    print("single-field entry (K6): all 11 derivative fields bit-equal to "
+          "their K5 fields")
+
+    def fwd(fn, *a):
+        return lambda: [fn(vo, sc, geom, *a) for vo, sc, _ in groups]
+
+    def adj(fn, *a):
+        return lambda: [fn(y, sc, geom, *a) for _, sc, y in groups]
+
+    t.update({
+        "fwd": cuda_ms(fwd(slabk.slab_arc_fwd), 5),
+        "fwd_plain": cuda_ms(fwd(slabk.slab_project_plain, "arc"), 1),
+        "adj": cuda_ms(adj(slabk.slab_arc_adj), 3),
+        "adj_plain": cuda_ms(adj(slabk.slab_backproject_plain, "arc"), 1),
+        "jac": cuda_ms(fwd(slabk.slab_project_jac), 3),
+        "field": cuda_ms(fwd(slabk.slab_project, "arc", "x"), 3),
+        "field_plain": cuda_ms(fwd(slabk.slab_project_plain, "arc", "x"), 1),
+    })
+    for k, label in (("fwd", "K3"), ("adj", "K4"), ("jac", "K5"),
+                     ("field", "K6 entry (px)")):
+        print(f"{label} {t[k]:.3f} ms vs plain {t[k + '_plain']:.3f} ms per "
+              f"{N_ARC}-view apply ({N}^3)")
+    check(max(err["fwd_rel"]) <= TOL_FWD, f"K3 rel L2 {max(err['fwd_rel'])}")
+    check(max(err["adj_rel"]) <= TOL_ADJ, f"K4 rel L2 {max(err['adj_rel'])}")
+    check(max(err["dot"]) <= TOL_DOT,
+          f"arc adjoint identity {max(err['dot'])}")
+    check(float(jac_rel.max()) <= TOL_JAC, f"K5 fields {fields}")
+    return {"fwd_abs": max(err["fwd_abs"]), "adj_abs": max(err["adj_abs"]),
+            "jac_abs": max(err["jac_abs"]),
+            "field_abs": max(err["field_abs"]), **t}
+
+
+def gauge_fit(phi, tx_err, tz_err, a_err, b_err):
+    """Least-squares fit of the 5 gauge parameters (global volume shift
+    dx, dy, dz and tilt wx, wy) to per-view parameter errors; returns the
+    corrected (tx, tz, alpha, beta) errors."""
+    c, s = np.cos(phi), np.sin(phi)
+    Atx = np.stack([c, s], 1)
+    dxy, *_ = np.linalg.lstsq(Atx, tx_err, rcond=None)
+    Aab = np.concatenate([np.stack([c, s], 1), np.stack([-s, c], 1)], 0)
+    w, *_ = np.linalg.lstsq(Aab, np.concatenate([a_err, b_err]), rcond=None)
+    return (tx_err - Atx @ dxy, tz_err - tz_err.mean(),
+            a_err - np.stack([c, s], 1) @ w, b_err - np.stack([-s, c], 1) @ w)
+
+
+def param_errors(theta, d):
+    """Gauge-corrected (mean, max) |error| of tx, tz, alpha, beta for an
+    (n_proj, 6) θ against the dataset's truth."""
+    errs = gauge_fit(np.asarray(d["phi"], np.float64),
+                     theta[:, 0] - d["xyz"][:, 0],
+                     theta[:, 2] - d["xyz"][:, 2],
+                     theta[:, 4] - d["alpha"], theta[:, 5] - d["beta"])
+    return {k: (float(np.abs(e).mean()), float(np.abs(e).max()))
+            for k, e in zip(("tx", "tz", "alpha", "beta"), errs)}
+
+
+def fmt_errors(e):
+    return " ".join(f"{k} {m:.4g}/{x:.4g}" for k, (m, x) in e.items())
+
+
+def phase_config4(tmp, dev):
+    """BASELINE config 4 through the CLI: arc simulate, then align with
+    COM pre-alignment, arc CGLS and lm_slab."""
+    data = os.path.join(tmp, "config4.npz")
+    out = os.path.join(tmp, "align_c4.npy")
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(["simulate", "--size", str(N), "--views", str(N_ARC),
+              "--set", "simulate.family=slab",
+              "--set", "simulate.max_shift_px=2",
+              "--set", "simulate.max_angle_deg=0.5",
+              "--set", "simulate.seed=0", "-o", data])
+    torch.cuda.synchronize()
+    t_sim = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r = cli.main(["align", "-i", data, "-o", out,
+                  "--set", "align.pre_align_cc=true",
+                  "--set", "align.family=slab",
+                  "--set", "align.refine_method=lm_slab",
+                  "--set", "align.recon=cgls",
+                  "--set", "align.recon_iters=30",
+                  "--set", "align.refine_iters=10",
+                  "--set", "align.param_set=xzab",
+                  "--set", "align.moment_period=1",
+                  "--set", "align.accel_period=4",
+                  "--set", "align.outer_iters=6"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fwd": slabk.slab_arc_fwd.launches,
+                "adj": slabk.slab_arc_adj.launches,
+                "jac": slabk.slab_project_jac.launches,
+                "field": slabk.slab_project_field.launches}
+
+    d = io.load_dataset(data)
+    x = np.load(out)
+    check(x.shape == (N, N, N) and np.isfinite(x).all(),
+          f"config 4: volume shape {x.shape} or non-finite values")
+    hist = r["state"].history
+    thetas = r["theta_per_outer"]
+    check(len(thetas) == 6 == len(hist["recon_rms"]),
+          f"config 4: {len(thetas)} outers recorded")
+    geom = Geometry(n_proj=N_ARC, vox_shape=(N,) * 3, det_shape=(N, N))
+    est = com_align(torch.as_tensor(d["projections"], device=dev), geom,
+                    d["phi"], device=dev).cpu().numpy()
+    th0 = np.zeros((N_ARC, 6))
+    th0[:, 0], th0[:, 2], th0[:, 3] = est[:, 0], est[:, 1], d["phi"]
+    e0 = param_errors(th0, d)
+    print(f"config 4 start (COM, zero tilts): gauge-corrected mean/max "
+          f"{fmt_errors(e0)}")
+    errs = []
+    for k, th in enumerate(thetas):
+        errs.append(param_errors(np.asarray(th, np.float64), d))
+        print(f"config 4 outer {k}: vol rel-L2 {hist['recon_rms'][k]:.4f}, "
+              f"refine cost {hist['refine_cost'][k]:.6g}, gauge-corrected "
+              f"mean/max {fmt_errors(errs[-1])}")
+    print(f"config 4 wall: simulate {t_sim:.2f} s, align {wall:.2f} s")
+    print(f"config-4 kernel launches: K3 {launches['fwd']}, "
+          f"K4 {launches['adj']}, K5 {launches['jac']}, single-field entry "
+          f"{launches['field']} (off the main path: lm_slab takes K5)")
+    rel0, rel5 = hist["recon_rms"][0], hist["recon_rms"][5]
+    last = errs[-1]
+    check(rel5 < rel0 and rel5 <= C4_REL_L2_MAX,
+          f"config 4 vol rel-L2 outer 0 {rel0} -> outer 5 {rel5} "
+          f"(bar {C4_REL_L2_MAX})")
+    check(last["tx"][1] <= C4_T_MAX and last["tz"][1] <= C4_T_MAX,
+          f"config 4 gauge-corrected max tx/tz {last['tx'][1]}/"
+          f"{last['tz'][1]} > {C4_T_MAX} px")
+    check(last["alpha"][0] < e0["alpha"][0]
+          and last["beta"][0] < e0["beta"][0],
+          f"config 4 alpha/beta mean errors did not fall: {last} vs {e0}")
+    check(min(launches["fwd"], launches["adj"], launches["jac"]) > 0,
+          f"config 4 did not launch K3, K4 and K5: {launches}")
     return launches
 
 
@@ -227,6 +469,8 @@ def main():
     tmp = tempfile.mkdtemp(prefix="tomojax_torch_smoke_")
     try:
         launches = phase_main_path(tmp)
+        ka = phase_arc_kernels(dev)
+        arc_launches = phase_config4(tmp, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -239,6 +483,28 @@ def main():
          "replaces": "tomojax/kernels/slab.py:605",
          "launches": launches["adj"], "max_abs_err": k["adj_abs"],
          "ms": k["adj"], "plain_ms": k["adj_plain"]},
+        {"name": "slab_arc_fwd", "route": "cuda", "source": ARC_SOURCE,
+         "replaces": "tomojax/kernels/slab.py:293",
+         "launches": arc_launches["fwd"], "max_abs_err": ka["fwd_abs"],
+         "ms": ka["fwd"], "plain_ms": ka["fwd_plain"]},
+        {"name": "slab_arc_adj", "route": "cuda", "source": ARC_SOURCE,
+         "replaces": "tomojax/kernels/slab.py:605",
+         "launches": arc_launches["adj"], "max_abs_err": ka["adj_abs"],
+         "ms": ka["adj"], "plain_ms": ka["adj_plain"]},
+        {"name": "slab_arc_jac", "route": "cuda", "source": ARC_SOURCE,
+         "replaces": "tomojax/kernels/slab.py:446",
+         "launches": arc_launches["jac"], "max_abs_err": ka["jac_abs"],
+         "ms": ka["jac"], "plain_ms": ka["jac_plain"]},
+        # tomojax's single-field Jacobian entry (its _fwd_kernel with
+        # deriv/jweight/rweight) is served by the K5 kernel: the entry
+        # launches slab_arc_jac and returns one field. It is off the main
+        # path (lm_slab takes the fused K5), so it counts its own launches,
+        # and config 4 makes none.
+        {"name": "slab_project_field", "route": "cuda",
+         "served_by": "slab_arc_jac", "on_main_path": False,
+         "source": ARC_SOURCE, "replaces": "tomojax/kernels/slab.py:293",
+         "launches": arc_launches["field"], "max_abs_err": ka["field_abs"],
+         "ms": ka["field"], "plain_ms": ka["field_plain"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

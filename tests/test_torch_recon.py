@@ -26,6 +26,10 @@ from tomojax_torch.core.operators import make_operator as tmake
 from tomojax_torch.recon import cgls, cgls_init, cgls_steps, sirt
 from tomojax_torch.utils import interop
 
+# These tests run small ops, where torch's intra-op threads only contend
+# with the other test workers on the same cores.
+torch.set_num_threads(1)
+
 F64 = torch.float64
 NITER = 10
 

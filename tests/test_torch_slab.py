@@ -26,6 +26,10 @@ from tomojax_torch.core.operators import make_operator as tmake
 from tomojax_torch.kernels import slab as slabk
 from tomojax_torch.utils import interop
 
+# These tests run small ops, where torch's intra-op threads only contend
+# with the other test workers on the same cores.
+torch.set_num_threads(1)
+
 F64 = torch.float64
 
 
@@ -61,7 +65,9 @@ def test_scalar_groups_match(prob):
     for a, b in zip(tsc, jsc):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-14,
                                    atol=1e-14)
-        got = tsp.params_from_scalars(a)          # (V,) per name
+        # the scalars agree to an ulp (they come from the torch θ → scalars
+        # map); the named fields must follow from a row exactly
+        got = tsp.params_from_scalars(torch.as_tensor(np.array(b)))
         for i in range(a.shape[0]):
             ref = jsp.params_from_scalars(b[i])   # one row
             for name, val in got.items():
@@ -129,7 +135,7 @@ def test_cpu_wrappers_take_plain_version(prob):
     one = {k: v[:1] for k, v in tv.numpy().items()}
     ((_, sw, yf, _),), (sc,) = tsp.scalar_groups(tg, one, dtype=F64)
     vol_or = tsp.orient_volume(torch.as_tensor(prob["vol"]), tg, sw, yf)
-    counts = (slabk.slab_project.launches, slabk.slab_backproject.launches)
+    counts = (slabk.slab_plane_fwd.launches, slabk.slab_plane_adj.launches)
     np.testing.assert_array_equal(
         slabk.slab_project(vol_or, sc, tg).numpy(),
         tsp.forward_oriented(vol_or, sc, tg).numpy())
@@ -138,8 +144,8 @@ def test_cpu_wrappers_take_plain_version(prob):
         slabk.slab_backproject(g, sc, tg).numpy(),
         tsp.adjoint_oriented(g, sc, tg).numpy())
     # no kernel ran: the counters count kernel launches only
-    assert counts == (slabk.slab_project.launches,
-                      slabk.slab_backproject.launches)
+    assert counts == (slabk.slab_plane_fwd.launches,
+                      slabk.slab_plane_adj.launches)
 
 
 def test_voxel_mask_matches_tomojax(prob):
@@ -158,13 +164,7 @@ def test_voxel_mask_matches_tomojax(prob):
     assert top.shape == jop.shape and top.vol_shape == jop.vol_shape
 
 
-@pytest.mark.parametrize("family", ["ray", "voxel", "fast", "slab"])
+@pytest.mark.parametrize("family", ["ray", "voxel", "fast"])
 def test_unported_families_raise(prob, family):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmake(prob["tg"], prob["tv"], family=family, device="cpu")
-
-
-def test_arc_quadrature_raises(prob):
-    with pytest.raises(NotImplementedError, match="K3/K4"):
-        tsp.project(torch.as_tensor(prob["vol"]), prob["tg"], prob["tv"],
-                    quad="arc")

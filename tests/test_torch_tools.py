@@ -1,0 +1,49 @@
+"""The port's measurement scripts run end to end on the CPU at a tiny size
+and leave the modules they instrument as they found them."""
+
+import json
+
+import torch
+
+from tomojax_torch import align as ta
+from tomojax_torch.align import pipeline as tp
+from tomojax_torch.tools import config4_floor, config4_profile
+
+torch.set_num_threads(1)
+
+
+def test_config4_profile_splits_each_outer(tmp_path):
+    before = (tp.cgls_init, tp.cgls_steps, tp.refine_views_slab,
+              tp.moment_match, ta.align_reconstruct)
+    out = tmp_path / "prof.json"
+    config4_profile.main(["--device", "cpu", "--size", "16", "--views", "6",
+                          "--outers", "2", "--out", str(out),
+                          "--set", "align.recon_iters=4",
+                          "--set", "align.refine_iters=2"])
+    assert (tp.cgls_init, tp.cgls_steps, tp.refine_views_slab,
+            tp.moment_match, ta.align_reconstruct) == before
+    rep = json.loads(out.read_text())
+    rows = rep["rows"]
+    assert [r["outer"] for r in rows] == [0, 1]
+    assert [r["profiled"] for r in rows] == [False, True]
+    for r in rows:
+        assert r["recon_s"] > 0 and r["refine_s"] > 0
+        assert r["moment_match_s"] > 0 and r["other_s"] >= 0
+        assert abs(r["recon_s"] + r["refine_s"] + r["moment_match_s"]
+                   + r["other_s"] - r["wall_s"]) < 1e-9
+        # a CPU run takes the plain versions: no kernel launches
+        assert r["launches"] == {"K3": 0, "K4": 0, "K5": 0}
+    assert rep["device"] == "cpu" and rep["kernel_s"] == 0
+
+
+def test_config4_floor_prints_both_families(capsys):
+    config4_floor.main(["--device", "cpu", "--size", "16", "--views", "6",
+                        "--iters", "20"])
+    lines = [line for line in capsys.readouterr().out.splitlines()
+             if line.startswith("true views")]
+    assert [line.split(":")[0] for line in lines] == [
+        "true views, slab", "true views, slab_plane"]
+    for line in lines:
+        rel = [float(tok) for tok in line.split(":")[1].split(";")[0].split()
+               if not tok.startswith("@")]
+        assert len(rel) == 2 and rel[1] <= rel[0] < 1.0

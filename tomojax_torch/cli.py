@@ -4,11 +4,16 @@ The same subcommands, flags and ``--set`` overrides as ``tomojax.cli``,
 plus ``--device`` (default ``cuda``; asking for CUDA without a card
 raises). Ported so far:
 
-- ``simulate``    with ``simulate.family=slab_plane``;
+- ``simulate``    with ``simulate.family`` ``slab`` (arc) or
+  ``slab_plane``;
 - ``reconstruct`` with ``solver.method`` ``sirt`` or ``cgls`` on
-  ``solver.family=slab_plane``, and ``--pre-align none|com``.
+  ``solver.family`` ``slab`` or ``slab_plane``, and ``--pre-align
+  none|com``;
+- ``align`` with ``align.family`` ``slab`` or ``slab_plane`` and
+  ``align.refine_method=lm_slab`` (COM pre-alignment with
+  ``align.pre_align_cc=true``).
 
-``align``, ``--shard``, the other solvers, families and pre-aligners raise
+``--shard``, the other solvers, families, refiners and pre-aligners raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -94,16 +99,17 @@ def _infer_vox_shape(args, d, nu, nv):
 
 
 def cmd_simulate(args):
-    """Phantom → jittered slab_plane projections → HDF5 dataset."""
+    """Phantom → jittered slab projections → HDF5 (or ``.npz``) dataset."""
     from tomojax_torch.core import phantom as ph
     from tomojax_torch.core import slab_projector as sp
     from tomojax_torch.core.geometry import Views
-    from tomojax_torch.core.operators import NOT_PORTED, resolve_device
+    from tomojax_torch.core.operators import (NOT_PORTED, QUADS,
+                                              resolve_device)
     from tomojax_torch.utils import io
 
     cfg = _load_config(args)
     fam = cfg.simulate.family
-    if fam != "slab_plane":
+    if fam not in QUADS:
         raise NotImplementedError(NOT_PORTED.get(
             fam, f"unknown simulate.family {fam!r}"))
     device = resolve_device(args.device)
@@ -127,7 +133,8 @@ def cmd_simulate(args):
     views = Views.create(n_proj, phi=phi, alpha=alpha, beta=beta, t=xyz,
                          device=device)
     with torch.no_grad():
-        proj = sp.project(torch.as_tensor(vol, device=device), geom, views)
+        proj = sp.project(torch.as_tensor(vol, device=device), geom, views,
+                          quad=QUADS[fam])
     io.save_dataset(args.output, projections=proj.reshape(
         n_proj, *geom.det_shape).cpu().numpy(), phi=phi, alpha=alpha,
         beta=beta, xyz=xyz, phantom=vol)
@@ -207,9 +214,89 @@ def cmd_reconstruct(args):
 
 
 def cmd_align(args):
-    raise NotImplementedError(
-        "align: ROADMAP Queue 1 items 7-10 (slab Jacobian, batched LM, "
-        "CC, the alternating driver)")
+    """Joint alignment + reconstruction of a dataset (tomojax's ``align``).
+
+    :returns: dict with the final :class:`~tomojax_torch.align.pipeline.
+        AlignState` (``state``, whose ``history`` holds the per-outer
+        ``recon_rms`` and ``refine_cost``) and the per-view θ after each
+        outer (``theta_per_outer``, (n_proj, 6) numpy arrays)."""
+    from tomojax_torch.align import align_reconstruct, com_align
+    from tomojax_torch.align.pipeline import _check_supported
+    from tomojax_torch.core.geometry import Geometry, Views
+    from tomojax_torch.core.operators import resolve_device
+    from tomojax_torch.utils import io
+
+    cfg = _load_config(args)
+    a = cfg.align
+    _check_supported(a.family, a.recon, a.refine_method, a.debias_period,
+                     a.recon_prec)
+    device = resolve_device(args.device)
+    d = io.load_dataset(args.input)
+    n_proj, nu, nv = d["projections"].shape
+    gt = d.get("phantom")
+    geom = Geometry(n_proj=n_proj, vox_shape=_infer_vox_shape(args, d, nu,
+                                                              nv),
+                    det_shape=(nu, nv))
+    proj = torch.as_tensor(d["projections"], dtype=torch.float32,
+                           device=device)
+    # phi known, jitter unknown
+    views0 = Views.create(n_proj, phi=d["phi"], device=device)
+    if cfg.align.pre_align_cc:
+        # center-of-mass consistency pre-alignment: per-view (tx, tz)
+        est = com_align(proj, geom, d["phi"], device=device).cpu().numpy()
+        t0 = np.zeros((n_proj, 3), np.float32)
+        t0[:, 0] = est[:, 0]
+        t0[:, 2] = est[:, 1]
+        views0 = Views.create(n_proj, phi=d["phi"], t=t0, device=device)
+        print("COM pre-alignment applied "
+              f"(mean |t| = {np.abs(est).mean():.2f} px)")
+
+    # phi is unbounded: the mask decides whether phi is refined at all
+    bounds_lo = np.array([-a.bound_trans, -a.bound_trans, -a.bound_trans,
+                          -np.inf, -a.bound_angle, -a.bound_angle],
+                         np.float32)
+    thetas = []
+    state = align_reconstruct(
+        proj.reshape(n_proj, -1), geom, views0, outer_iters=a.outer_iters,
+        recon=a.recon, recon_iters=a.recon_iters, positivity=a.positivity,
+        param_set=a.param_set, refine_iters=a.refine_iters,
+        family=a.family, refine_method=a.refine_method,
+        recon_chunk=a.recon_chunk, refine_chunk=a.refine_chunk,
+        accel_period=a.accel_period, moment_period=a.moment_period,
+        debias_period=a.debias_period, recon_prec=a.recon_prec,
+        bounds=(bounds_lo, -bounds_lo), ground_truth=gt,
+        checkpoint_dir=a.checkpoint_dir, verbose=True, progress=True,
+        device=device,
+        callback=lambda it, views, volume, history: thetas.append(
+            views.theta6().cpu().numpy()))
+
+    io.save_volume(args.output, state.volume)
+    if "xyz" in d:
+        print_param_table(state.views, d)
+    print(f"wrote {args.output}")
+    return {"state": state, "theta_per_outer": thetas}
+
+
+def print_param_table(views, d, file=None):
+    """Per-view recovered-vs-true table and the mean/max errors."""
+    t = views.t.cpu().numpy()
+    al = views.alpha.cpu().numpy()
+    be = views.beta.cpu().numpy()
+    print("view |   tx (true)      tz (true)    | alpha (true)    "
+          "beta (true)", file=file)
+    for i in range(t.shape[0]):
+        print(f"{i:4d} | {t[i, 0]:+8.4f} ({d['xyz'][i, 0]:+7.4f}) "
+              f"{t[i, 2]:+8.4f} ({d['xyz'][i, 2]:+7.4f}) | "
+              f"{al[i]:+8.5f} ({d['alpha'][i]:+8.5f}) "
+              f"{be[i]:+8.5f} ({d['beta'][i]:+8.5f})", file=file)
+    tx_err = np.abs(t[:, 0] - d["xyz"][:, 0])
+    tz_err = np.abs(t[:, 2] - d["xyz"][:, 2])
+    a_err = np.abs(al - d["alpha"])
+    b_err = np.abs(be - d["beta"])
+    print(f"param errors (mean/max): tx {tx_err.mean():.5f}/{tx_err.max():.5f}"
+          f" tz {tz_err.mean():.5f}/{tz_err.max():.5f}"
+          f" alpha {a_err.mean():.6f}/{a_err.max():.6f}"
+          f" beta {b_err.mean():.6f}/{b_err.max():.6f}", file=file)
 
 
 def main(argv=None):
@@ -237,8 +324,7 @@ def main(argv=None):
                         "datasets with non-cubic volumes)")
     p.set_defaults(fn=cmd_reconstruct)
 
-    p = sub.add_parser("align", help="joint alignment + reconstruction "
-                                     "(not ported)")
+    p = sub.add_parser("align", help="joint alignment + reconstruction")
     _add_common(p)
     p.add_argument("--input", "-i", required=True)
     p.add_argument("--output", "-o", required=True)

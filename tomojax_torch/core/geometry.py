@@ -143,3 +143,27 @@ class Views:
         """Host float64 copies of the fields (for the host-side scalars)."""
         return {f.name: getattr(self, f.name).detach().cpu().numpy()
                 .astype(np.float64) for f in dataclasses.fields(self)}
+
+    def take(self, idx) -> "Views":
+        """The views at ``idx`` (an index array or slice)."""
+        if not isinstance(idx, slice):
+            idx = torch.as_tensor(np.asarray(idx), device=self.phi.device)
+        return Views(**{f.name: getattr(self, f.name)[idx]
+                        for f in dataclasses.fields(self)})
+
+    def theta6(self) -> torch.Tensor:
+        """(n_proj, 6) parameter matrix in the order (tx, ty, tz, phi,
+        alpha, beta)."""
+        return torch.cat([self.t, self.phi[:, None], self.alpha[:, None],
+                          self.beta[:, None]], dim=1)
+
+    @classmethod
+    def from_theta6(cls, theta, cor=None) -> "Views":
+        """Views from an (n_proj, 6) parameter matrix; ``cor`` defaults to
+        zeros of θ's dtype and device."""
+        theta = torch.as_tensor(theta)
+        if cor is None:
+            cor = torch.zeros((theta.shape[0], 3), dtype=theta.dtype,
+                              device=theta.device)
+        return cls(phi=theta[:, 3], alpha=theta[:, 4], beta=theta[:, 5],
+                   t=theta[:, :3], cor=cor)

@@ -2,11 +2,13 @@
 ``tomojax.core.operators``): solvers program against ``TomoOperator`` and
 never see how A is applied.
 
-Ported families:
+Ported families (``core.slab_projector``):
 
-- ``family="slab_plane"`` — the slab-marching operator with one sample
-  per slab plane (``core.slab_projector``); on a CUDA device it runs the
-  hand-written kernels K1/K2.
+- ``family="slab"`` — the slab-marching operator in arc quadrature (the
+  exact ray march's samples); on a CUDA device it runs the hand-written
+  kernels K3/K4.
+- ``family="slab_plane"`` — one sample per slab plane; on a CUDA device it
+  runs K1/K2.
 
 ``voxel_mask`` reproduces the masked system matrix: masked voxels
 contribute nothing to A and receive nothing from Aᵀ.
@@ -26,8 +28,8 @@ NOT_PORTED = {
     "ray": "exact ray family: ROADMAP Queue 1 item 12",
     "voxel": "voxel family: ROADMAP Queue 1 item 15",
     "fast": "fast family: ROADMAP Queue 1 item 16 (kernels K7/K8/K9)",
-    "slab": slabp.ARC_NOT_PORTED,
 }
+QUADS = {"slab": "arc", "slab_plane": "plane"}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -83,27 +85,39 @@ def make_operator(geom: Geometry, views: Views, *,
     """
     if family in NOT_PORTED:
         raise NotImplementedError(NOT_PORTED[family])
-    if family != "slab_plane":
+    if family not in QUADS:
         raise ValueError(f"unknown projector family: {family!r}")
     device = resolve_device(device)
+    gstruct, scalars = slabp.scalar_groups(geom, views, QUADS[family],
+                                           dtype=dtype, device=device)
+    return operator_from_scalars(geom, gstruct, scalars, family=family,
+                                 dtype=dtype, device=device, views=views,
+                                 voxel_mask=voxel_mask)
+
+
+def operator_from_scalars(geom: Geometry, gstruct, scalars, *, family: str,
+                          dtype, device, views=None,
+                          voxel_mask=None) -> TomoOperator:
+    """The slab operator of a given group structure and per-view scalars
+    (``slab_projector.scalar_groups``/``group_scalars_for``): the
+    alternating driver rebuilds it from new scalars every outer."""
+    quad = QUADS[family]
     mask = None
     if voxel_mask is not None:
         mask = torch.as_tensor(voxel_mask, device=device).to(
             dtype).reshape(geom.vox_shape)
-    gstruct, scalars = slabp.scalar_groups(geom, views, "plane",
-                                           dtype=dtype, device=device)
 
     def A(x):
         x = x.reshape(geom.vox_shape).to(dtype)
         if mask is not None:
             x = x * mask
-        return slabp.project_scalars(x, geom, gstruct, scalars)
+        return slabp.project_scalars(x, geom, gstruct, scalars, quad)
 
     def AT(y):
         out = slabp.backproject_scalars(
             y.reshape(geom.n_proj, geom.n_det).to(dtype), geom, gstruct,
-            scalars)
+            scalars, quad)
         return out * mask if mask is not None else out
 
     return TomoOperator(geom=geom, views=views, A=A, AT=AT, family=family,
-                        dtype=dtype, device=device)
+                        dtype=dtype, device=torch.device(device))

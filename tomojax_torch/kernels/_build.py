@@ -1,10 +1,13 @@
 """Build ``csrc/*.cu`` with nvcc into a shared library and load it (ctypes).
 
 The library has a plain C interface, so it builds in seconds (no PyTorch
-headers). It goes into ``build/kernels/`` at the repository root (listed
-in ``.gitignore``), named by a hash of the sources and flags, so an edited
-source is rebuilt and never loaded stale. nvcc is ``$CUDA_HOME/bin/nvcc``,
-else ``/usr/local/cuda/bin/nvcc``, else the one on ``PATH``.
+headers); each source compiles in its own nvcc process, all started
+together, so the build takes as long as its slowest source, and one more
+nvcc links them. It goes into ``build/kernels/`` at the repository root
+(listed in ``.gitignore``), named by a hash of the sources and flags, so
+an edited source is rebuilt and never loaded stale. nvcc is
+``$CUDA_HOME/bin/nvcc``, else ``/usr/local/cuda/bin/nvcc``, else the one
+on ``PATH``.
 """
 
 from __future__ import annotations
@@ -18,18 +21,24 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "slab_plane.cu",)
+SOURCES = (CSRC / "slab_plane.cu", CSRC / "slab_arc.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # int fn(const float* in, const float* scalars, float* out,
-#        int V, int nx, int ny, int nz, int nu, int nv, cudaStream_t)
+#        int V, int nx, int ny, int nz, int nu, int nv, cudaStream_t);
+# the arc kernels take (int n_steps, int n_branch) before the stream
+_PLANE = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_ARC = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 _SIGNATURES = {
-    "slab_plane_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "slab_plane_adj": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "slab_plane_fwd": _PLANE,
+    "slab_plane_adj": _PLANE,
+    "slab_arc_fwd": _ARC,
+    "slab_arc_adj": _ARC,
+    "slab_arc_jac": _ARC,
 }
 
 
@@ -52,6 +61,21 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtomojax_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds):
+    """Run the commands in parallel; raise with the output of any that
+    failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def build() -> Path:
     """Compile the sources unless the hashed library exists; returns its
     path."""
@@ -59,14 +83,19 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    os.replace(tmp, out)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    nvcc = _nvcc()
+    try:
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(SOURCES, objs)])
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return out
 
 

@@ -1,17 +1,34 @@
-"""Plane-quadrature slab kernels: wrappers, plain versions, autograd.
+"""Slab projector kernels: wrappers, plain versions, autograd.
 
-- K1 :func:`slab_project` — forward of one orientation group,
+One wrapper per hand-written kernel, each counting its launches in
+``.launches``:
+
+- K1 :func:`slab_plane_fwd` — plane forward of one orientation group,
   ``vol_or`` (nx, ny, nz) → (V, nu, nv). Replaces tomojax's Pallas
   ``_fwd_kernel`` (quad="plane", ``tomojax/kernels/slab.py:293``).
-- K2 :func:`slab_backproject` — its exact transpose, (V, nu, nv) → the
+- K2 :func:`slab_plane_adj` — its exact transpose, (V, nu, nv) → the
   oriented volume, summed over views. Replaces ``_adj_kernel``
   (quad="plane", ``tomojax/kernels/slab.py:605``).
+- K3 :func:`slab_arc_fwd` — arc forward. Replaces ``_fwd_kernel``
+  (quad="arc").
+- K4 :func:`slab_arc_adj` — its exact transpose. Replaces ``_adj_kernel``
+  (quad="arc").
+- K5 :func:`slab_project_jac` — arc forward plus the 11 other Jacobian
+  building blocks in one pass → (V, 12, nu, nv), :data:`JAC_PASSES`
+  order. Replaces ``_fwd_jac_kernel`` (``tomojax/kernels/slab.py:446``).
 
-Both are hand-written CUDA C++ for ``sm_90a`` (``csrc/slab_plane.cu``),
-built by ``_build.py`` at first use. A tensor on the CPU takes the plain
-PyTorch version beside each wrapper (``core.slab_projector``'s spec); a
-CUDA tensor launches the kernel or raises. Each wrapper counts its kernel
-launches in ``.launches``.
+The public entries dispatch on the quadrature, as tomojax's
+``slab_project_pallas``/``slab_backproject_pallas`` do:
+:func:`slab_project` (K1, K3, and with ``deriv``/``jweight``/``rweight``
+the single-field entry :func:`slab_project_field`, which tomojax served
+with K6 — here it launches K5 and returns one field) and
+:func:`slab_backproject` (K2, K4).
+
+K1/K2 are in ``csrc/slab_plane.cu``, K3/K4/K5 in ``csrc/slab_arc.cu``:
+hand-written CUDA C++ for ``sm_90a``, built by ``_build.py`` at first use.
+A tensor on the CPU takes the plain PyTorch version beside each wrapper
+(``core.slab_projector``'s spec); a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -23,11 +40,24 @@ import torch
 from tomojax_torch.core import slab_projector as sp
 from tomojax_torch.core.geometry import Geometry
 
+JAC_PASSES = tuple(name for name, *_ in sp.JAC_PASSES)
+NJP = len(JAC_PASSES)
 
-# The plain versions: tomojax's XLA plane forward in PyTorch (K1), and
-# autograd's vjp of it (K2).
-slab_project_plain = sp.forward_oriented
-slab_backproject_plain = sp.adjoint_oriented
+
+# The plain versions: tomojax's XLA forward in PyTorch (K1, K3, and the
+# single fields), autograd's vjp of it (K2, K4), and the 12 plain passes
+# stacked (K5).
+def slab_project_plain(vol_or, scalars, geom: Geometry, quad="plane",
+                       deriv=None, jweight=False, rweight=False):
+    return sp.forward_oriented(vol_or, scalars, geom, quad, deriv, jweight,
+                               rweight)
+
+
+def slab_backproject_plain(g, scalars, geom: Geometry, quad="plane"):
+    return sp.adjoint_oriented(g, scalars, geom, quad)
+
+
+slab_project_jac_plain = sp.jac_passes_oriented
 
 
 def _check(name, t, shape):
@@ -42,73 +72,184 @@ def _check(name, t, shape):
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def _launch(fn, inp, scalars, out, geom: Geometry):
+def _launch(fn, inp, scalars, out, geom: Geometry, *arc_args):
+    """Check the operands and launch ``fn`` on the current stream; arc
+    kernels take ``(n_steps, n_branch)`` after the shape arguments."""
     nx, ny, nz = geom.vox_shape
     nu, nv = geom.det_shape
     V = scalars.shape[0]
-    if max(V * nu * nv, nx * ny * nz) >= 2 ** 31:
+    _check("scalars", scalars, (V, sp.NS))
+    if out.numel() >= 2 ** 31 or max(V * nu * nv, nx * ny * nz) >= 2 ** 31:
         raise ValueError("problem too large for 32-bit thread indices")
     with torch.cuda.device(inp.device):
         stream = torch.cuda.current_stream(inp.device).cuda_stream
         rc = fn(ctypes.c_void_p(inp.data_ptr()),
                 ctypes.c_void_p(scalars.data_ptr()),
                 ctypes.c_void_p(out.data_ptr()),
-                V, nx, ny, nz, nu, nv, ctypes.c_void_p(stream))
+                V, nx, ny, nz, nu, nv, *arc_args, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{fn.__name__}: CUDA error {rc}")
 
 
-def slab_project(vol_or, scalars, geom: Geometry):
-    """K1: plane forward of one orientation group → (V, nu, nv).
+def _arc_args(geom: Geometry):
+    return geom.n_steps, sp._n_branch(geom.step_size)
 
-    ``vol_or`` is the oriented volume (nx, ny, nz) and ``scalars`` the
-    group's (V, NS) rows (:func:`~tomojax_torch.core.slab_projector.
-    slab_scalars_np`)."""
-    if vol_or.device.type == "cpu":
-        return slab_project_plain(vol_or, scalars, geom)
+
+def _fwd(entry, vol_or, scalars, geom: Geometry, nfields=None, *arc_args):
     from tomojax_torch.kernels import _build
     nu, nv = geom.det_shape
     V = scalars.shape[0]
     _check("vol_or", vol_or, geom.vox_shape)
-    _check("scalars", scalars, (V, sp.NS))
-    out = torch.empty((V, nu, nv), dtype=torch.float32, device=vol_or.device)
-    _launch(_build.load().slab_plane_fwd, vol_or, scalars, out, geom)
-    slab_project.launches += 1
+    shape = (V, nu, nv) if nfields is None else (V, nfields, nu, nv)
+    out = torch.empty(shape, dtype=torch.float32, device=vol_or.device)
+    _launch(getattr(_build.load(), entry), vol_or, scalars, out, geom,
+            *arc_args)
     return out
 
 
-def slab_backproject(g, scalars, geom: Geometry):
-    """K2: exact transpose of :func:`slab_project`, (V, nu, nv) → oriented
-    volume (nx, ny, nz), summed over the group's views."""
-    if g.device.type == "cpu":
-        return slab_backproject_plain(g, scalars, geom)
+def _adj(entry, g, scalars, geom: Geometry, *arc_args):
     from tomojax_torch.kernels import _build
     nu, nv = geom.det_shape
-    V = scalars.shape[0]
-    _check("g", g, (V, nu, nv))
-    _check("scalars", scalars, (V, sp.NS))
+    _check("g", g, (scalars.shape[0], nu, nv))
     out = torch.empty(geom.vox_shape, dtype=torch.float32, device=g.device)
-    _launch(_build.load().slab_plane_adj, g, scalars, out, geom)
-    slab_backproject.launches += 1
+    _launch(getattr(_build.load(), entry), g, scalars, out, geom,
+            *arc_args)
     return out
 
 
-slab_project.launches = 0
-slab_backproject.launches = 0
+def slab_plane_fwd(vol_or, scalars, geom: Geometry):
+    """K1: plane forward of one orientation group → (V, nu, nv).
+
+    ``vol_or`` is the oriented volume (nx, ny, nz) and ``scalars`` the
+    group's (V, NS) rows (:func:`~tomojax_torch.core.slab_projector.
+    scalar_groups`)."""
+    if vol_or.device.type == "cpu":
+        return slab_project_plain(vol_or, scalars, geom)
+    out = _fwd("slab_plane_fwd", vol_or, scalars, geom)
+    slab_plane_fwd.launches += 1
+    return out
+
+
+def slab_plane_adj(g, scalars, geom: Geometry):
+    """K2: exact transpose of :func:`slab_plane_fwd`, (V, nu, nv) →
+    oriented volume (nx, ny, nz), summed over the group's views."""
+    if g.device.type == "cpu":
+        return slab_backproject_plain(g, scalars, geom)
+    out = _adj("slab_plane_adj", g, scalars, geom)
+    slab_plane_adj.launches += 1
+    return out
+
+
+def slab_arc_fwd(vol_or, scalars, geom: Geometry):
+    """K3: arc forward of one orientation group → (V, nu, nv)."""
+    if vol_or.device.type == "cpu":
+        return slab_project_plain(vol_or, scalars, geom, "arc")
+    out = _fwd("slab_arc_fwd", vol_or, scalars, geom, None,
+               *_arc_args(geom))
+    slab_arc_fwd.launches += 1
+    return out
+
+
+def slab_arc_adj(g, scalars, geom: Geometry):
+    """K4: exact transpose of :func:`slab_arc_fwd` → oriented volume."""
+    if g.device.type == "cpu":
+        return slab_backproject_plain(g, scalars, geom, "arc")
+    out = _adj("slab_arc_adj", g, scalars, geom, *_arc_args(geom))
+    slab_arc_adj.launches += 1
+    return out
+
+
+def slab_project_jac(vol_or, scalars, geom: Geometry):
+    """K5: arc forward + the Jacobian building blocks in one pass →
+    (V, 12, nu, nv), fields in :data:`JAC_PASSES` order."""
+    if vol_or.device.type == "cpu":
+        return slab_project_jac_plain(vol_or, scalars, geom)
+    out = _fwd("slab_arc_jac", vol_or, scalars, geom, NJP,
+               *_arc_args(geom))
+    slab_project_jac.launches += 1
+    return out
+
+
+def _field_index(deriv, jweight, rweight) -> int:
+    for i, (_, dv, jw, rw) in enumerate(sp.JAC_PASSES):
+        if (dv, jw, rw) == (deriv, bool(jweight), bool(rweight)):
+            return i
+    raise ValueError(f"no Jacobian building block deriv={deriv!r}, "
+                     f"jweight={jweight}, rweight={rweight}")
+
+
+def slab_project_field(vol_or, scalars, geom: Geometry, deriv=None,
+                       jweight: bool = False, rweight: bool = False):
+    """One arc Jacobian building block → (V, nu, nv): the single-field
+    entry that tomojax served with K6. It launches the K5 kernel and
+    returns field :func:`_field_index` of its output, so it equals that
+    field bit for bit."""
+    if vol_or.device.type == "cpu":
+        return slab_project_plain(vol_or, scalars, geom, "arc", deriv,
+                                  jweight, rweight)
+    i = _field_index(deriv, jweight, rweight)
+    out = _fwd("slab_arc_jac", vol_or, scalars, geom, NJP,
+               *_arc_args(geom))[:, i]
+    slab_project_field.launches += 1
+    return out
+
+
+def slab_project(vol_or, scalars, geom: Geometry, quad: str = "plane",
+                 deriv=None, jweight: bool = False, rweight: bool = False):
+    """Forward of one orientation group → (V, nu, nv): K1 (plane), K3
+    (arc), or one Jacobian building block (arc with ``deriv``/``jweight``/
+    ``rweight``), which is field :func:`_field_index` of K5's output."""
+    sp._check_quad(quad)
+    if quad == "plane":
+        if deriv is not None or jweight or rweight:
+            raise ValueError("derivative variants are arc-mode only")
+        return slab_plane_fwd(vol_or, scalars, geom)
+    if deriv is None and not jweight and not rweight:
+        return slab_arc_fwd(vol_or, scalars, geom)
+    return slab_project_field(vol_or, scalars, geom, deriv, jweight, rweight)
+
+
+def slab_backproject(g, scalars, geom: Geometry, quad: str = "plane"):
+    """Exact transpose of :func:`slab_project`: K2 (plane) or K4 (arc)."""
+    sp._check_quad(quad)
+    if quad == "plane":
+        return slab_plane_adj(g, scalars, geom)
+    return slab_arc_adj(g, scalars, geom)
+
+
+for _fn in (slab_plane_fwd, slab_plane_adj, slab_arc_fwd, slab_arc_adj,
+            slab_project_jac, slab_project_field):
+    _fn.launches = 0
 
 
 class SlabPlane(torch.autograd.Function):
-    """The kernel pair as one differentiable op: forward = K1, backward =
-    K2 (tomojax's ``_apply_kernel`` custom_vjp). Gradients flow to the
-    volume only."""
+    """The plane kernel pair as one differentiable op: forward = K1,
+    backward = K2 (tomojax's ``_apply_kernel`` custom_vjp). Gradients
+    flow to the volume only."""
 
     @staticmethod
     def forward(ctx, vol_or, scalars, geom):
         ctx.save_for_backward(scalars)
         ctx.geom = geom
-        return slab_project(vol_or, scalars, geom)
+        return slab_plane_fwd(vol_or, scalars, geom)
 
     @staticmethod
     def backward(ctx, g):
         (scalars,) = ctx.saved_tensors
-        return slab_backproject(g.contiguous(), scalars, ctx.geom), None, None
+        return slab_plane_adj(g.contiguous(), scalars, ctx.geom), None, None
+
+
+class SlabArc(torch.autograd.Function):
+    """The arc kernel pair as one differentiable op: forward = K3,
+    backward = K4. Gradients flow to the volume only."""
+
+    @staticmethod
+    def forward(ctx, vol_or, scalars, geom):
+        ctx.save_for_backward(scalars)
+        ctx.geom = geom
+        return slab_arc_fwd(vol_or, scalars, geom)
+
+    @staticmethod
+    def backward(ctx, g):
+        (scalars,) = ctx.saved_tensors
+        return slab_arc_adj(g.contiguous(), scalars, ctx.geom), None, None

@@ -37,6 +37,35 @@ script exits non-zero:
    the K3, K4 and K5 launch counters must have risen in this phase. The
    single-field entry keeps a counter of its own; lm_slab takes the fused
    K5, so config 4 reports it as 0.
+7. The resample kernels K7/K8 and the K9 entry against their plain
+   versions, fp32, at 256³ × 90 jittered views over the full circle (both
+   marching octants), on every call that one fast A of the Shepp phantom
+   (K7, K9) and one fast Aᵀ of a random sinogram (K8) make, with the
+   operands and view chunks the path gives them. Per call relative L2 ≤
+   1e-5, K9 bit-equal to K7, the fast operator's adjoint identity ≤
+   1e-5·‖Ax‖·‖y‖ (float64 dot products); times per 90-view apply of each
+   kernel, its plain version and the one PyTorch call that computes the
+   same function (``grid_sample``'s bilinear kernel
+   ``torch.grid_sampler_2d`` and its input gradient, checked against the
+   plain version first), summed over those calls, and the fast operator's
+   A and Aᵀ.
+8. The fast family's joint alignment through the CLI:
+   examples/joint_align_128.py's protocol at 256³ × 90 views (Shepp
+   phantom projected with the port's fast family, ±2 px / ±1° jitter from
+   ``default_rng(5)``), ``align`` with fast-family SIRT (40 iterations)
+   and 10 ``gd_fast`` iterations on (tx, tz, α, β) from zero jitter, the
+   moment hook every outer, 6 outers (the example runs 8; at this size
+   those took 190 s on the H100). Per outer it prints the volume
+   rel-L2, refinement cost and gauge-corrected errors; the last outer's
+   rel-L2 must be below outer 0's, the gauge-corrected mean |tx| and |tz|
+   at most half their start values, the α and β mean errors below their
+   start values, and K7 and K8 must have launched in this phase (K9 not).
+
+Every kernel's entry in the JSON line carries its time, its plain
+version's, the time of one PyTorch call computing the same function where
+there is one (``library_ms``, else null), and its bound: the larger of
+the bytes it must move over 3.35 TB/s and the operations it must do over
+67 TFLOP/s (the H100 SXM's published HBM and fp32 peaks).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``nvidia-smi`` name and power limit, and before that the kernels' JSON.
@@ -55,11 +84,13 @@ import torch
 
 from tomojax_torch import cli
 from tomojax_torch.align import com_align
+from tomojax_torch.core import fast_projector as fastp
 from tomojax_torch.core import phantom
 from tomojax_torch.core import slab_projector as sp
 from tomojax_torch.core.geometry import Geometry, Views
 from tomojax_torch.core.operators import make_operator
 from tomojax_torch.kernels import _build
+from tomojax_torch.kernels import resample as rs
 from tomojax_torch.kernels import slab as slabk
 from tomojax_torch.utils import io
 
@@ -72,11 +103,19 @@ REL_L2_TRUE_MAX = 0.25
 C4_REL_L2_MAX = 0.21       # config 4, outer 5 (reference: 0.193 plane,
                            # 0.180 arc)
 C4_T_MAX = 0.05            # px, gauge-corrected max |tx|, |tz| error
+N_FAST = 90                # the fast family's phases: 90 views
+FAST_OUTERS = 6           # 8 (the example's) took 190 s on the H100
+TOL_RESAMPLE = 1e-5
+TOL_LIBRARY = 1e-3         # grid_sample rounds its normalized coordinates
 KERNEL_SOURCE = "tomojax_torch/kernels/csrc/slab_plane.cu"
 ARC_SOURCE = "tomojax_torch/kernels/csrc/slab_arc.cu"
+RESAMPLE_SOURCE = "tomojax_torch/kernels/csrc/resample.cu"
 COUNTED = (slabk.slab_plane_fwd, slabk.slab_plane_adj, slabk.slab_arc_fwd,
            slabk.slab_arc_adj, slabk.slab_project_jac,
-           slabk.slab_project_field)
+           slabk.slab_project_field, rs.resample_fwd, rs.resample_transpose,
+           rs.resample_rows_raw)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+F32_FLOPS = 67e12          # H100 SXM, published fp32 outside tensor cores
 
 
 def check(ok, msg):
@@ -110,6 +149,26 @@ def timed(fn, reps=1):
     end.record()
     end.synchronize()
     return out, start.elapsed_time(end) / reps
+
+
+def bound(nbytes, flops):
+    """``(ms, "bytes" or "operations")``: the least time for moving
+    ``nbytes`` and doing ``flops`` at the card's published peaks."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = flops / F32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def slab_bound(groups, taps, fields=1):
+    """Bound of a slab kernel over an apply's orientation groups: it reads
+    each oriented volume, the scalars and writes (or reads) ``fields``
+    detector images per view; it does a multiply-add per tap of each
+    sample (one sample per slab per ray) for each field."""
+    nbytes = flops = 0
+    for vol_or, sc, y in groups:
+        nbytes += 4 * (vol_or.numel() + sc.numel() + fields * y.numel())
+        flops += 2 * taps * fields * y.numel() * vol_or.shape[1]
+    return bound(nbytes, flops)
 
 
 def reset_counts():
@@ -186,6 +245,7 @@ def phase_kernels(dev):
           f"fwd+adjoint {N_PROJ / ((t_A + t_AT) / 1e3):.1f} proj/s "
           f"({N}^3, {N_PROJ} views, slab_plane)")
 
+    t["bound"] = slab_bound(groups, taps=4)
     check(max(fwd_rel) <= TOL_FWD, f"K1 rel L2 {max(fwd_rel)}")
     check(max(adj_rel) <= TOL_ADJ, f"K2 rel L2 {max(adj_rel)}")
     check(max(dot_rel) <= TOL_DOT, f"adjoint identity {max(dot_rel)}")
@@ -331,6 +391,8 @@ def phase_arc_kernels(dev):
         "field": cuda_ms(fwd(slabk.slab_project, "arc", "x"), 3),
         "field_plain": cuda_ms(fwd(slabk.slab_project_plain, "arc", "x"), 1),
     })
+    t["bound"] = slab_bound(groups, taps=8)
+    t["bound_jac"] = slab_bound(groups, taps=8, fields=slabk.NJP)
     for k, label in (("fwd", "K3"), ("adj", "K4"), ("jac", "K5"),
                      ("field", "K6 entry (px)")):
         print(f"{label} {t[k]:.3f} ms vs plain {t[k + '_plain']:.3f} ms per "
@@ -448,6 +510,252 @@ def phase_config4(tmp, dev):
     return launches
 
 
+def fast_problem(dev):
+    """256³ × 90 jittered views over the full circle (both octants)."""
+    rng = np.random.default_rng(SEED)
+    geom = Geometry(n_proj=N_FAST, vox_shape=(N,) * 3, det_shape=(N, N))
+    amax = np.deg2rad(1.0)
+    views = Views.create(
+        N_FAST, phi=0.3 + np.linspace(0, 2 * np.pi, N_FAST, endpoint=False),
+        alpha=rng.uniform(-amax, amax, N_FAST),
+        beta=rng.uniform(-amax, amax, N_FAST),
+        t=rng.uniform(-2, 2, (N_FAST, 3)), device=dev)
+    return geom, views
+
+
+def unique_bytes(t):
+    """Bytes a kernel must read of ``t``: its storage, once, when the
+    tensor is a broadcast (stride 0) view of it."""
+    return min(t.untyped_storage().nbytes(), t.numel() * t.element_size())
+
+
+def rel_l2(a, b):
+    return float(torch.linalg.norm((a - b).double())
+                 / torch.linalg.norm(b.double()))
+
+
+def grid_of(off, sl, m, n):
+    """``grid_sample``'s grid (rows, 1, m, 2), align_corners=True, for the
+    positions off + sl·i on rows of n values."""
+    gx = rs._positions(off, sl, m).reshape(-1, 1, m) * (2.0 / (n - 1)) - 1.0
+    return torch.stack([gx, torch.zeros_like(gx)], dim=-1)
+
+
+def probed(name, probe, run):
+    """``run()`` with ``rs.<name>`` replaced by ``probe(kernel, *args)``:
+    every call the path makes is checked and timed on its own operands, at
+    its own chunking. The path's launches through the probe count on the
+    probe, not on the kernel's counter."""
+    kernel = getattr(rs, name)
+
+    def wrapper(*args):
+        return probe(kernel, *args)
+
+    wrapper.launches = 0
+    setattr(rs, name, wrapper)
+    try:
+        with torch.no_grad():
+            return run()
+    finally:
+        setattr(rs, name, kernel)
+
+
+def phase_resample(dev):
+    """K7/K8/K9 against their plain versions and the library call on every
+    call of one fast A and one fast Aᵀ at 256³ × 90 views, with times and
+    bounds at those calls; then the fast operator's adjoint identity and
+    apply times."""
+    geom, views = fast_problem(dev)
+    E, _ = fastp.view_affine(geom, views.phi, views.alpha, views.beta,
+                             views.t, views.cor)
+    flags = fastp.marching_x(E)
+    check(0 < flags.sum() < N_FAST, f"need both octants: {flags.sum()}")
+    vol = torch.as_tensor(phantom.shepp3d(N), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    y = torch.randn((N_FAST, geom.n_det), generator=gen, device=dev)
+    err = {k: [] for k in ("fwd", "fwd_abs", "adj", "adj_abs", "lib_fwd",
+                           "lib_adj")}
+    t = dict.fromkeys(("fwd", "fwd_plain", "fwd_lib", "raw", "adj",
+                       "adj_plain", "adj_lib"), 0.0)
+    work = {"fwd": [0, 0], "adj": [0, 0]}   # bytes, flops
+    views_per_call = {"fwd": [], "adj": []}
+
+    def fwd_probe(k7, arr, off, sl, m):
+        ker = k7(arr, off, sl, m)
+        ref = rs.resample_rows_plain(arr, off, sl, m)
+        check(torch.equal(rs.resample_rows_raw(arr, off, sl, m), ker),
+              "K9 differs from K7")
+        err["fwd"].append(rel_l2(ker, ref))
+        err["fwd_abs"].append(float((ker - ref).abs().max()))
+        n = arr.shape[-1]
+        inp = arr.reshape(-1, 1, 1, n)
+        grid = grid_of(off, sl, m, n)
+
+        def lib():
+            # grid_sample's own kernel (bilinear, zeros, align_corners);
+            # its cuDNN route refuses these shapes
+            return torch.grid_sampler_2d(inp, grid, 0, 0, True)
+
+        err["lib_fwd"].append(rel_l2(lib().reshape(ker.shape), ref))
+        del ref
+        work["fwd"][0] += (unique_bytes(arr) + 4 * off.numel()
+                           + 4 * sl.numel() + 4 * ker.numel())
+        work["fwd"][1] += 8 * ker.numel()
+        views_per_call["fwd"].append(arr.shape[0])
+        t["fwd"] += cuda_ms(lambda: k7(arr, off, sl, m), 3)
+        t["raw"] += cuda_ms(lambda: rs.resample_rows_raw(arr, off, sl, m), 3)
+        t["fwd_plain"] += cuda_ms(
+            lambda: rs.resample_rows_plain(arr, off, sl, m), 1)
+        t["fwd_lib"] += cuda_ms(lib, 3)
+        return ker
+
+    def adj_probe(k8, g, off, sl, n):
+        ker = k8(g, off, sl, n)
+        ref = rs.resample_rows_transpose_plain(g, off, sl, n)
+        err["adj"].append(rel_l2(ker, ref))
+        err["adj_abs"].append(float((ker - ref).abs().max()))
+        m = g.shape[-1]
+        gout = g.reshape(-1, 1, 1, m)
+        grid = grid_of(off, sl, m, n)
+        shape_in = torch.empty((gout.shape[0], 1, 1, n), device=dev)
+
+        def lib():
+            return torch.ops.aten.grid_sampler_2d_backward(
+                gout, shape_in, grid, 0, 0, True, [True, False])[0]
+
+        err["lib_adj"].append(rel_l2(lib().reshape(ker.shape), ref))
+        del ref
+        work["adj"][0] += (unique_bytes(g) + 4 * off.numel()
+                           + 4 * sl.numel() + 4 * ker.numel())
+        work["adj"][1] += 8 * g.numel()
+        views_per_call["adj"].append(g.shape[0])
+        t["adj"] += cuda_ms(lambda: k8(g, off, sl, n), 3)
+        t["adj_plain"] += cuda_ms(
+            lambda: rs.resample_rows_transpose_plain(g, off, sl, n), 1)
+        t["adj_lib"] += cuda_ms(lib, 3)
+        return ker
+
+    op = make_operator(geom, views, family="fast", device=dev)
+    ax = probed("resample_fwd", fwd_probe, lambda: op.A(vol))
+    aty = probed("resample_transpose", adj_probe, lambda: op.AT(y))
+    for k, label in (("fwd", "K7 (A)"), ("adj", "K8 (AT)")):
+        print(f"{label}: {len(views_per_call[k])} calls, views per call "
+              f"{views_per_call[k]}")
+    print(f"K7 vs plain: max per-call rel L2 {max(err['fwd']):.3e} (tol "
+          f"{TOL_RESAMPLE}), max abs {max(err['fwd_abs']):.3e}; K9 "
+          "bit-equal to K7 on every call")
+    print(f"K8 vs plain vjp: max per-call rel L2 {max(err['adj']):.3e} (tol "
+          f"{TOL_RESAMPLE}), max abs {max(err['adj_abs']):.3e}")
+    print(f"grid_sample vs K7's plain version: max rel L2 "
+          f"{max(err['lib_fwd']):.3e}; its input gradient vs K8's: "
+          f"{max(err['lib_adj']):.3e} (tol {TOL_LIBRARY})")
+    t["bound_fwd"] = bound(*work["fwd"])
+    t["bound_adj"] = bound(*work["adj"])
+    for k, label in (("fwd", "K7"), ("adj", "K8")):
+        b_ms, b_by = t["bound_" + k]
+        print(f"{label} {t[k]:.3f} ms vs plain {t[k + '_plain']:.3f} ms vs "
+              f"library {t[k + '_lib']:.3f} ms per {N_FAST}-view apply "
+              f"({N}^3, 3 passes); bound {b_ms:.3f} ms ({b_by}: "
+              f"{work[k][0] / 1e9:.2f} GB, {work[k][1] / 1e9:.2f} GFLOP)")
+    print(f"K9 entry {t['raw']:.3f} ms per {N_FAST}-view apply")
+
+    lhs = torch.dot(ax.double().reshape(-1), y.double().reshape(-1))
+    rhs = torch.dot(vol.double().reshape(-1), aty.double().reshape(-1))
+    dot = float(abs(lhs - rhs) / (torch.linalg.norm(ax.double())
+                                   * torch.linalg.norm(y.double())))
+    del ax, aty
+    t["A"] = cuda_ms(lambda: op.A(vol), 2)
+    t["AT"] = cuda_ms(lambda: op.AT(y), 2)
+    print(f"fast adjoint identity |<Ax,y>-<x,ATy>|/(|Ax||y|): {dot:.3e} (tol "
+          f"{TOL_DOT})")
+    print(f"fast operator A {t['A']:.3f} ms, AT {t['AT']:.3f} ms per apply; "
+          f"fwd+adjoint {N_FAST / ((t['A'] + t['AT']) / 1e3):.1f} proj/s "
+          f"({N}^3, {N_FAST} views, fast)")
+    check(max(err["fwd"]) <= TOL_RESAMPLE, f"K7 rel L2 {max(err['fwd'])}")
+    check(max(err["adj"]) <= TOL_RESAMPLE, f"K8 rel L2 {max(err['adj'])}")
+    check(max(err["lib_fwd"] + err["lib_adj"]) <= TOL_LIBRARY,
+          f"grid_sample does not compute the resample: {err}")
+    check(dot <= TOL_DOT, f"fast adjoint identity {dot}")
+    return {"fwd_abs": max(err["fwd_abs"]), "adj_abs": max(err["adj_abs"]),
+            **t}
+
+
+def phase_fast_align(tmp, dev, n=N, n_proj=N_FAST, outers=FAST_OUTERS):
+    """The fast family's joint alignment through the CLI with
+    examples/joint_align_128.py's protocol (its data made with the port's
+    fast project)."""
+    data = os.path.join(tmp, "fast.npz")
+    out = os.path.join(tmp, "align_fast.npy")
+    geom = Geometry(n_proj=n_proj, vox_shape=(n,) * 3, det_shape=(n, n))
+    rng = np.random.default_rng(5)
+    t = np.zeros((n_proj, 3))
+    t[:, 0] = rng.uniform(-2, 2, n_proj)
+    t[:, 2] = rng.uniform(-2, 2, n_proj)
+    a = np.deg2rad(rng.uniform(-1, 1, n_proj))
+    b = np.deg2rad(rng.uniform(-1, 1, n_proj))
+    vol = phantom.shepp3d(n)
+    true = Views.create(n_proj, alpha=a, beta=b, t=t, device=dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        meas = fastp.project(torch.as_tensor(vol, device=dev), geom, true)
+    phi = true.phi.cpu().numpy().astype(np.float64)
+    io.save_dataset(data, projections=meas.reshape(n_proj, n, n).cpu()
+                    .numpy(), phi=phi, alpha=a, beta=b, xyz=t, phantom=vol)
+    t_sim = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    r = cli.main(["align", "-i", data, "-o", out, "--device", str(dev),
+                  "--set", "align.family=fast",
+                  "--set", "align.refine_method=gd_fast",
+                  "--set", "align.recon=sirt",
+                  "--set", "align.recon_iters=40",
+                  "--set", "align.refine_iters=10",
+                  "--set", "align.param_set=xzab",
+                  "--set", f"align.outer_iters={outers}"])
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fwd": rs.resample_fwd.launches,
+                "adj": rs.resample_transpose.launches,
+                "raw": rs.resample_rows_raw.launches}
+    d = io.load_dataset(data)
+    x = np.load(out)
+    check(x.shape == (n,) * 3 and np.isfinite(x).all(),
+          f"fast align: volume shape {x.shape} or non-finite values")
+    hist, thetas = r["state"].history, r["theta_per_outer"]
+    check(len(thetas) == outers == len(hist["recon_rms"]),
+          f"fast align: {len(thetas)} outers recorded")
+    th0 = np.zeros((n_proj, 6))
+    th0[:, 3] = d["phi"]
+    e0 = param_errors(th0, d)
+    print(f"fast align start (zero jitter): gauge-corrected mean/max "
+          f"{fmt_errors(e0)}")
+    errs = []
+    for k, th in enumerate(thetas):
+        errs.append(param_errors(np.asarray(th, np.float64), d))
+        print(f"fast align outer {k}: vol rel-L2 {hist['recon_rms'][k]:.4f}, "
+              f"refine cost {hist['refine_cost'][k]:.6g}, gauge-corrected "
+              f"mean/max {fmt_errors(errs[-1])}")
+    print(f"fast align wall: simulate {t_sim:.2f} s, align {wall:.2f} s "
+          f"({n}^3, {n_proj} views, {outers} outers)")
+    print(f"fast-align kernel launches: K7 {launches['fwd']}, K8 "
+          f"{launches['adj']}, K9 entry {launches['raw']} (off the main "
+          "path)")
+    last = errs[-1]
+    check(hist["recon_rms"][-1] < hist["recon_rms"][0],
+          f"fast align vol rel-L2 did not fall: {hist['recon_rms']}")
+    check(last["tx"][0] <= 0.5 * e0["tx"][0]
+          and last["tz"][0] <= 0.5 * e0["tz"][0],
+          f"fast align mean tx/tz errors not halved: {last} vs {e0}")
+    check(last["alpha"][0] < e0["alpha"][0]
+          and last["beta"][0] < e0["beta"][0],
+          f"fast align alpha/beta mean errors did not fall: {last} vs {e0}")
+    check(launches["fwd"] > 0 and launches["adj"] > 0
+          and launches["raw"] == 0,
+          f"fast align launches: {launches}")
+    return launches, wall
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; "
@@ -471,30 +779,38 @@ def main():
         launches = phase_main_path(tmp)
         ka = phase_arc_kernels(dev)
         arc_launches = phase_config4(tmp, dev)
+        kr = phase_resample(dev)
+        fast_launches, _ = phase_fast_align(tmp, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    def timing(ms, plain_ms, bnd, library_ms=None):
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": library_ms}
+
+    # library_ms is null for K1-K6: no single PyTorch call computes a slab
+    # projection (it is a sum of gathers along rays)
     kernels = [
         {"name": "slab_plane_fwd", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "tomojax/kernels/slab.py:293",
          "launches": launches["fwd"], "max_abs_err": k["fwd_abs"],
-         "ms": k["fwd"], "plain_ms": k["fwd_plain"]},
+         **timing(k["fwd"], k["fwd_plain"], k["bound"])},
         {"name": "slab_plane_adj", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "tomojax/kernels/slab.py:605",
          "launches": launches["adj"], "max_abs_err": k["adj_abs"],
-         "ms": k["adj"], "plain_ms": k["adj_plain"]},
+         **timing(k["adj"], k["adj_plain"], k["bound"])},
         {"name": "slab_arc_fwd", "route": "cuda", "source": ARC_SOURCE,
          "replaces": "tomojax/kernels/slab.py:293",
          "launches": arc_launches["fwd"], "max_abs_err": ka["fwd_abs"],
-         "ms": ka["fwd"], "plain_ms": ka["fwd_plain"]},
+         **timing(ka["fwd"], ka["fwd_plain"], ka["bound"])},
         {"name": "slab_arc_adj", "route": "cuda", "source": ARC_SOURCE,
          "replaces": "tomojax/kernels/slab.py:605",
          "launches": arc_launches["adj"], "max_abs_err": ka["adj_abs"],
-         "ms": ka["adj"], "plain_ms": ka["adj_plain"]},
+         **timing(ka["adj"], ka["adj_plain"], ka["bound"])},
         {"name": "slab_arc_jac", "route": "cuda", "source": ARC_SOURCE,
          "replaces": "tomojax/kernels/slab.py:446",
          "launches": arc_launches["jac"], "max_abs_err": ka["jac_abs"],
-         "ms": ka["jac"], "plain_ms": ka["jac_plain"]},
+         **timing(ka["jac"], ka["jac_plain"], ka["bound_jac"])},
         # tomojax's single-field Jacobian entry (its _fwd_kernel with
         # deriv/jweight/rweight) is served by the K5 kernel: the entry
         # launches slab_arc_jac and returns one field. It is off the main
@@ -504,7 +820,27 @@ def main():
          "served_by": "slab_arc_jac", "on_main_path": False,
          "source": ARC_SOURCE, "replaces": "tomojax/kernels/slab.py:293",
          "launches": arc_launches["field"], "max_abs_err": ka["field_abs"],
-         "ms": ka["field"], "plain_ms": ka["field_plain"]},
+         **timing(ka["field"], ka["field_plain"], ka["bound_jac"])},
+        {"name": "resample_fwd", "route": "cuda", "source": RESAMPLE_SOURCE,
+         "replaces": "tomojax/kernels/resample.py:38",
+         "launches": fast_launches["fwd"], "max_abs_err": kr["fwd_abs"],
+         **timing(kr["fwd"], kr["fwd_plain"], kr["bound_fwd"],
+                  kr["fwd_lib"])},
+        {"name": "resample_transpose", "route": "cuda",
+         "source": RESAMPLE_SOURCE,
+         "replaces": "tomojax/kernels/resample.py:111",
+         "launches": fast_launches["adj"], "max_abs_err": kr["adj_abs"],
+         **timing(kr["adj"], kr["adj_plain"], kr["bound_adj"],
+                  kr["adj_lib"])},
+        # tomojax's non-differentiable direct entry is served by the K7
+        # kernel, off the main path, with a counter of its own (0 there);
+        # it is bit-equal to K7 on every phase-7 call, so its error is K7's
+        {"name": "resample_raw", "route": "cuda", "served_by": "resample_fwd",
+         "on_main_path": False, "source": RESAMPLE_SOURCE,
+         "replaces": "tomojax/kernels/resample.py:356",
+         "launches": fast_launches["raw"], "max_abs_err": kr["fwd_abs"],
+         **timing(kr["raw"], kr["fwd_plain"], kr["bound_fwd"],
+                  kr["fwd_lib"])},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -177,16 +177,28 @@ def test_align_slab_plane_sirt_runs(prob):
 
 @pytest.mark.parametrize("kw, match", [
     (dict(family="ray"), "item 12"),
-    (dict(family="fast"), "item 16"),
     (dict(family="voxel"), "item 15"),
     (dict(refine_method="lm"), "item 14"),
-    (dict(refine_method="gd_fast"), "item 16"),
     (dict(debias_period=1), "item 12"),
     (dict(recon_prec="bf16"), "Queue 3"),
 ])
 def test_unported_options_raise(prob, kw, match):
     with pytest.raises(NotImplementedError, match=match):
         _align(prob, **kw)
+
+
+def test_com_align_device(prob):
+    """A tensor keeps its device; anything else resolves to the card, and
+    raises without one unless the CPU is asked for."""
+    geom, phi = prob["tg"], prob["init"].phi.numpy()
+    meas = np.array(prob["meas"])
+    from tomojax_torch.align import com_align
+    got = com_align(torch.as_tensor(meas), geom, phi)
+    assert got.device.type == "cpu" and got.shape == (geom.n_proj, 2)
+    assert torch.equal(got, com_align(meas, geom, phi, device="cpu"))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            com_align(meas, geom, phi)
 
 
 def test_cli_align_end_to_end(tmp_path):

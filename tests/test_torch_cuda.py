@@ -1,4 +1,5 @@
-"""The CUDA kernels K1-K5 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K5, K7 and K8 against their plain PyTorch versions,
+on the card.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 no JAX, so on the card it runs without the JAX conftest:
@@ -8,18 +9,23 @@ no JAX, so on the card it runs without the JAX conftest:
 Tolerances are tomojax's own bars for its TPU kernel
 (tests/test_slab_kernel.py): 5e-4 relative per view forward and for the
 adjoint, 2e-3 per view for the Jacobian building blocks; the adjoint
-identity holds to float32 summation rounding (1e-5).
+identity holds to float32 summation rounding (1e-5). The resample kernels
+K7/K8 choose the plain version's taps to the last bit, so they agree with
+it to float32 summation rounding (1e-5 relative).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from tomojax_torch.align.refine import gradient_descent_views
 from tomojax_torch.align.slab_refine import refine_views_slab
+from tomojax_torch.core import fast_projector as fastp
 from tomojax_torch.core import phantom
 from tomojax_torch.core import slab_projector as sp
 from tomojax_torch.core.geometry import Geometry, Views
 from tomojax_torch.core.operators import make_operator
+from tomojax_torch.kernels import resample as rs
 from tomojax_torch.kernels import slab as slabk
 from tomojax_torch.recon import cgls
 
@@ -222,5 +228,134 @@ def test_refine_views_slab_on_card_tracks_cpu(cuda):
                              true.to(cuda), geom, init, **kw)
     assert slabk.slab_arc_fwd.launches > before[0]
     assert slabk.slab_project_jac.launches > before[1]
+    err = (card.theta6.cpu().double() - cpu.theta6).abs().max()
+    assert float(err) <= 1e-3, err
+
+
+def _resample_case(device, V=3, R1=40, R2=24, N=96, M=130, seed=0):
+    """Strided rows (a block shared by the views and a transposed view),
+    offsets reaching past both ends, per-view slopes of both signs and
+    |slope| < 1."""
+    rng = np.random.default_rng(seed)
+    block = torch.as_tensor(rng.random((R2, R1, N)), dtype=torch.float32,
+                            device=device)
+    rows = block.transpose(0, 1).expand(V, R1, R2, N)
+    off = torch.as_tensor(rng.uniform(-N * 0.5, N * 1.3, (V, R1, R2)),
+                          dtype=torch.float32, device=device)
+    slope = torch.tensor([1.17, -0.61, 0.93], device=device)[:V]
+    g = torch.as_tensor(rng.standard_normal((V, R1, R2, M)),
+                        dtype=torch.float32, device=device)
+    return rows, off, slope, g
+
+
+def test_k7_k9_match_plain(cuda):
+    rows, off, slope, _ = _resample_case(cuda)
+    before = rs.resample_rows_raw.launches
+    ker = rs.resample_fwd(rows, off, slope, 130)
+    raw = rs.resample_rows_raw(rows, off, slope, 130)
+    ref = rs.resample_rows_plain(rows, off, slope, 130)
+    torch.cuda.synchronize()
+    assert rs.resample_rows_raw.launches == before + 1
+    assert torch.equal(raw, ker)
+    rel = float(torch.linalg.norm(ker - ref) / torch.linalg.norm(ref))
+    assert rel <= 1e-5, rel
+
+
+def test_k8_matches_plain_vjp_and_adjoint_identity(cuda):
+    rows, off, slope, g = _resample_case(cuda)
+    ker = rs.resample_transpose(g, off, slope, 96)
+    ref = rs.resample_rows_transpose_plain(g, off, slope, 96)
+    torch.cuda.synchronize()
+    rel = float(torch.linalg.norm(ker - ref) / torch.linalg.norm(ref))
+    assert rel <= 1e-5, rel
+    x = rows.contiguous()
+    ax = rs.resample_fwd(x, off, slope, 130)
+    lhs = torch.dot(ax.double().reshape(-1), g.double().reshape(-1))
+    rhs = torch.dot(x.double().reshape(-1), ker.double().reshape(-1))
+    bound = 1e-5 * torch.linalg.norm(ax.double()) * torch.linalg.norm(
+        g.double())
+    assert float(abs(lhs - rhs)) <= float(bound), (lhs, rhs)
+
+
+def test_k8_tiny_slopes_hold_k7_entries(cuda):
+    """Slopes far below the positions' rounding step (|slope| ~ 1e-7 at
+    positions ~10, where float32 spacing is ~1e-6) with offsets a few ulps
+    off an integer: K7 still equals its plain version bit for bit, and K8
+    still gathers every entry of K7's matrix (elementwise against the plain
+    vjp; a missed entry would be off by its weight, ~1e-6)."""
+    V, R, N, M = 4, 64, 24, 256
+    rng = np.random.default_rng(2)
+    base = rng.integers(2, N - 3, (V, R)).astype(np.float32)
+    ulps = rng.integers(-4, 5, (V, R)).astype(np.float32)
+    off = torch.as_tensor(base + ulps * np.spacing(base), device=cuda)
+    slope = torch.tensor([1e-7, -1e-7, 3e-8, -2.5e-6], device=cuda)
+    rows = torch.as_tensor(rng.random((V, R, N)), dtype=torch.float32,
+                           device=cuda)
+    g = torch.as_tensor(rng.random((V, R, M)), dtype=torch.float32,
+                        device=cuda)
+    assert torch.equal(rs.resample_fwd(rows, off, slope, M),
+                       rs.resample_rows_plain(rows, off, slope, M))
+    ker = rs.resample_transpose(g, off, slope, N)
+    ref = rs.resample_rows_transpose_plain(g, off, slope, N)
+    torch.testing.assert_close(ker, ref, rtol=1e-5, atol=1e-9)
+
+
+def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in ("resample_rows_plain", "resample_rows_transpose_plain"):
+        monkeypatch.setattr(rs, name, refuse)
+    rows, off, slope, g = _resample_case(cuda)
+    before = (rs.resample_fwd.launches, rs.resample_transpose.launches)
+    rs.resample_fwd(rows, off, slope, 130)
+    rs.resample_transpose(g, off, slope, 96)
+    geom, views, vol, _ = _problem(n=32, n_proj=8)
+    x = torch.as_tensor(vol, device=cuda)
+    op = make_operator(geom, views, family="fast", device=cuda)
+    op.AT(op.A(x))
+    assert rs.resample_fwd.launches > before[0] + 1
+    assert rs.resample_transpose.launches > before[1] + 1
+    with pytest.raises(TypeError):
+        rs.resample_fwd(rows.double(), off.double(), slope.double(), 130)
+    with pytest.raises(ValueError):
+        rs.resample_fwd(rows, off.cpu(), slope, 130)
+
+
+def test_fast_operator_on_card_tracks_cpu(cuda):
+    geom, views, vol, rng = _problem(n=32, n_proj=8)
+    y = rng.standard_normal((8, geom.n_det))
+    out = []
+    for dev in ("cpu", cuda):
+        op = make_operator(geom, views, family="fast", device=dev)
+        out.append((op.A(torch.as_tensor(vol, device=dev)).cpu(),
+                    op.AT(torch.as_tensor(y, dtype=torch.float32,
+                                          device=dev)).cpu()))
+    for cpu, card in zip(*out):
+        assert float(torch.linalg.norm(card - cpu)
+                     / torch.linalg.norm(cpu)) < 1e-5
+
+
+def test_gd_fast_on_card_tracks_cpu(cuda):
+    geom = Geometry(n_proj=6, vox_shape=(32,) * 3, det_shape=(32, 32))
+    rng = np.random.default_rng(0)
+    th = np.zeros((6, 6))
+    th[:, 3] = np.linspace(0.1, 3.0, 6)
+    th[:, [0, 2]] = rng.uniform(-1, 1, (6, 2))
+    th[:, [4, 5]] = rng.uniform(-0.01, 0.01, (6, 2))
+    vol = torch.as_tensor(phantom.shepp3d(32), dtype=torch.float64)
+    meas = fastp.project(vol, geom, Views.from_theta6(torch.as_tensor(th)),
+                         dtype=torch.float64)
+    th0 = th.copy()
+    th0[:, [0, 2]] += 0.3
+    th0[:, [4, 5]] = 0.0
+    kw = dict(max_iter=4)
+    cpu = gradient_descent_views(vol, meas, geom, torch.as_tensor(th0),
+                                 torch.zeros(6, 3), dtype=torch.float64, **kw)
+    before = rs.resample_transpose.launches
+    card = gradient_descent_views(vol.float().to(cuda), meas.float().to(cuda),
+                                  geom, torch.as_tensor(th0), torch.zeros(6, 3),
+                                  **kw)
+    assert rs.resample_transpose.launches > before
     err = (card.theta6.cpu().double() - cpu.theta6).abs().max()
     assert float(err) <= 1e-3, err

@@ -6,11 +6,13 @@ find, written in PyTorch's idiom: plain functions on tensors, an explicit
 ``torch.autograd.Function`` around each hand-written kernel pair.
 
 - ``core``    : geometry, rotations, phantoms, the slab-marching projector
-                (plane quadrature) and the matrix-free operator.
+                (plane and arc quadrature), the fast multi-pass projector
+                and the matrix-free operator.
 - ``kernels`` : hand-written CUDA kernels for ``sm_90a`` and their plain
                 PyTorch versions (a CPU tensor takes the plain version).
-- ``recon``   : CGLS and SIRT as host loops over the operator.
-- ``align``   : COM pre-alignment.
+- ``recon``   : CGLS, SIRT and the line searches as host loops.
+- ``align``   : COM pre-alignment, moment matching, the batched slab LM,
+                fast-family gradient descent and the alternating driver.
 - ``utils``   : config dataclasses, dataset IO, and interop with tomojax's
                 state (as numpy arrays).
 

@@ -7,6 +7,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tomojax_torch.core.operators import resolve_device
+
 
 def com_align(projections, geom, phi, *, dtype=torch.float32, device=None):
     """Per-view (tx, tz) from the sinogram center-of-mass (Helgason–Ludwig
@@ -18,8 +20,13 @@ def com_align(projections, geom, phi, *, dtype=torch.float32, device=None):
     span and the negated residual returned; v_com keeps plain mean
     removal (assuming zero-mean jitter).
 
+    :param device: torch device (default: the projections' device if they
+        are a tensor, else ``cuda``).
     :returns: (n_proj, 2) tensor of per-view (tx, tz) estimates.
     """
+    if device is None and torch.is_tensor(projections):
+        device = projections.device
+    device = resolve_device(device)
     phi = np.asarray(phi, np.float64)
     n = len(phi)
     nu, nv = geom.det_shape

@@ -1,22 +1,25 @@
 """Alternating reconstruction ↔ alignment driver with checkpoint/resume.
 
 Counterpart of ``tomojax.align.pipeline.align_reconstruct`` for the slab
-families: alternate
+and fast families: alternate
 
 1. reconstruct (CGLS or SIRT, warm-started from the previous outer) with
    the current per-view rigid estimates, then
 2. refine every view's masked 6-DoF parameters against the measured
-   projections with the batched slab LM (``refine_method="lm_slab"``),
+   projections with the batched slab LM (``refine_method="lm_slab"``) or
+   Armijo gradient descent through the fast family
+   (``refine_method="gd_fast"``),
 3. optionally correct (tx, tz) by first-moment matching against the
    reprojection (the moment hook) and extrapolate the θ sequence
    (Aitken Δ², with a corner escape and a tilt-sign flip rescue).
 
 Each outer iteration can checkpoint (volume, per-view θ, history and the
 extrapolation state) and a restart resumes from the latest checkpoint.
-The octant groups of the solver and of the refinement are frozen across
-outers, as in tomojax. What tomojax needs only against its TPU runtime
-(compiled-program caches, per-chunk partial refinement files) has no
-counterpart here.
+The slab families' octant groups of the solver and of the refinement are
+frozen across outers, as in tomojax; the fast family regroups its views
+at every apply, as tomojax's does. What tomojax needs only against its
+TPU runtime (compiled-program caches, per-chunk partial refinement files)
+has no counterpart here.
 """
 
 from __future__ import annotations
@@ -29,11 +32,12 @@ import numpy as np
 import torch
 
 from tomojax_torch.align.cc import moment_match
-from tomojax_torch.align.refine import PARAM_SETS, RefineResult
+from tomojax_torch.align.refine import (PARAM_SETS, RefineResult,
+                                        gradient_descent_views)
 from tomojax_torch.align.slab_refine import refine_views_slab
 from tomojax_torch.core import slab_projector as sp
 from tomojax_torch.core.geometry import Geometry, Views
-from tomojax_torch.core.operators import (NOT_PORTED, QUADS,
+from tomojax_torch.core.operators import (NOT_PORTED, QUADS, make_operator,
                                           operator_from_scalars,
                                           resolve_device)
 from tomojax_torch.recon.cgls import cgls_init, cgls_steps
@@ -41,7 +45,6 @@ from tomojax_torch.recon.sirt import sirt
 
 REFINE_NOT_PORTED = {
     "lm": "refine_method='lm' (exact-family LM): ROADMAP Queue 1 item 14",
-    "gd_fast": "refine_method='gd_fast': ROADMAP Queue 1 item 16",
 }
 
 
@@ -127,11 +130,11 @@ def _check_supported(family, recon, refine_method, debias_period,
                      recon_prec):
     if family in NOT_PORTED:
         raise NotImplementedError(NOT_PORTED[family])
-    if family not in QUADS:
+    if family not in QUADS and family != "fast":
         raise ValueError(f"unknown projector family: {family!r}")
     if refine_method in REFINE_NOT_PORTED:
         raise NotImplementedError(REFINE_NOT_PORTED[refine_method])
-    if refine_method != "lm_slab":
+    if refine_method not in ("lm_slab", "gd_fast"):
         raise ValueError(f"unknown refine_method {refine_method!r}")
     if debias_period:
         raise NotImplementedError(
@@ -171,8 +174,9 @@ def align_reconstruct(projections, geom: Geometry, views0: Views, *,
     """Run the alternating alignment + reconstruction loop.
 
     Arguments and defaults are tomojax's; the port runs ``family`` "slab"
-    (arc) or "slab_plane" with ``refine_method="lm_slab"`` and raises
-    ``NotImplementedError`` naming the ROADMAP item for the rest.
+    (arc), "slab_plane" or "fast" with ``refine_method`` "lm_slab" or
+    "gd_fast", and raises ``NotImplementedError`` naming the ROADMAP item
+    for the rest.
 
     :param projections: measured sinogram ``(n_proj, n_det)`` or
         ``(n_proj, nu, nv)``.
@@ -180,8 +184,10 @@ def align_reconstruct(projections, geom: Geometry, views0: Views, *,
         (``bounds``, default ±3 px / ±0.02 rad) is centred on them.
     :param recon: "cgls" (state-carrying, chunked by ``recon_chunk``) or
         "sirt" (chunks stop at the semi-convergence stop).
-    :param refine_chunk: views per refinement call, chunked within the
-        frozen octant groups (default: bounded by detector size).
+    :param refine_chunk: views per refinement call (lm_slab: chunked
+        within the frozen octant groups, default bounded by detector size;
+        gd_fast: default all views, whose cost and gradient evaluations
+        are chunked by memory).
     :param accel_period: Aitken-extrapolate θ every this many outers (with
         a one-shot corner escape and a tilt-sign flip rescue).
     :param moment_period: every this many outers, correct (tx, tz) by
@@ -240,7 +246,7 @@ def align_reconstruct(projections, geom: Geometry, views0: Views, *,
     lo, hi = theta_init + lo_off, theta_init + hi_off
     lo_np = lo.cpu().numpy().astype(np.float64)
     hi_np = hi.cpu().numpy().astype(np.float64)
-    quad = QUADS[family]
+    quad = QUADS.get(family)
     gt = (None if ground_truth is None
           else torch.as_tensor(np.asarray(ground_truth)).to(**kw))
     rtol = 0.0 if reinit_tol is None else float(reinit_tol)
@@ -292,16 +298,36 @@ def align_reconstruct(projections, geom: Geometry, views0: Views, *,
                               device=device),
             converged=torch.ones((n,), dtype=torch.bool, device=device))
 
+    def gd_refine(vws):
+        # tomojax's jax.vmap of gradient_descent_view, host-chunked by
+        # refine_chunk; the volume is a constant of the θ-gradient (so no
+        # K8 launch is spent on pass 1's rows), and the refinement enables
+        # autograd for its own gradients
+        th_all = vws.theta6()
+        step = refine_chunk or n
+        parts = []
+        for i0 in range(0, n, step):
+            sl = slice(i0, min(i0 + step, n))
+            parts.append(gradient_descent_views(
+                volume.detach(), projections[sl], geom, th_all[sl],
+                vws.cor[sl], mask=mask, max_iter=refine_iters,
+                family="fast", dtype=dtype))
+        hb(f"outer {it}: refine {n}/{n}")
+        return RefineResult(*(torch.cat(x) for x in zip(*parts)))
+
     for it in range(start_iter, outer_iters):
-        # ---- reconstruction on frozen octant groups --------------------
-        res = (sp.group_scalars_for(geom, views, gstruct, quad, **kw)
-               if gstruct is not None else None)
-        if res is None:
-            gstruct, scalars = sp.scalar_groups(geom, views, quad, **kw)
+        if family == "fast":
+            op = make_operator(geom, views, family=family, **kw)
         else:
-            gstruct, scalars = res
-        op = operator_from_scalars(geom, gstruct, scalars, family=family,
-                                   **kw)
+            # ---- reconstruction on frozen octant groups ----------------
+            res = (sp.group_scalars_for(geom, views, gstruct, quad, **kw)
+                   if gstruct is not None else None)
+            if res is None:
+                gstruct, scalars = sp.scalar_groups(geom, views, quad, **kw)
+            else:
+                gstruct, scalars = res
+            op = operator_from_scalars(geom, gstruct, scalars,
+                                       family=family, **kw)
         chunk = recon_chunk or recon_iters
         rms = 0.0
         if recon == "cgls":
@@ -331,9 +357,15 @@ def align_reconstruct(projections, geom: Geometry, views0: Views, *,
                     break
         history["recon_rms"].append(rms)
 
-        # ---- batched slab LM refinement --------------------------------
-        ref = lm_refine(views)
-        if accel_period and (it + 1) % accel_period == 0:
+        # ---- batched refinement ----------------------------------------
+        if refine_method == "gd_fast":
+            ref = gd_refine(views)
+            ref = ref._replace(theta6=torch.minimum(
+                torch.maximum(ref.theta6, lo), hi))
+        else:
+            ref = lm_refine(views)
+        if (refine_method == "lm_slab" and accel_period
+                and (it + 1) % accel_period == 0):
             # flip rescue: re-run LM from sign-flipped tilt inits for every
             # view; keep a view's flip only where it cuts the cost by 2%
             # (near-equal basins must not flip on operator noise)
@@ -376,14 +408,16 @@ def align_reconstruct(projections, geom: Geometry, views0: Views, *,
             if mom_mask is None:
                 mom_mask = torch.as_tensor(
                     _support_mask(geom, projections.cpu().numpy())).to(**kw)
-            # reuse the solver's frozen octant groups for the synth apply
-            res = sp.group_scalars_for(geom, views, gstruct, quad, **kw)
-            if res is None:
-                synth = sp.project(volume * mom_mask, geom, views,
-                                   quad=quad, **kw)
+            if family == "fast":
+                synth = make_operator(geom, views, family=family, **kw).A(
+                    volume * mom_mask)
             else:
-                synth = sp.project_scalars(volume * mom_mask, geom, *res,
-                                           quad)
+                # reuse the solver's frozen octant groups for the synth apply
+                res = sp.group_scalars_for(geom, views, gstruct, quad, **kw)
+                synth = (sp.project(volume * mom_mask, geom, views,
+                                    quad=quad, **kw) if res is None else
+                         sp.project_scalars(volume * mom_mask, geom, *res,
+                                            quad))
             dmom = _project_out_gauge(
                 moment_match(projections, synth, geom.det_shape), views.phi)
             th = theta.to(dmom.dtype).clone()

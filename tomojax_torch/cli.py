@@ -7,11 +7,11 @@ raises). Ported so far:
 - ``simulate``    with ``simulate.family`` ``slab`` (arc) or
   ``slab_plane``;
 - ``reconstruct`` with ``solver.method`` ``sirt`` or ``cgls`` on
-  ``solver.family`` ``slab`` or ``slab_plane``, and ``--pre-align
-  none|com``;
-- ``align`` with ``align.family`` ``slab`` or ``slab_plane`` and
-  ``align.refine_method=lm_slab`` (COM pre-alignment with
-  ``align.pre_align_cc=true``).
+  ``solver.family`` ``slab``, ``slab_plane`` or ``fast``, and
+  ``--pre-align none|com``;
+- ``align`` with ``align.family`` ``slab``, ``slab_plane`` or ``fast`` and
+  ``align.refine_method`` ``lm_slab`` or ``gd_fast`` (COM pre-alignment
+  with ``align.pre_align_cc=true``).
 
 ``--shard``, the other solvers, families, refiners and pre-aligners raise
 ``NotImplementedError`` naming their ROADMAP item.
@@ -103,15 +103,16 @@ def cmd_simulate(args):
     from tomojax_torch.core import phantom as ph
     from tomojax_torch.core import slab_projector as sp
     from tomojax_torch.core.geometry import Views
-    from tomojax_torch.core.operators import (NOT_PORTED, QUADS,
-                                              resolve_device)
+    from tomojax_torch.core.operators import QUADS, resolve_device
     from tomojax_torch.utils import io
 
     cfg = _load_config(args)
     fam = cfg.simulate.family
     if fam not in QUADS:
-        raise NotImplementedError(NOT_PORTED.get(
-            fam, f"unknown simulate.family {fam!r}"))
+        # tomojax simulates every other family with the exact ray projector
+        raise NotImplementedError(
+            f"simulate.family={fam!r} projects with the exact ray family, "
+            "as tomojax's simulate does: ROADMAP Queue 1 item 12")
     device = resolve_device(args.device)
     geom = cfg.geometry.build()
     rng = np.random.default_rng(cfg.simulate.seed)

@@ -2,13 +2,15 @@
 ``tomojax.core.operators``): solvers program against ``TomoOperator`` and
 never see how A is applied.
 
-Ported families (``core.slab_projector``):
+Ported families:
 
 - ``family="slab"`` — the slab-marching operator in arc quadrature (the
   exact ray march's samples); on a CUDA device it runs the hand-written
   kernels K3/K4.
 - ``family="slab_plane"`` — one sample per slab plane; on a CUDA device it
   runs K1/K2.
+- ``family="fast"`` — the multi-pass resampling family
+  (``core.fast_projector``); on a CUDA device A runs K7 and Aᵀ K8.
 
 ``voxel_mask`` reproduces the masked system matrix: masked voxels
 contribute nothing to A and receive nothing from Aᵀ.
@@ -21,13 +23,13 @@ from typing import Callable
 
 import torch
 
+from tomojax_torch.core import fast_projector as fastp
 from tomojax_torch.core import slab_projector as slabp
 from tomojax_torch.core.geometry import Geometry, Views
 
 NOT_PORTED = {
     "ray": "exact ray family: ROADMAP Queue 1 item 12",
     "voxel": "voxel family: ROADMAP Queue 1 item 15",
-    "fast": "fast family: ROADMAP Queue 1 item 16 (kernels K7/K8/K9)",
 }
 QUADS = {"slab": "arc", "slab_plane": "plane"}
 
@@ -78,13 +80,17 @@ def make_operator(geom: Geometry, views: Views, *,
                   voxel_mask=None, device=None) -> TomoOperator:
     """Build the projection operator for a set of views on ``device``.
 
-    The per-view scalars and orientation groups are computed once, here.
+    For the slab families the per-view scalars and orientation groups are
+    computed once, here.
 
     :param voxel_mask: optional boolean volume; False voxels are excluded
         from the system.
     """
     if family in NOT_PORTED:
         raise NotImplementedError(NOT_PORTED[family])
+    if family == "fast":
+        return _fast_operator(geom, views, dtype, resolve_device(device),
+                              voxel_mask)
     if family not in QUADS:
         raise ValueError(f"unknown projector family: {family!r}")
     device = resolve_device(device)
@@ -95,6 +101,36 @@ def make_operator(geom: Geometry, views: Views, *,
                                  voxel_mask=voxel_mask)
 
 
+def _mask(voxel_mask, geom: Geometry, dtype, device):
+    if voxel_mask is None:
+        return None
+    return torch.as_tensor(voxel_mask, device=device).to(dtype).reshape(
+        geom.vox_shape)
+
+
+def _fast_operator(geom: Geometry, views: Views, dtype, device,
+                   voxel_mask) -> TomoOperator:
+    """The fast family's operator: views copied to ``device`` once; each
+    apply groups them by octant and chunks them by memory."""
+    vws = Views(**{f: getattr(views, f).to(device=device)
+                   for f in ("phi", "alpha", "beta", "t", "cor")})
+    mask = _mask(voxel_mask, geom, dtype, device)
+
+    def A(x):
+        x = x.reshape(geom.vox_shape).to(dtype)
+        if mask is not None:
+            x = x * mask
+        return fastp.project(x, geom, vws, dtype=dtype)
+
+    def AT(y):
+        out = fastp.backproject(y.reshape(geom.n_proj, geom.n_det), geom,
+                                vws, dtype=dtype)
+        return out * mask if mask is not None else out
+
+    return TomoOperator(geom=geom, views=views, A=A, AT=AT, family="fast",
+                        dtype=dtype, device=torch.device(device))
+
+
 def operator_from_scalars(geom: Geometry, gstruct, scalars, *, family: str,
                           dtype, device, views=None,
                           voxel_mask=None) -> TomoOperator:
@@ -102,10 +138,7 @@ def operator_from_scalars(geom: Geometry, gstruct, scalars, *, family: str,
     (``slab_projector.scalar_groups``/``group_scalars_for``): the
     alternating driver rebuilds it from new scalars every outer."""
     quad = QUADS[family]
-    mask = None
-    if voxel_mask is not None:
-        mask = torch.as_tensor(voxel_mask, device=device).to(
-            dtype).reshape(geom.vox_shape)
+    mask = _mask(voxel_mask, geom, dtype, device)
 
     def A(x):
         x = x.reshape(geom.vox_shape).to(dtype)

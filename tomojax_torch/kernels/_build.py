@@ -21,24 +21,32 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "slab_plane.cu", CSRC / "slab_arc.cu")
+SOURCES = (CSRC / "slab_plane.cu", CSRC / "slab_arc.cu",
+           CSRC / "resample.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # int fn(const float* in, const float* scalars, float* out,
 #        int V, int nx, int ny, int nz, int nu, int nv, cudaStream_t);
 # the arc kernels take (int n_steps, int n_branch) before the stream
 _PLANE = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _ARC = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+# int fn(const float* rows, const float* off, const float* slope, float* out,
+#        int V, int R1, int R2, int N, int M, long long sv, long long s1,
+#        long long s2, cudaStream_t);
+_RESAMPLE = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _P]
 _SIGNATURES = {
     "slab_plane_fwd": _PLANE,
     "slab_plane_adj": _PLANE,
     "slab_arc_fwd": _ARC,
     "slab_arc_adj": _ARC,
     "slab_arc_jac": _ARC,
+    "resample_fwd": _RESAMPLE,
+    "resample_transpose": _RESAMPLE,
 }
 
 

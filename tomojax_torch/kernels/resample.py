@@ -1,0 +1,243 @@
+"""Batched affine row resampling: wrappers, plain versions, autograd.
+
+Counterpart of ``tomojax.kernels.resample``. The function, for view v,
+row a and output i = 0..M-1, is
+
+    out[v, a, i] = lerp(row[v, a], offsets[v, a] + slope[v] * i)
+
+with each tap zero outside [0, N). Rows carry a leading view axis and one
+or two row axes: ``arr`` is (V, *rows, N), ``offsets`` (V, *rows) and
+``slope`` (V,), one slope per view as tomojax has under ``vmap``. Rows may
+be strided (a volume shared by every view is ``vol.expand(V, ...)``), but
+each row's elements must be contiguous.
+
+One wrapper per hand-written kernel entry, each counting its launches in
+``.launches``:
+
+- K7 :func:`resample_fwd` — the forward. Replaces tomojax's Pallas
+  ``_kernel`` (``tomojax/kernels/resample.py:38``).
+- K8 :func:`resample_transpose` — its exact transpose, (V, *rows, M) →
+  (V, *rows, N). Replaces ``_kernel_transpose`` (``resample.py:111``).
+- K9 :func:`resample_rows_raw` — the non-differentiable direct entry
+  (tomojax's ``_resample_rows_pallas_raw``, ``resample.py:356``), served by
+  the K7 kernel with a counter of its own.
+
+Both kernels are in ``csrc/resample.cu``, built by ``_build.py`` at first
+use. A tensor on the CPU takes the plain PyTorch version beside each
+wrapper; a CUDA tensor launches the kernel or raises.
+
+:func:`resample_rows` is the differentiable entry (tomojax's
+``resample_rows_pallas``): inputs totalized by :func:`_sanitize`, forward
+K7, rows cotangent K8, and the offset and slope cotangents in plain
+PyTorch (``resample.py:338-349``), taken only where autograd asks.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+
+def _sanitize(offsets, slope, n: int, m_out: int, max_slope: float):
+    """Totalize the kernel inputs (tomojax ``_sanitize``): NaN/inf offsets
+    go to an out-of-reach sentinel and offsets are clamped to ±bound, the
+    slope to ±max_slope. Out-of-range samples are zeros anyway, so this is
+    free, and it keeps wild trial parameters (line searches) defined."""
+    bound = float(n + max_slope * m_out + 8)
+    off = torch.nan_to_num(offsets, nan=bound, posinf=bound,
+                           neginf=-bound).clamp(-bound, bound)
+    sl = torch.nan_to_num(slope, nan=max_slope, posinf=max_slope,
+                          neginf=-max_slope).clamp(-max_slope, max_slope)
+    return off.contiguous(), sl.contiguous()
+
+
+def _positions(offsets, slope, m_out: int):
+    """``offsets + slope * i`` → (V, *rows, M), rounded as the kernels
+    round it (product, then sum)."""
+    i = torch.arange(m_out, dtype=offsets.dtype, device=offsets.device)
+    return offsets[..., None] + slope.reshape(-1, *[1] * offsets.dim()) * i
+
+
+def _taps(arr, kf, n: int):
+    """``arr`` at float tap indices ``kf`` (…, M), zero outside [0, n)."""
+    ok = (kf >= 0) & (kf <= n - 1)
+    idx = torch.where(ok, kf, 0).long()
+    vals = torch.gather(arr.expand(*kf.shape[:-1], n), -1, idx)
+    return torch.where(ok, vals, 0.0)
+
+
+def resample_rows_plain(arr, offsets, slope, m_out: int):
+    """Plain version of K7: a direct two-tap lerp with per-tap zero masks."""
+    n = arr.shape[-1]
+    pos = _positions(offsets, slope, m_out)
+    kf = torch.floor(pos)
+    t = pos - kf
+    return (1 - t) * _taps(arr, kf, n) + t * _taps(arr, kf + 1, n)
+
+
+def resample_rows_transpose_plain(g, offsets, slope, n_data: int):
+    """Plain version of K8: autograd's vjp of :func:`resample_rows_plain`
+    with respect to the rows."""
+    with torch.enable_grad():
+        arr = torch.zeros((*offsets.shape, n_data), dtype=g.dtype,
+                          device=g.device, requires_grad=True)
+        out = resample_rows_plain(arr, offsets, slope, g.shape[-1])
+        (abar,) = torch.autograd.grad(out, arr, g)
+    return abar
+
+
+def _as_4d(t):
+    """(V, *rows, W) with one or two row axes → a (V, R1, R2, W) view."""
+    if t.dim() == 3:
+        return t.unsqueeze(1)
+    if t.dim() != 4:
+        raise ValueError(f"expected (V, rows, W) or (V, R1, R2, W), got "
+                         f"shape {tuple(t.shape)}")
+    return t
+
+
+def _check(name, t):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+
+
+def _launch(entry, rows, offsets, slope, n: int, m: int, width_out: int):
+    """Check the operands and launch ``entry`` on the current stream:
+    ``rows`` (V, *rows, W) are read strided, the output (V, *rows,
+    width_out) is new and contiguous."""
+    from tomojax_torch.kernels import _build
+    for name, t in (("rows", rows), ("offsets", offsets), ("slope", slope)):
+        _check(name, t)
+    r4 = _as_4d(rows)
+    V, R1, R2, _ = r4.shape
+    if tuple(offsets.shape) != tuple(rows.shape[:-1]):
+        raise ValueError(f"offsets: expected shape {tuple(rows.shape[:-1])},"
+                         f" got {tuple(offsets.shape)}")
+    if tuple(slope.shape) != (V,):
+        raise ValueError(f"slope: expected shape ({V},), got "
+                         f"{tuple(slope.shape)}")
+    if not (offsets.is_contiguous() and slope.is_contiguous()):
+        raise ValueError("offsets and slope must be contiguous")
+    if r4.shape[-1] > 1 and r4.stride(-1) != 1:
+        raise ValueError("each row's elements must be contiguous")
+    if V > 65535 or max(R1, R2, n, m) >= 2 ** 31:
+        raise ValueError(f"problem too large: V={V}, rows=({R1}, {R2}), "
+                         f"N={n}, M={m}")
+    out = torch.empty((*rows.shape[:-1], width_out), dtype=torch.float32,
+                      device=rows.device)
+    sv, s1, s2, _ = r4.stride()
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
+        rc = getattr(_build.load(), entry)(
+            ctypes.c_void_p(r4.data_ptr()), ctypes.c_void_p(offsets.data_ptr()),
+            ctypes.c_void_p(slope.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            V, R1, R2, n, m, sv, s1, s2, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{entry}: CUDA error {rc}")
+    return out
+
+
+def resample_fwd(arr, offsets, slope, m_out: int):
+    """K7: ``arr`` (V, *rows, N), ``offsets`` (V, *rows), ``slope`` (V,) →
+    (V, *rows, m_out). Inputs are taken as they are (no sanitizing)."""
+    if arr.device.type == "cpu":
+        return resample_rows_plain(arr, offsets, slope, m_out)
+    out = _launch("resample_fwd", arr, offsets, slope, arr.shape[-1], m_out,
+                  m_out)
+    resample_fwd.launches += 1
+    return out
+
+
+def resample_transpose(g, offsets, slope, n_data: int):
+    """K8: exact transpose of :func:`resample_fwd` for the rows, ``g`` (V,
+    *rows, M) → (V, *rows, n_data)."""
+    if g.device.type == "cpu":
+        return resample_rows_transpose_plain(g, offsets, slope, n_data)
+    out = _launch("resample_transpose", g, offsets, slope, n_data,
+                  g.shape[-1], n_data)
+    resample_transpose.launches += 1
+    return out
+
+
+def resample_rows_raw(arr, offsets, slope, m_out: int):
+    """K9 entry: the non-differentiable direct call (tomojax's
+    ``_resample_rows_pallas_raw``, which does not sanitize either). It
+    launches the K7 kernel and counts in its own ``.launches``."""
+    arr, offsets, slope = arr.detach(), offsets.detach(), slope.detach()
+    if arr.device.type == "cpu":
+        return resample_rows_plain(arr, offsets, slope, m_out)
+    out = _launch("resample_fwd", arr, offsets, slope, arr.shape[-1], m_out,
+                  m_out)
+    resample_rows_raw.launches += 1
+    return out
+
+
+for _fn in (resample_fwd, resample_transpose, resample_rows_raw):
+    _fn.launches = 0
+
+
+def position_cotangents(arr, g, offsets, slope):
+    """Offset and slope cotangents of the resample at sanitized inputs
+    (tomojax ``_resample_bwd_rule``): ``pc = g · (tap(k+1) − tap(k))``,
+    floors and masks piecewise constant. Returns ((V, *rows), (V,))."""
+    n, m = arr.shape[-1], g.shape[-1]
+    kf = torch.floor(_positions(offsets, slope, m))
+    pc = g * (_taps(arr, kf + 1, n) - _taps(arr, kf, n))
+    del kf
+    i = torch.arange(m, dtype=pc.dtype, device=pc.device)
+    return pc.sum(-1), (pc * i).reshape(pc.shape[0], -1).sum(-1)
+
+
+class _ResampleRows(torch.autograd.Function):
+    """K7 forward, K8 rows cotangent, plain position cotangents."""
+
+    @staticmethod
+    def forward(ctx, arr, offsets, slope, m_out, max_slope):
+        n = arr.shape[-1]
+        off, sl = _sanitize(offsets, slope, n, m_out, max_slope)
+        ctx.pos_grad = any(ctx.needs_input_grad[1:3])
+        ctx.save_for_backward(arr if ctx.pos_grad else None, off, sl)
+        ctx.n = n
+        return resample_fwd(arr, off, sl, m_out)
+
+    @staticmethod
+    def backward(ctx, g):
+        arr, off, sl = ctx.saved_tensors
+        abar = obar = sbar = None
+        if ctx.needs_input_grad[0]:
+            rows = g if g.stride(-1) == 1 else g.contiguous()
+            abar = resample_transpose(rows, off, sl, ctx.n)
+        if ctx.pos_grad:
+            obar, sbar = position_cotangents(arr, g, off, sl)
+        return abar, obar, sbar, None, None
+
+
+def resample_rows(arr, offsets, slope, m_out: int, max_slope: float):
+    """Differentiable batched affine row resample (tomojax's
+    ``resample_rows_pallas``).
+
+    :param arr: (V, *rows, N) rows, one or two row axes.
+    :param offsets: (V, *rows) start positions.
+    :param slope: (V,) per-view slopes; the sanitizer clamps |slope| to
+        ``max_slope``. Offsets and slope get cotangents only where autograd
+        asks for them.
+    :returns: (V, *rows, m_out), zero outside [0, N).
+    """
+    slope = torch.as_tensor(slope, dtype=arr.dtype, device=arr.device)
+    return _ResampleRows.apply(arr, offsets.to(arr.dtype),
+                               slope.reshape(-1), int(m_out),
+                               float(max_slope))
+
+
+def resample_rows_transpose(g, offsets, slope, n_data: int,
+                            max_slope: float):
+    """Exact transpose of :func:`resample_rows` applied to cotangent rows
+    ``g`` (V, *rows, M) → (V, *rows, n_data): sanitize, then K8."""
+    off, sl = _sanitize(offsets.to(g.dtype),
+                        torch.as_tensor(slope, dtype=g.dtype,
+                                        device=g.device).reshape(-1),
+                        n_data, g.shape[-1], max_slope)
+    return resample_transpose(g, off, sl, n_data)

@@ -23,9 +23,9 @@ script exits non-zero:
    90 jittered views (full circle, ±0.5° tilts, ±2 px shifts) × 256²
    detector with at least four orientation groups: K3 per-view relative
    L2 ≤ 5e-4, K4 relative L2 ≤ 5e-4, arc adjoint identity ≤ 1e-5·‖K3 x‖·‖y‖
-   (float64 dot products), each K5 field per-view relative L2 ≤ 2e-3, and
-   the single-field entry bit-equal to its K5 field; times per 90-view
-   apply.
+   (float64 dot products), each K5 field per-view relative L2 ≤ 2e-3,
+   the single-field entry bit-equal to its K5 field, and two K4 applies
+   bit-identical (no atomics); times per 90-view apply.
 6. Main path through the CLI (BASELINE config 4): ``simulate`` 256³/90
    views in arc quadrature with ±2 px / ±0.5° jitter, then ``align`` with
    COM pre-alignment, 6 outers of 30 CGLS iterations (arc) and 10 lm_slab
@@ -41,8 +41,10 @@ script exits non-zero:
    versions, fp32, at 256³ × 90 jittered views over the full circle (both
    marching octants), on every call that one fast A of the Shepp phantom
    (K7, K9) and one fast Aᵀ of a random sinogram (K8) make, with the
-   operands and view chunks the path gives them. Per call relative L2 ≤
-   1e-5, K9 bit-equal to K7, the fast operator's adjoint identity ≤
+   operands, view chunks and output layouts the path gives them. K7
+   bit-equal to its plain version on every call (the plain version runs
+   in slices of views, for memory), K9 bit-equal to K7, K8 per call
+   relative L2 ≤ 1e-5, the fast operator's adjoint identity ≤
    1e-5·‖Ax‖·‖y‖ (float64 dot products); times per 90-view apply of each
    kernel, its plain version and the one PyTorch call that computes the
    same function (``grid_sample``'s bilinear kernel
@@ -107,6 +109,7 @@ N_FAST = 90                # the fast family's phases: 90 views
 FAST_OUTERS = 6           # 8 (the example's) took 190 s on the H100
 TOL_RESAMPLE = 1e-5
 TOL_LIBRARY = 1e-3         # grid_sample rounds its normalized coordinates
+PLAIN_VIEWS = 8            # views per slice of the resample plain versions
 KERNEL_SOURCE = "tomojax_torch/kernels/csrc/slab_plane.cu"
 ARC_SOURCE = "tomojax_torch/kernels/csrc/slab_arc.cu"
 RESAMPLE_SOURCE = "tomojax_torch/kernels/csrc/resample.cu"
@@ -342,6 +345,8 @@ def phase_arc_kernels(dev):
         err["fwd_rel"].append(float(per_view_rel(ker, ref).max()))
         err["fwd_abs"].append(float((ker - ref).abs().max()))
         kadj = slabk.slab_arc_adj(y, sc, geom)
+        check(torch.equal(kadj, slabk.slab_arc_adj(y, sc, geom)),
+              "two K4 applies differ")
         radj = slabk.slab_backproject_plain(y, sc, geom, "arc")
         err["adj_rel"].append(float(torch.linalg.norm(kadj - radj)
                                     / torch.linalg.norm(radj)))
@@ -368,7 +373,8 @@ def phase_arc_kernels(dev):
     print(f"K3 vs plain: max per-view rel L2 {max(err['fwd_rel']):.3e} "
           f"(tol {TOL_FWD}), max abs {max(err['fwd_abs']):.3e}")
     print(f"K4 vs plain vjp: max rel L2 {max(err['adj_rel']):.3e} "
-          f"(tol {TOL_ADJ}), max abs {max(err['adj_abs']):.3e}")
+          f"(tol {TOL_ADJ}), max abs {max(err['adj_abs']):.3e}; two applies "
+          "bit-identical")
     print(f"arc adjoint identity |<K3x,y>-<x,K4y>|/(|K3x||y|): max "
           f"{max(err['dot']):.3e} (tol {TOL_DOT})")
     print(f"K5 vs 12 plain passes: max per-view rel L2 per field {fields} "
@@ -548,8 +554,8 @@ def probed(name, probe, run):
     probe, not on the kernel's counter."""
     kernel = getattr(rs, name)
 
-    def wrapper(*args):
-        return probe(kernel, *args)
+    def wrapper(*args, **kwargs):
+        return probe(kernel, *args, **kwargs)
 
     wrapper.launches = 0
     setattr(rs, name, wrapper)
@@ -558,6 +564,16 @@ def probed(name, probe, run):
             return run()
     finally:
         setattr(rs, name, kernel)
+
+
+def sliced(fn, *args):
+    """``fn(rows, offsets, slope, width)`` over slices of PLAIN_VIEWS views,
+    concatenated: the plain versions' temporaries at a whole chunk of the
+    path (25 views) would take most of the card."""
+    x, off, sl, width = args
+    return torch.cat([fn(x[v:v + PLAIN_VIEWS], off[v:v + PLAIN_VIEWS],
+                         sl[v:v + PLAIN_VIEWS], width)
+                      for v in range(0, x.shape[0], PLAIN_VIEWS)])
 
 
 def phase_resample(dev):
@@ -573,18 +589,19 @@ def phase_resample(dev):
     vol = torch.as_tensor(phantom.shepp3d(N), device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     y = torch.randn((N_FAST, geom.n_det), generator=gen, device=dev)
-    err = {k: [] for k in ("fwd", "fwd_abs", "adj", "adj_abs", "lib_fwd",
-                           "lib_adj")}
+    err = {k: [] for k in ("fwd", "fwd_abs", "fwd_equal", "adj", "adj_abs",
+                           "lib_fwd", "lib_adj")}
     t = dict.fromkeys(("fwd", "fwd_plain", "fwd_lib", "raw", "adj",
                        "adj_plain", "adj_lib"), 0.0)
     work = {"fwd": [0, 0], "adj": [0, 0]}   # bytes, flops
     views_per_call = {"fwd": [], "adj": []}
 
-    def fwd_probe(k7, arr, off, sl, m):
-        ker = k7(arr, off, sl, m)
-        ref = rs.resample_rows_plain(arr, off, sl, m)
+    def fwd_probe(k7, arr, off, sl, m, out_order=None):
+        ker = k7(arr, off, sl, m, out_order)
+        ref = sliced(rs.resample_rows_plain, arr, off, sl, m)
         check(torch.equal(rs.resample_rows_raw(arr, off, sl, m), ker),
               "K9 differs from K7")
+        err["fwd_equal"].append(torch.equal(ker, ref))
         err["fwd"].append(rel_l2(ker, ref))
         err["fwd_abs"].append(float((ker - ref).abs().max()))
         n = arr.shape[-1]
@@ -602,16 +619,16 @@ def phase_resample(dev):
                            + 4 * sl.numel() + 4 * ker.numel())
         work["fwd"][1] += 8 * ker.numel()
         views_per_call["fwd"].append(arr.shape[0])
-        t["fwd"] += cuda_ms(lambda: k7(arr, off, sl, m), 3)
+        t["fwd"] += cuda_ms(lambda: k7(arr, off, sl, m, out_order), 3)
         t["raw"] += cuda_ms(lambda: rs.resample_rows_raw(arr, off, sl, m), 3)
         t["fwd_plain"] += cuda_ms(
-            lambda: rs.resample_rows_plain(arr, off, sl, m), 1)
+            lambda: sliced(rs.resample_rows_plain, arr, off, sl, m), 1)
         t["fwd_lib"] += cuda_ms(lib, 3)
         return ker
 
     def adj_probe(k8, g, off, sl, n):
         ker = k8(g, off, sl, n)
-        ref = rs.resample_rows_transpose_plain(g, off, sl, n)
+        ref = sliced(rs.resample_rows_transpose_plain, g, off, sl, n)
         err["adj"].append(rel_l2(ker, ref))
         err["adj_abs"].append(float((ker - ref).abs().max()))
         m = g.shape[-1]
@@ -631,7 +648,8 @@ def phase_resample(dev):
         views_per_call["adj"].append(g.shape[0])
         t["adj"] += cuda_ms(lambda: k8(g, off, sl, n), 3)
         t["adj_plain"] += cuda_ms(
-            lambda: rs.resample_rows_transpose_plain(g, off, sl, n), 1)
+            lambda: sliced(rs.resample_rows_transpose_plain, g, off, sl, n),
+            1)
         t["adj_lib"] += cuda_ms(lib, 3)
         return ker
 
@@ -641,8 +659,9 @@ def phase_resample(dev):
     for k, label in (("fwd", "K7 (A)"), ("adj", "K8 (AT)")):
         print(f"{label}: {len(views_per_call[k])} calls, views per call "
               f"{views_per_call[k]}")
-    print(f"K7 vs plain: max per-call rel L2 {max(err['fwd']):.3e} (tol "
-          f"{TOL_RESAMPLE}), max abs {max(err['fwd_abs']):.3e}; K9 "
+    print(f"K7 vs plain: bit-equal on {sum(err['fwd_equal'])} of "
+          f"{len(err['fwd_equal'])} calls, max per-call rel L2 "
+          f"{max(err['fwd']):.3e}, max abs {max(err['fwd_abs']):.3e}; K9 "
           "bit-equal to K7 on every call")
     print(f"K8 vs plain vjp: max per-call rel L2 {max(err['adj']):.3e} (tol "
           f"{TOL_RESAMPLE}), max abs {max(err['adj_abs']):.3e}")
@@ -671,7 +690,8 @@ def phase_resample(dev):
     print(f"fast operator A {t['A']:.3f} ms, AT {t['AT']:.3f} ms per apply; "
           f"fwd+adjoint {N_FAST / ((t['A'] + t['AT']) / 1e3):.1f} proj/s "
           f"({N}^3, {N_FAST} views, fast)")
-    check(max(err["fwd"]) <= TOL_RESAMPLE, f"K7 rel L2 {max(err['fwd'])}")
+    check(all(err["fwd_equal"]), f"K7 differs from its plain version: "
+          f"rel L2 {err['fwd']}")
     check(max(err["adj"]) <= TOL_RESAMPLE, f"K8 rel L2 {max(err['adj'])}")
     check(max(err["lib_fwd"] + err["lib_adj"]) <= TOL_LIBRARY,
           f"grid_sample does not compute the resample: {err}")

@@ -186,6 +186,52 @@ def test_arc_adjoint_identity(cuda):
         assert float(abs(lhs - rhs)) <= float(bound), (lhs, rhs)
 
 
+def _odd_arc_case(device, det_pix):
+    """An odd-sized arc group: a 40×24×36 oriented volume, nu ≠ nv, 7
+    jittered views in one orientation group (|φ| < 0.6 rad: no swap or
+    flip). At det_pix 0.5 a K4 tile's u and v windows (~70 and ~80 wide)
+    take more than one staged chunk each."""
+    rng = np.random.default_rng(4)
+    nu, nv = (44, 38) if det_pix == 1.0 else (100, 90)
+    geom = Geometry(n_proj=7, vox_shape=(40, 24, 36), det_shape=(nu, nv),
+                    det_pix=(det_pix, det_pix))
+    views = Views.create(7, phi=np.linspace(-0.6, 0.6, 7),
+                         alpha=rng.uniform(-0.02, 0.02, 7),
+                         beta=rng.uniform(-0.02, 0.02, 7),
+                         t=rng.uniform(-2, 2, (7, 3)))
+    gstruct, scalars = sp.scalar_groups(geom, views, "arc", device=device)
+    assert [g[1:] for g in gstruct] == [(False, False, False)]
+    vol = torch.as_tensor(rng.random(geom.vox_shape), dtype=torch.float32,
+                          device=device)
+    g = torch.as_tensor(rng.standard_normal((7, nu, nv)),
+                        dtype=torch.float32, device=device)
+    return geom, scalars[0], vol, g
+
+
+@pytest.mark.parametrize("det_pix", [1.0, 0.5])
+def test_k4_odd_size_matches_plain_vjp_and_repeats(cuda, det_pix):
+    geom, sc, _, g = _odd_arc_case(cuda, det_pix)
+    ker = slabk.slab_arc_adj(g, sc, geom)
+    again = slabk.slab_arc_adj(g, sc, geom)
+    ref = slabk.slab_backproject_plain(g, sc, geom, "arc")
+    torch.cuda.synchronize()
+    assert torch.equal(ker, again)
+    rel = float(torch.linalg.norm(ker - ref) / torch.linalg.norm(ref))
+    assert rel < 5e-4, rel
+
+
+@pytest.mark.parametrize("det_pix", [1.0, 0.5])
+def test_k4_odd_size_adjoint_identity(cuda, det_pix):
+    geom, sc, vol, y = _odd_arc_case(cuda, det_pix)
+    ax = slabk.slab_arc_fwd(vol, sc, geom)
+    aty = slabk.slab_arc_adj(y, sc, geom)
+    lhs = torch.dot(ax.double().reshape(-1), y.double().reshape(-1))
+    rhs = torch.dot(vol.double().reshape(-1), aty.double().reshape(-1))
+    bound = 1e-5 * torch.linalg.norm(ax.double()) * torch.linalg.norm(
+        y.double())
+    assert float(abs(lhs - rhs)) <= float(bound), (lhs, rhs)
+
+
 def test_k5_fields_match_plain(cuda):
     geom, views, vol, _ = _problem(n=64)
     for vol_or, sc in _groups(geom, views, vol, cuda, "arc"):
@@ -259,6 +305,68 @@ def test_k7_k9_match_plain(cuda):
     assert torch.equal(raw, ker)
     rel = float(torch.linalg.norm(ker - ref) / torch.linalg.norm(ref))
     assert rel <= 1e-5, rel
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "own"])
+@pytest.mark.parametrize("out_order", [None, (0, 1, 3, 2), (0, 3, 2, 1)],
+                         ids=["rows", "a2-inner", "a1-inner"])
+def test_k7_output_layouts_bit_equal(cuda, shared, out_order):
+    """K7 in each output layout at N = 37 and M = 53 (not multiples of 4:
+    rows start off 16-byte alignment and the transpose rounds are ragged)
+    and V = 7 (not a multiple of the 4 views a CTA loops over when each
+    view has its own rows), with rows shared by all views (stride 0) or
+    not."""
+    V, R1, R2, N, M = 7, 9, 45, 37, 53
+    rng = np.random.default_rng(5)
+    if shared:
+        rows = torch.as_tensor(rng.random((R1, R2, N)), dtype=torch.float32,
+                               device=cuda).expand(V, R1, R2, N)
+    else:
+        rows = torch.as_tensor(rng.random((V, R2, R1, N)),
+                               dtype=torch.float32,
+                               device=cuda).transpose(1, 2)
+    off = torch.as_tensor(rng.uniform(-N * 0.5, N * 1.3, (V, R1, R2)),
+                          dtype=torch.float32, device=cuda)
+    slope = torch.as_tensor(rng.uniform(-1.6, 1.6, V), dtype=torch.float32,
+                            device=cuda)
+    ker = rs.resample_fwd(rows, off, slope, M, out_order)
+    ref = rs.resample_rows_plain(rows, off, slope, M)
+    torch.cuda.synchronize()
+    assert ker.shape == ref.shape
+    if out_order is not None:
+        assert ker.permute(*out_order).is_contiguous()
+    assert torch.equal(ker, ref)
+    assert torch.equal(rs.resample_rows_raw(rows, off, slope, M), ker)
+
+
+def test_resample_rows_backward_through_k8_in_new_layouts(cuda):
+    """The fast forward's chain of passes with its output layouts: the
+    rows' cotangents reach K8 strided and are made contiguous, and every
+    gradient (rows, offsets, slope) matches the plain chain's on the
+    CPU."""
+    rng = np.random.default_rng(6)
+    V, nx, ny, nz, nv, nj = 3, 12, 10, 14, 11, 17
+    vol = rng.random((nx, ny, nz))
+    off1 = rng.uniform(-3, nz + 3, (V, nx, ny))
+    off2 = rng.uniform(-3, ny + 3, (V, nx, nv))
+    sl = rng.uniform(0.7, 1.3, (2, V))
+    w = rng.standard_normal((V, nx, nv, nj))
+    grads = []
+    for dev in ("cpu", cuda):
+        def t(a, grad=False):
+            return torch.as_tensor(a, dtype=torch.float32,
+                                   device=dev).requires_grad_(grad)
+        x, o1, o2 = t(vol, True), t(off1, True), t(off2, True)
+        s1, s2 = t(sl[0], True), t(sl[1], True)
+        i1 = rs.resample_rows(x.expand(V, nx, ny, nz), o1, s1, nv, 1.6,
+                              out_order=(0, 1, 3, 2))
+        i2 = rs.resample_rows(i1.transpose(2, 3), o2, s2, nj, 1.6,
+                              out_order=(0, 3, 2, 1))
+        loss = (i2 * t(w)).sum()
+        grads.append([gr.cpu() for gr in torch.autograd.grad(
+            loss, (x, o1, o2, s1, s2))])
+    for cpu, card in zip(*grads):
+        torch.testing.assert_close(card, cpu, rtol=1e-4, atol=1e-5)
 
 
 def test_k8_matches_plain_vjp_and_adjoint_identity(cuda):

@@ -72,15 +72,17 @@ def view_affine(geom: Geometry, phi, alpha, beta, t, cor, dtype=None):
 
 def views_per_chunk(geom: Geometry, grad: bool = False,
                     itemsize: int = 4) -> int:
-    """Views per chunk within :data:`CHUNK_BYTES`: the forward holds
-    i1 and its transposed copy (nx·ny·nv each), i2 and its copy (nx·nv·nj
-    each) and pass 3's output (nj·nv·nu); a θ-gradient adds the position
-    cotangents' temporaries (about six pass-3-sized tensors, two of them
-    int64)."""
+    """Views per chunk within :data:`CHUNK_BYTES`: the forward holds i1
+    (nx·ny·nv), i2 (nx·nv·nj) and pass 3's output (nj·nv·nu), each written
+    by K7 in the row order the next pass reads (all three stay alive under
+    autograd, which saves the rows); the adjoint's K8 chain holds about as
+    much at its peak (a3, its transposed copy and a2). A θ-gradient adds
+    the position cotangents' temporaries (about six pass-3-sized tensors,
+    two of them int64)."""
     nx, ny, _ = geom.vox_shape
     nu, nv = geom.det_shape
     nj = geom.n_steps
-    per_view = 2 * nx * ny * nv + 2 * nx * nv * nj + nj * nv * nu
+    per_view = nx * ny * nv + nx * nv * nj + nj * nv * nu
     if grad:
         per_view += 8 * nj * nv * nu
     return max(1, CHUNK_BYTES // (itemsize * per_view))
@@ -140,16 +142,19 @@ def _forward_marching_y(vol, E, B, geom: Geometry):
     """y-marching fast forward of V views → (V, n_det), u-major.
 
     ``vol`` (nx, ny, nz) may be a strided view (the x/y transpose): pass 1
-    reads its rows in place, for every view."""
+    reads its rows in place, once per call for all views. On the card each
+    pass's output is stored in the row order the next pass reads ((V, nx,
+    nv, ny) and (V, nj, nv, nx)), so the transposes below are views of
+    contiguous storage, not copies."""
     V = E.shape[0]
     nu, nv = geom.det_shape
     p1, p2, p3 = _passes(E, B, geom, vol.shape)
-    i1 = resample_rows(vol.expand(V, *vol.shape), *p1[:2], nv,
-                       p1[2])                             # (V, nx, ny, nv)
-    i2 = resample_rows(i1.transpose(2, 3).contiguous(), *p2[:2],
-                       geom.n_steps, p2[2])               # (V, nx, nv, nj)
+    i1 = resample_rows(vol.expand(V, *vol.shape), *p1[:2], nv, p1[2],
+                       out_order=(0, 1, 3, 2))    # (V, nx, ny, nv), stored
+    i2 = resample_rows(i1.transpose(2, 3), *p2[:2], geom.n_steps, p2[2],
+                       out_order=(0, 3, 2, 1))    # (V, nx, nv, nj), stored
     del i1
-    out = resample_rows(i2.permute(0, 3, 2, 1).contiguous(), *p3[:2], nu,
+    out = resample_rows(i2.permute(0, 3, 2, 1), *p3[:2], nu,
                         p3[2])                            # (V, nj, nv, nu)
     return out.sum(1).transpose(1, 2).reshape(V, -1)
 

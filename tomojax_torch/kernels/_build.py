@@ -32,20 +32,25 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # int fn(const float* in, const float* scalars, float* out,
 #        int V, int nx, int ny, int nz, int nu, int nv, cudaStream_t);
-# the arc kernels take (int n_steps, int n_branch) before the stream
+# the arc kernels take (int n_steps, int n_branch) before the stream, and
+# the arc adjoint a scratch volume after its output
 _PLANE = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _ARC = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+_ARC_ADJ = [_P, *_ARC]
 # int fn(const float* rows, const float* off, const float* slope, float* out,
 #        int V, int R1, int R2, int N, int M, long long sv, long long s1,
 #        long long s2, cudaStream_t);
+# the forward also takes the offsets' (fv, f1, f2) and the output's
+# (ov, o1, o2, oi) strides before the stream
 _RESAMPLE = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _P]
+_RESAMPLE_FWD = [*_RESAMPLE[:-1], *[_L] * 7, _P]
 _SIGNATURES = {
     "slab_plane_fwd": _PLANE,
     "slab_plane_adj": _PLANE,
     "slab_arc_fwd": _ARC,
-    "slab_arc_adj": _ARC,
+    "slab_arc_adj": _ARC_ADJ,
     "slab_arc_jac": _ARC,
-    "resample_fwd": _RESAMPLE,
+    "resample_fwd": _RESAMPLE_FWD,
     "resample_transpose": _RESAMPLE,
 }
 

@@ -9,7 +9,9 @@ with each tap zero outside [0, N). Rows carry a leading view axis and one
 or two row axes: ``arr`` is (V, *rows, N), ``offsets`` (V, *rows) and
 ``slope`` (V,), one slope per view as tomojax has under ``vmap``. Rows may
 be strided (a volume shared by every view is ``vol.expand(V, ...)``), but
-each row's elements must be contiguous.
+each row's elements must be contiguous. The forward's output may be laid
+out in another order than its logical (V, *rows, M) (``out_order``), so
+that the next pass reads it as contiguous rows without a copy.
 
 One wrapper per hand-written kernel entry, each counting its launches in
 ``.launches``:
@@ -87,6 +89,26 @@ def resample_rows_transpose_plain(g, offsets, slope, n_data: int):
     return abar
 
 
+def _inverse(order):
+    inv = [0] * len(order)
+    for k, d in enumerate(order):
+        inv[d] = k
+    return inv
+
+
+def _empty(shape, out_order, device):
+    """An uninitialized float32 tensor of logical ``shape`` whose storage
+    holds its dims in ``out_order`` (outermost first; None: row-major)."""
+    if out_order is None:
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    if sorted(out_order) != list(range(len(shape))):
+        raise ValueError(f"out_order {out_order} is not a permutation of "
+                         f"the output's {len(shape)} dims")
+    buf = torch.empty([shape[d] for d in out_order], dtype=torch.float32,
+                      device=device)
+    return buf.permute(_inverse(out_order))
+
+
 def _as_4d(t):
     """(V, *rows, W) with one or two row axes → a (V, R1, R2, W) view."""
     if t.dim() == 3:
@@ -104,11 +126,8 @@ def _check(name, t):
         raise TypeError(f"{name}: expected float32, got {t.dtype}")
 
 
-def _launch(entry, rows, offsets, slope, n: int, m: int, width_out: int):
-    """Check the operands and launch ``entry`` on the current stream:
-    ``rows`` (V, *rows, W) are read strided, the output (V, *rows,
-    width_out) is new and contiguous."""
-    from tomojax_torch.kernels import _build
+def _check_operands(rows, offsets, slope, n: int, m: int):
+    """The checks both kernels make; returns ``rows`` as (V, R1, R2, W)."""
     for name, t in (("rows", rows), ("offsets", offsets), ("slope", slope)):
         _check(name, t)
     r4 = _as_4d(rows)
@@ -126,38 +145,70 @@ def _launch(entry, rows, offsets, slope, n: int, m: int, width_out: int):
     if V > 65535 or max(R1, R2, n, m) >= 2 ** 31:
         raise ValueError(f"problem too large: V={V}, rows=({R1}, {R2}), "
                          f"N={n}, M={m}")
-    out = torch.empty((*rows.shape[:-1], width_out), dtype=torch.float32,
-                      device=rows.device)
-    sv, s1, s2, _ = r4.stride()
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
+    return r4
+
+
+def _call(entry, *args):
+    """Call ``entry`` of the kernel library on the current stream of the
+    first tensor argument; pointers for tensors, ints as they are."""
+    from tomojax_torch.kernels import _build
+    dev = args[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(_build.load(), entry)(
-            ctypes.c_void_p(r4.data_ptr()), ctypes.c_void_p(offsets.data_ptr()),
-            ctypes.c_void_p(slope.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            V, R1, R2, n, m, sv, s1, s2, ctypes.c_void_p(stream))
+            *(ctypes.c_void_p(a.data_ptr()) if torch.is_tensor(a) else a
+              for a in args), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{entry}: CUDA error {rc}")
+
+
+def _launch_fwd(arr, offsets, slope, m: int, out_order=None):
+    """Launch K7: rows read strided, the output new in ``out_order``'s
+    layout. A transposed output is written along the row axis whose
+    output stride is 1; the row axes are swapped for the kernel when that
+    is the outer one."""
+    r4 = _check_operands(arr, offsets, slope, arr.shape[-1], m)
+    V, R1, R2, n = r4.shape
+    out = _empty((*arr.shape[:-1], m), out_order, arr.device)
+    f4 = offsets.unsqueeze(1) if offsets.dim() == 2 else offsets
+    sv, s1, s2, _ = r4.stride()
+    fv, f1, f2 = f4.stride()
+    ov, o1, o2, oi = _as_4d(out).stride()
+    if oi != 1 and o2 != 1:
+        if o1 != 1:
+            raise ValueError("out_order must keep the resampled axis or a "
+                             "row axis innermost")
+        R1, R2, s1, s2, f1, f2, o1, o2 = R2, R1, s2, s1, f2, f1, o2, o1
+    _call("resample_fwd", r4, offsets, slope, out, V, R1, R2, n, m, sv, s1,
+          s2, fv, f1, f2, ov, o1, o2, oi)
     return out
 
 
-def resample_fwd(arr, offsets, slope, m_out: int):
+def resample_fwd(arr, offsets, slope, m_out: int, out_order=None):
     """K7: ``arr`` (V, *rows, N), ``offsets`` (V, *rows), ``slope`` (V,) →
-    (V, *rows, m_out). Inputs are taken as they are (no sanitizing)."""
+    (V, *rows, m_out), stored with its dims in ``out_order`` (outermost
+    first; None: row-major). Inputs are taken as they are (no
+    sanitizing). On the CPU the plain version's result comes as it is:
+    ``out_order`` is a storage detail of the card, and the plain versions
+    read any strides."""
     if arr.device.type == "cpu":
         return resample_rows_plain(arr, offsets, slope, m_out)
-    out = _launch("resample_fwd", arr, offsets, slope, arr.shape[-1], m_out,
-                  m_out)
+    out = _launch_fwd(arr, offsets, slope, m_out, out_order)
     resample_fwd.launches += 1
     return out
 
 
 def resample_transpose(g, offsets, slope, n_data: int):
     """K8: exact transpose of :func:`resample_fwd` for the rows, ``g`` (V,
-    *rows, M) → (V, *rows, n_data)."""
+    *rows, M) → (V, *rows, n_data), contiguous."""
     if g.device.type == "cpu":
         return resample_rows_transpose_plain(g, offsets, slope, n_data)
-    out = _launch("resample_transpose", g, offsets, slope, n_data,
-                  g.shape[-1], n_data)
+    r4 = _check_operands(g, offsets, slope, n_data, g.shape[-1])
+    V, R1, R2, m = r4.shape
+    out = torch.empty((*g.shape[:-1], n_data), dtype=torch.float32,
+                      device=g.device)
+    _call("resample_transpose", r4, offsets, slope, out, V, R1, R2, n_data,
+          m, *r4.stride()[:3])
     resample_transpose.launches += 1
     return out
 
@@ -169,8 +220,7 @@ def resample_rows_raw(arr, offsets, slope, m_out: int):
     arr, offsets, slope = arr.detach(), offsets.detach(), slope.detach()
     if arr.device.type == "cpu":
         return resample_rows_plain(arr, offsets, slope, m_out)
-    out = _launch("resample_fwd", arr, offsets, slope, arr.shape[-1], m_out,
-                  m_out)
+    out = _launch_fwd(arr, offsets, slope, m_out)
     resample_rows_raw.launches += 1
     return out
 
@@ -195,27 +245,30 @@ class _ResampleRows(torch.autograd.Function):
     """K7 forward, K8 rows cotangent, plain position cotangents."""
 
     @staticmethod
-    def forward(ctx, arr, offsets, slope, m_out, max_slope):
+    def forward(ctx, arr, offsets, slope, m_out, max_slope, out_order):
         n = arr.shape[-1]
         off, sl = _sanitize(offsets, slope, n, m_out, max_slope)
         ctx.pos_grad = any(ctx.needs_input_grad[1:3])
         ctx.save_for_backward(arr if ctx.pos_grad else None, off, sl)
         ctx.n = n
-        return resample_fwd(arr, off, sl, m_out)
+        return resample_fwd(arr, off, sl, m_out, out_order)
 
     @staticmethod
     def backward(ctx, g):
         arr, off, sl = ctx.saved_tensors
         abar = obar = sbar = None
         if ctx.needs_input_grad[0]:
+            # K8 reads rows of M contiguous elements: the cotangent of an
+            # output stored in another order arrives strided
             rows = g if g.stride(-1) == 1 else g.contiguous()
             abar = resample_transpose(rows, off, sl, ctx.n)
         if ctx.pos_grad:
             obar, sbar = position_cotangents(arr, g, off, sl)
-        return abar, obar, sbar, None, None
+        return abar, obar, sbar, None, None, None
 
 
-def resample_rows(arr, offsets, slope, m_out: int, max_slope: float):
+def resample_rows(arr, offsets, slope, m_out: int, max_slope: float,
+                  out_order=None):
     """Differentiable batched affine row resample (tomojax's
     ``resample_rows_pallas``).
 
@@ -224,12 +277,14 @@ def resample_rows(arr, offsets, slope, m_out: int, max_slope: float):
     :param slope: (V,) per-view slopes; the sanitizer clamps |slope| to
         ``max_slope``. Offsets and slope get cotangents only where autograd
         asks for them.
+    :param out_order: the output's dims in storage order, outermost first
+        (None: row-major); the resampled axis or a row axis innermost.
     :returns: (V, *rows, m_out), zero outside [0, N).
     """
     slope = torch.as_tensor(slope, dtype=arr.dtype, device=arr.device)
     return _ResampleRows.apply(arr, offsets.to(arr.dtype),
                                slope.reshape(-1), int(m_out),
-                               float(max_slope))
+                               float(max_slope), out_order)
 
 
 def resample_rows_transpose(g, offsets, slope, n_data: int,

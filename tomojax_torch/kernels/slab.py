@@ -72,20 +72,21 @@ def _check(name, t, shape):
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def _launch(fn, inp, scalars, out, geom: Geometry, *arc_args):
-    """Check the operands and launch ``fn`` on the current stream; arc
-    kernels take ``(n_steps, n_branch)`` after the shape arguments."""
+def _launch(fn, inp, scalars, outs, geom: Geometry, *arc_args):
+    """Check the operands and launch ``fn`` on the current stream with the
+    output pointers ``outs``; arc kernels take ``(n_steps, n_branch)``
+    after the shape arguments."""
     nx, ny, nz = geom.vox_shape
     nu, nv = geom.det_shape
     V = scalars.shape[0]
     _check("scalars", scalars, (V, sp.NS))
-    if out.numel() >= 2 ** 31 or max(V * nu * nv, nx * ny * nz) >= 2 ** 31:
+    if max(V * nu * nv, nx * ny * nz, *(o.numel() for o in outs)) >= 2 ** 31:
         raise ValueError("problem too large for 32-bit thread indices")
     with torch.cuda.device(inp.device):
         stream = torch.cuda.current_stream(inp.device).cuda_stream
         rc = fn(ctypes.c_void_p(inp.data_ptr()),
                 ctypes.c_void_p(scalars.data_ptr()),
-                ctypes.c_void_p(out.data_ptr()),
+                *(ctypes.c_void_p(o.data_ptr()) for o in outs),
                 V, nx, ny, nz, nu, nv, *arc_args, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{fn.__name__}: CUDA error {rc}")
@@ -102,19 +103,22 @@ def _fwd(entry, vol_or, scalars, geom: Geometry, nfields=None, *arc_args):
     _check("vol_or", vol_or, geom.vox_shape)
     shape = (V, nu, nv) if nfields is None else (V, nfields, nu, nv)
     out = torch.empty(shape, dtype=torch.float32, device=vol_or.device)
-    _launch(getattr(_build.load(), entry), vol_or, scalars, out, geom,
+    _launch(getattr(_build.load(), entry), vol_or, scalars, (out,), geom,
             *arc_args)
     return out
 
 
-def _adj(entry, g, scalars, geom: Geometry, *arc_args):
+def _adj(entry, g, scalars, geom: Geometry, *arc_args, scratch=0):
+    """Launch an adjoint entry → the oriented volume; ``scratch`` more
+    volumes of its shape are passed after it (K4's side-1 partial)."""
     from tomojax_torch.kernels import _build
     nu, nv = geom.det_shape
     _check("g", g, (scalars.shape[0], nu, nv))
-    out = torch.empty(geom.vox_shape, dtype=torch.float32, device=g.device)
-    _launch(getattr(_build.load(), entry), g, scalars, out, geom,
+    outs = [torch.empty(geom.vox_shape, dtype=torch.float32, device=g.device)
+            for _ in range(1 + scratch)]
+    _launch(getattr(_build.load(), entry), g, scalars, outs, geom,
             *arc_args)
-    return out
+    return outs[0]
 
 
 def slab_plane_fwd(vol_or, scalars, geom: Geometry):
@@ -151,10 +155,15 @@ def slab_arc_fwd(vol_or, scalars, geom: Geometry):
 
 
 def slab_arc_adj(g, scalars, geom: Geometry):
-    """K4: exact transpose of :func:`slab_arc_fwd` → oriented volume."""
+    """K4: exact transpose of :func:`slab_arc_fwd` → oriented volume.
+
+    The kernel writes the slab-r side of each source slab r into the
+    output and the slab-(r + 1) side into a scratch volume, then adds the
+    two (no atomics: two applies give the same bits)."""
     if g.device.type == "cpu":
         return slab_backproject_plain(g, scalars, geom, "arc")
-    out = _adj("slab_arc_adj", g, scalars, geom, *_arc_args(geom))
+    out = _adj("slab_arc_adj", g, scalars, geom, *_arc_args(geom),
+               scratch=1)
     slab_arc_adj.launches += 1
     return out
 

@@ -11,8 +11,9 @@ script exits non-zero:
 3. Kernels against their plain PyTorch versions, fp32, at 256³ × 180
    jittered views × 256² detector with all four orientation groups: K1
    per-view relative L2 ≤ 5e-4, K2 relative L2 ≤ 5e-4, adjoint identity
-   |⟨K1 x, y⟩ − ⟨x, K2 y⟩| ≤ 1e-5·‖K1 x‖·‖y‖ (float64 dot products), and
-   each one's time per 180-view apply (CUDA events, after warm-up).
+   |⟨K1 x, y⟩ − ⟨x, K2 y⟩| ≤ 1e-5·‖K1 x‖·‖y‖ (float64 dot products), two
+   K2 applies bit-identical (no atomics), each one's time per 180-view
+   apply (CUDA events, after warm-up) and K2's per orientation group.
 4. Main path through the CLI (BASELINE config 3 on slab_plane):
    ``simulate`` 256³/180 views with ±4 px shifts, then ``reconstruct``
    with COM pre-alignment + 60 CGLS iterations, and a second CGLS run on
@@ -44,13 +45,18 @@ script exits non-zero:
    operands, view chunks and output layouts the path gives them. K7
    bit-equal to its plain version on every call (the plain version runs
    in slices of views, for memory), K9 bit-equal to K7, K8 per call
-   relative L2 ≤ 1e-5, the fast operator's adjoint identity ≤
-   1e-5·‖Ax‖·‖y‖ (float64 dot products); times per 90-view apply of each
-   kernel, its plain version and the one PyTorch call that computes the
-   same function (``grid_sample``'s bilinear kernel
-   ``torch.grid_sampler_2d`` and its input gradient, checked against the
-   plain version first), summed over those calls, and the fast operator's
-   A and Aᵀ.
+   relative L2 ≤ 1e-5 (the fused pass-1 calls, which sum their views and
+   add them into the volume, checked adding into zeros against the plain
+   vjp summed over the views), two fast Aᵀ
+   bit-identical, the fast operator's adjoint identity ≤ 1e-5·‖Ax‖·‖y‖
+   (float64 dot products); times per 90-view apply of each kernel, its
+   plain version and the one PyTorch call that computes the same function
+   (``grid_sample``'s bilinear kernel ``torch.grid_sampler_2d`` and its
+   input gradient, plus ``.sum(0)`` for the fused calls, checked against
+   the plain version first), summed over those calls; K8's time, bound
+   and library time per pass (3, 2, 1); and the fast operator's A and
+   Aᵀ. K8's bound counts the bytes each call moves: its inputs once and
+   its output once (pass 1 reads and writes the volume once per chunk).
 8. The fast family's joint alignment through the CLI:
    examples/joint_align_128.py's protocol at 256³ × 90 views (Shepp
    phantom projected with the port's fast family, ±2 px / ±1° jitter from
@@ -207,6 +213,8 @@ def phase_kernels(dev):
                               / torch.linalg.norm(ref, dim=(1, 2))).max()))
         fwd_abs.append(float((ker - ref).abs().max()))
         kadj = slabk.slab_plane_adj(y, sc, geom)
+        check(torch.equal(kadj, slabk.slab_plane_adj(y, sc, geom)),
+              "two K2 applies differ")
         radj = slabk.slab_backproject_plain(y, sc, geom)
         adj_rel.append(float(torch.linalg.norm(kadj - radj)
                              / torch.linalg.norm(radj)))
@@ -221,7 +229,7 @@ def phase_kernels(dev):
     print(f"K1 vs plain: max per-view rel L2 {max(fwd_rel):.3e} "
           f"(tol {TOL_FWD}), max abs {max(fwd_abs):.3e}")
     print(f"K2 vs plain vjp: max rel L2 {max(adj_rel):.3e} (tol {TOL_ADJ}), "
-          f"max abs {max(adj_abs):.3e}")
+          f"max abs {max(adj_abs):.3e}; two applies bit-identical")
     print(f"adjoint identity |<K1x,y>-<x,K2y>|/(|K1x||y|): max "
           f"{max(dot_rel):.3e} (tol {TOL_DOT})")
 
@@ -239,6 +247,9 @@ def phase_kernels(dev):
           f"{N_PROJ}-view apply ({N}^3)")
     print(f"K2 {t['adj']:.3f} ms vs plain {t['adj_plain']:.3f} ms per "
           f"{N_PROJ}-view apply ({N}^3)")
+    per_group = [f"{cuda_ms(lambda: slabk.slab_plane_adj(y, sc, geom), 5):.3f}"
+                 f" ms ({sc.shape[0]} views)" for _, sc, y in groups]
+    print(f"K2 per orientation group: {', '.join(per_group)}")
 
     op = make_operator(geom, views, device=dev)
     sino = op.A(vol)
@@ -592,8 +603,9 @@ def phase_resample(dev):
     err = {k: [] for k in ("fwd", "fwd_abs", "fwd_equal", "adj", "adj_abs",
                            "lib_fwd", "lib_adj")}
     t = dict.fromkeys(("fwd", "fwd_plain", "fwd_lib", "raw", "adj",
-                       "adj_plain", "adj_lib"), 0.0)
-    work = {"fwd": [0, 0], "adj": [0, 0]}   # bytes, flops
+                       "adj_plain", "adj_lib", "adj_p3", "adj_p2", "adj_p1",
+                       "adj_lib_p3", "adj_lib_p2", "adj_lib_p1"), 0.0)
+    work = {k: [0, 0] for k in ("fwd", "adj", "p3", "p2", "p1")}  # B, flops
     views_per_call = {"fwd": [], "adj": []}
 
     def fwd_probe(k7, arr, off, sl, m, out_order=None):
@@ -626,9 +638,23 @@ def phase_resample(dev):
         t["fwd_lib"] += cuda_ms(lib, 3)
         return ker
 
-    def adj_probe(k8, g, off, sl, n):
-        ker = k8(g, off, sl, n)
-        ref = sliced(rs.resample_rows_transpose_plain, g, off, sl, n)
+    def adj_probe(k8, g, off, sl, n, out_order=None, *, add_into=None):
+        # the chain runs passes 3, 2, 1 per chunk; pass 1 sums its views
+        # and adds them into the volume, checked and timed here adding
+        # into zeros in the volume's strides
+        pas = 3 - len(views_per_call["adj"]) % 3
+        summed = add_into is not None
+
+        def run(dst=None):
+            return k8(g, off, sl, n, out_order, add_into=dst)
+
+        def plain():
+            ref = sliced(rs.resample_rows_transpose_plain, g, off, sl, n)
+            return ref.sum(0) if summed else ref
+
+        scratch = torch.zeros_like(add_into) if summed else None
+        ker = run(scratch)
+        ref = plain()
         err["adj"].append(rel_l2(ker, ref))
         err["adj_abs"].append(float((ker - ref).abs().max()))
         m = g.shape[-1]
@@ -637,21 +663,30 @@ def phase_resample(dev):
         shape_in = torch.empty((gout.shape[0], 1, 1, n), device=dev)
 
         def lib():
-            return torch.ops.aten.grid_sampler_2d_backward(
+            res = torch.ops.aten.grid_sampler_2d_backward(
                 gout, shape_in, grid, 0, 0, True, [True, False])[0]
+            res = res.reshape(*g.shape[:-1], n)
+            return res.sum(0) if summed else res
 
-        err["lib_adj"].append(rel_l2(lib().reshape(ker.shape), ref))
-        del ref
-        work["adj"][0] += (unique_bytes(g) + 4 * off.numel()
-                           + 4 * sl.numel() + 4 * ker.numel())
-        work["adj"][1] += 8 * g.numel()
+        err["lib_adj"].append(rel_l2(lib(), ref))
+        del ref, ker
+        # each call's own bytes: its inputs once, and its output written
+        # once (the view sum read and written once)
+        nbytes = (unique_bytes(g) + 4 * off.numel() + 4 * sl.numel()
+                  + (8 * add_into.numel() if summed
+                     else 4 * g.shape[:-1].numel() * n))
+        for k in ("adj", f"p{pas}"):
+            work[k][0] += nbytes
+            work[k][1] += 8 * g.numel()
         views_per_call["adj"].append(g.shape[0])
-        t["adj"] += cuda_ms(lambda: k8(g, off, sl, n), 3)
-        t["adj_plain"] += cuda_ms(
-            lambda: sliced(rs.resample_rows_transpose_plain, g, off, sl, n),
-            1)
-        t["adj_lib"] += cuda_ms(lib, 3)
-        return ker
+        ms = cuda_ms(lambda: run(scratch), 3)
+        lib_ms = cuda_ms(lib, 3)
+        t["adj"] += ms
+        t[f"adj_p{pas}"] += ms
+        t["adj_plain"] += cuda_ms(plain, 1)
+        t["adj_lib"] += lib_ms
+        t[f"adj_lib_p{pas}"] += lib_ms
+        return run(add_into)   # the path's own call
 
     op = make_operator(geom, views, family="fast", device=dev)
     ax = probed("resample_fwd", fwd_probe, lambda: op.A(vol))
@@ -664,7 +699,9 @@ def phase_resample(dev):
           f"{max(err['fwd']):.3e}, max abs {max(err['fwd_abs']):.3e}; K9 "
           "bit-equal to K7 on every call")
     print(f"K8 vs plain vjp: max per-call rel L2 {max(err['adj']):.3e} (tol "
-          f"{TOL_RESAMPLE}), max abs {max(err['adj_abs']):.3e}")
+          f"{TOL_RESAMPLE}), max abs {max(err['adj_abs']):.3e}; the fused "
+          f"pass-1 calls against the plain vjp summed over their views: "
+          f"max rel L2 {max(err['adj'][2::3]):.3e}")
     print(f"grid_sample vs K7's plain version: max rel L2 "
           f"{max(err['lib_fwd']):.3e}; its input gradient vs K8's: "
           f"{max(err['lib_adj']):.3e} (tol {TOL_LIBRARY})")
@@ -676,8 +713,20 @@ def phase_resample(dev):
               f"library {t[k + '_lib']:.3f} ms per {N_FAST}-view apply "
               f"({N}^3, 3 passes); bound {b_ms:.3f} ms ({b_by}: "
               f"{work[k][0] / 1e9:.2f} GB, {work[k][1] / 1e9:.2f} GFLOP)")
+    for pas, what in ((3, "a3 stored (V, nx, nv, nj)"),
+                      (2, "a2 stored (V, nx, ny, nv)"),
+                      (1, "views summed into the volume")):
+        b_ms, b_by = bound(*work[f"p{pas}"])
+        print(f"K8 pass {pas} ({what}): {t[f'adj_p{pas}']:.3f} ms vs "
+              f"library {t[f'adj_lib_p{pas}']:.3f} ms; bound {b_ms:.3f} ms "
+              f"({b_by}: {work[f'p{pas}'][0] / 1e9:.2f} GB)")
     print(f"K9 entry {t['raw']:.3f} ms per {N_FAST}-view apply")
 
+    again = op.AT(y)
+    check(torch.equal(again, aty) and torch.equal(again, op.AT(y)),
+          "two fast ATs differ")
+    print("fast AT: two applies bit-identical (and equal to the probed one)")
+    del again
     lhs = torch.dot(ax.double().reshape(-1), y.double().reshape(-1))
     rhs = torch.dot(vol.double().reshape(-1), aty.double().reshape(-1))
     dot = float(abs(lhs - rhs) / (torch.linalg.norm(ax.double())

@@ -341,8 +341,8 @@ def test_k7_output_layouts_bit_equal(cuda, shared, out_order):
 
 def test_resample_rows_backward_through_k8_in_new_layouts(cuda):
     """The fast forward's chain of passes with its output layouts: the
-    rows' cotangents reach K8 strided and are made contiguous, and every
-    gradient (rows, offsets, slope) matches the plain chain's on the
+    rows' cotangents reach K8 strided and K8 reads them as they are, and
+    every gradient (rows, offsets, slope) matches the plain chain's on the
     CPU."""
     rng = np.random.default_rng(6)
     V, nx, ny, nz, nv, nj = 3, 12, 10, 14, 11, 17
@@ -406,6 +406,150 @@ def test_k8_tiny_slopes_hold_k7_entries(cuda):
     ker = rs.resample_transpose(g, off, slope, N)
     ref = rs.resample_rows_transpose_plain(g, off, slope, N)
     torch.testing.assert_close(ker, ref, rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.parametrize("strided_g", [False, True], ids=["rows", "strided"])
+@pytest.mark.parametrize("out_order", [None, (0, 1, 3, 2), (0, 3, 2, 1)],
+                         ids=["rows", "a2-inner", "a1-inner"])
+def test_k8_layouts_match_plain(cuda, out_order, strided_g):
+    """K8 in each output layout, from cotangent rows of contiguous elements
+    or of strided elements (the row axes contiguous), at N = 37 and M = 53
+    and V = 7 (ragged against the 8 views and 32 rows of a CTA): the plain
+    vjp's values, stored in the asked order."""
+    V, R1, R2, N, M = 7, 9, 45, 37, 53
+    rng = np.random.default_rng(8)
+    off = torch.as_tensor(rng.uniform(-N * 0.5, N * 1.3, (V, R1, R2)),
+                          dtype=torch.float32, device=cuda)
+    slope = torch.as_tensor(rng.uniform(-1.6, 1.6, V), dtype=torch.float32,
+                            device=cuda)
+    gd = torch.as_tensor(rng.standard_normal((V, M, R1, R2)),
+                         dtype=torch.float32, device=cuda)
+    g = gd.permute(0, 2, 3, 1) if strided_g else gd.permute(0, 2, 3, 1) \
+        .contiguous()
+    ker = rs.resample_transpose(g, off, slope, N, out_order)
+    ref = rs.resample_rows_transpose_plain(g, off, slope, N)
+    torch.cuda.synchronize()
+    assert ker.shape == ref.shape
+    if out_order is not None:
+        assert ker.permute(*out_order).is_contiguous()
+    rel = float(torch.linalg.norm(ker - ref) / torch.linalg.norm(ref))
+    assert rel <= 1e-5, rel
+
+
+@pytest.mark.parametrize("swapped", [False, True], ids=["xy", "yx"])
+def test_k8_view_sum_and_accumulate_match_plain(cuda, swapped):
+    """The fused view sum added into a given tensor (a transposed view of
+    it for x-marching chunks), holding zeros or not: the plain vjp summed
+    over the views, added to what the tensor held."""
+    V, R1, R2, N, M = 11, 20, 36, 30, 41
+    rng = np.random.default_rng(9)
+    off = torch.as_tensor(rng.uniform(-5, N + 5, (V, R1, R2)),
+                          dtype=torch.float32, device=cuda)
+    slope = torch.as_tensor(rng.uniform(0.7, 1.4, V), dtype=torch.float32,
+                            device=cuda)
+    g = torch.as_tensor(rng.standard_normal((V, R1, R2, M)),
+                        dtype=torch.float32, device=cuda)
+    base = torch.as_tensor(rng.standard_normal((R1, R2, N)),
+                           dtype=torch.float32, device=cuda)
+    if swapped:
+        base = base.transpose(0, 1).contiguous().transpose(0, 1)
+    want = rs.resample_rows_transpose_plain(g, off, slope, N).sum(0)
+    for start in (torch.zeros_like(base), base):
+        acc = start.clone(memory_format=torch.preserve_format)
+        before = rs.resample_transpose.launches
+        got = rs.resample_transpose(g, off, slope, N, add_into=acc)
+        torch.cuda.synchronize()
+        assert got is acc and rs.resample_transpose.launches == before + 1
+        ref = want + start
+        rel = float(torch.linalg.norm(acc - ref) / torch.linalg.norm(ref))
+        assert rel <= 1e-5, rel
+
+
+def test_resample_rows_backward_makes_no_copy(cuda, monkeypatch):
+    """The backward hands K8 the cotangent as it arrives, strided (the
+    fast forward's pass-3 broadcast sum and its stored layouts), without a
+    ``.contiguous()`` copy."""
+    seen, copies = [], []
+    k8 = rs.resample_transpose
+    contiguous = torch.Tensor.contiguous
+
+    def probe(g, *a, **k):
+        seen.append(g.is_contiguous())
+        return k8(g, *a, **k)
+
+    probe.launches = 0   # k8 counts on the module's name, now the probe
+
+    def counting(self, *a, **k):
+        if not self.is_contiguous(*a, **k):
+            copies.append(tuple(self.shape))
+        return contiguous(self, *a, **k)
+
+    geom = Geometry(n_proj=6, vox_shape=(24,) * 3, det_shape=(24, 24))
+    th = np.zeros((6, 6))
+    th[:, 3] = np.linspace(0.1, 3.0, 6)
+    E, B = fastp.view_affine(geom, th[:, 3], th[:, 4], th[:, 5], th[:, :3],
+                             np.zeros((6, 3)), torch.float32)
+    E, B = E.to(cuda).requires_grad_(True), B.to(cuda)
+    vol = torch.as_tensor(phantom.shepp3d(24), device=cuda)
+    loss = fastp.forward_views(vol, geom, E, B).square().sum()
+    monkeypatch.setattr(rs, "resample_transpose", probe)
+    monkeypatch.setattr(torch.Tensor, "contiguous", counting)
+    (gE,) = torch.autograd.grad(loss, (E,))
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert len(seen) >= 2 and not all(seen), seen
+    assert copies == [], copies
+    assert torch.isfinite(gE).all()
+
+
+def test_fast_adjoint_repeats_bit_for_bit(cuda):
+    geom, views, vol, rng = _problem(n=32, n_proj=8)
+    y = torch.as_tensor(rng.standard_normal((8, geom.n_det)),
+                        dtype=torch.float32, device=cuda)
+    op = make_operator(geom, views, family="fast", device=cuda)
+    assert torch.equal(op.AT(y), op.AT(y))
+
+
+def _plane_odd_case(device, n=(37, 37, 29), det=(53, 41), det_pix=0.7,
+                    n_proj=12):
+    """A plane problem at odd sizes over the full circle (every
+    orientation group, u-flip included), at a detector pitch ≠ 1."""
+    rng = np.random.default_rng(12)
+    geom = Geometry(n_proj=n_proj, vox_shape=n, det_shape=det,
+                    det_pix=(det_pix, det_pix))
+    views = Views.create(
+        n_proj, phi=0.3 + np.linspace(0, 2 * np.pi, n_proj, endpoint=False),
+        alpha=rng.uniform(-0.02, 0.02, n_proj),
+        beta=rng.uniform(-0.02, 0.02, n_proj),
+        t=rng.uniform(-2, 2, (n_proj, 3)))
+    vol = rng.random(n).astype(np.float32)
+    return geom, views, vol, rng
+
+
+@pytest.mark.parametrize("case", ["256", "odd"])
+def test_k2_matches_plain_vjp_identity_and_repeats(cuda, case):
+    """K2 at 256³ (8 views) and at odd sizes with det_pix 0.7: within 5e-4
+    of the plain vjp, the adjoint identity with K1 to 1e-5, and two
+    applies bit-identical (no atomics)."""
+    if case == "256":
+        geom, views, vol, rng = _problem(n=256, n_proj=8)
+    else:
+        geom, views, vol, rng = _plane_odd_case(cuda)
+    nu, nv = geom.det_shape
+    for vol_or, sc in _groups(geom, views, vol, cuda):
+        y = torch.as_tensor(rng.standard_normal((sc.shape[0], nu, nv)),
+                            dtype=torch.float32, device=cuda)
+        ker = slabk.slab_plane_adj(y, sc, geom)
+        assert torch.equal(ker, slabk.slab_plane_adj(y, sc, geom))
+        ref = slabk.slab_backproject_plain(y, sc, geom)
+        rel = float(torch.linalg.norm(ker - ref) / torch.linalg.norm(ref))
+        assert rel < 5e-4, rel
+        ax = slabk.slab_plane_fwd(vol_or, sc, geom)
+        lhs = torch.dot(ax.double().reshape(-1), y.double().reshape(-1))
+        rhs = torch.dot(vol_or.double().reshape(-1), ker.double().reshape(-1))
+        bound = 1e-5 * torch.linalg.norm(ax.double()) * torch.linalg.norm(
+            y.double())
+        assert float(abs(lhs - rhs)) <= float(bound), (lhs, rhs)
 
 
 def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):

@@ -186,3 +186,71 @@ def test_raw_entry_and_cpu_launch_counts():
     assert counts == (rs.resample_fwd.launches,
                       rs.resample_transpose.launches,
                       rs.resample_rows_raw.launches)
+
+
+def _k8_window(off, slope, n, m, run=4):
+    """K8's candidate window (``tap_window`` in ``csrc/resample.cu``) for
+    the run of ``run`` outputs that holds each output n, in float32, one
+    rounding per operation as the card rounds each: the reciprocal once
+    per view, then multiplies. → (lo, hi), each (rows, n)."""
+    f32 = torch.float32
+    a, b = off.to(f32)[:, None], torch.tensor(slope, dtype=f32)
+    c0 = (torch.arange(n) // run * run).to(f32)[None, :]
+    c1 = c0 + (run - 1)
+    inv_b = 1.0 / b
+    slack = ((2.0 * a.abs() + b.abs() * m + torch.maximum(c0.abs(), c1.abs())
+              + 2.0) * 4.8e-7 * inv_b.abs())
+    t0, t1 = (c0 - 1.0 - a) * inv_b, (c1 + 1.0 - a) * inv_b
+    tl = torch.clamp(torch.minimum(t0, t1) - slack, -2.0, m + 1.0)
+    th = torch.clamp(torch.maximum(t0, t1) + slack, -2.0, m + 1.0)
+    return torch.ceil(tl).long().clamp(min=0), \
+        torch.floor(th).long().clamp(max=m - 1)
+
+
+@pytest.mark.parametrize("slope", [1e-7, -1e-7, 3e-8, 1e-3, -1e-3, 0.93,
+                                   -1.02, 1.2, -1.6])
+def test_k8_reciprocal_window_holds_every_k7_tap(slope):
+    """Every (i, n) where K7's float32 tap of output i lands on element n
+    lies in K8's window for the run of n, for offsets over and past the row
+    and a few ulps off integers (where the floor is decided by the last
+    bit)."""
+    R, N, M = 256, 48, 96
+    rng = np.random.default_rng(21)
+    base = rng.uniform(-N * 0.5, N * 1.3, R).astype(np.float32)
+    base[: R // 2] = np.round(base[: R // 2])
+    ulps = rng.integers(-4, 5, R).astype(np.float32)
+    off = torch.as_tensor(base + ulps * np.spacing(base))
+    pos = rs._positions(off[None], torch.tensor([slope]), M)[0]   # (R, M)
+    kf = torch.floor(pos)
+    lo, hi = _k8_window(off, slope, N, M)                          # (R, N)
+    i = torch.arange(M).expand(R, M)
+    checked = 0
+    for tap in (kf, kf + 1):
+        ok = (tap >= 0) & (tap <= N - 1)
+        r, ii = torch.nonzero(ok, as_tuple=True)
+        n = tap[r, ii].long()
+        assert bool(((lo[r, n] <= i[r, ii]) & (i[r, ii] <= hi[r, n])).all())
+        checked += r.numel()
+    assert checked > R
+
+
+@pytest.mark.parametrize("nonzero", [False, True])
+def test_plain_transpose_view_sum_and_accumulate(nonzero):
+    """The plain K8 with ``add_into`` is the per-view vjp summed over the
+    views and added to what the tensor held (zeros or not), which it
+    returns."""
+    rng = np.random.default_rng(22)
+    V, R1, R2, N, M = 5, 3, 4, 20, 26
+    g = torch.as_tensor(rng.standard_normal((V, R1, R2, M)))
+    off = torch.as_tensor(rng.uniform(-4, N + 4, (V, R1, R2)))
+    sl = torch.as_tensor(rng.uniform(0.6, 1.5, V))
+    base = torch.as_tensor(rng.standard_normal((R2, R1, N))).transpose(0, 1)
+    if not nonzero:
+        base = torch.zeros_like(base)
+    acc = base.clone()
+    got = rs.resample_transpose(g, off, sl, N, add_into=acc)
+    want = sum(rs.resample_rows_transpose_plain(g[v:v + 1], off[v:v + 1],
+                                                sl[v:v + 1], N)[0]
+               for v in range(V))
+    assert got is acc
+    torch.testing.assert_close(acc, want + base, rtol=0, atol=1e-12)

@@ -75,10 +75,10 @@ def views_per_chunk(geom: Geometry, grad: bool = False,
     """Views per chunk within :data:`CHUNK_BYTES`: the forward holds i1
     (nx·ny·nv), i2 (nx·nv·nj) and pass 3's output (nj·nv·nu), each written
     by K7 in the row order the next pass reads (all three stay alive under
-    autograd, which saves the rows); the adjoint's K8 chain holds about as
-    much at its peak (a3, its transposed copy and a2). A θ-gradient adds
-    the position cotangents' temporaries (about six pass-3-sized tensors,
-    two of them int64)."""
+    autograd, which saves the rows); the adjoint's K8 chain holds less at
+    its peak (a3 and a2; its last pass adds into the volume). A θ-gradient
+    adds the position cotangents' temporaries (about six pass-3-sized
+    tensors, two of them int64)."""
     nx, ny, _ = geom.vox_shape
     nu, nv = geom.det_shape
     nj = geom.n_steps
@@ -159,22 +159,27 @@ def _forward_marching_y(vol, E, B, geom: Geometry):
     return out.sum(1).transpose(1, 2).reshape(V, -1)
 
 
-def _backproject_marching_y(g, E, B, geom: Geometry, vol_shape):
-    """Exact transpose of :func:`_forward_marching_y`: (V, n_det) →
-    (nx, ny, nz), summed over the views. K8 on the rows only."""
+def _backproject_marching_y(g, E, B, geom: Geometry, acc):
+    """Exact transpose of :func:`_forward_marching_y`: adds the
+    backprojection of ``g`` (V, n_det), summed over the views, into
+    ``acc`` (nx, ny, nz; a strided view for x-marching views). K8 on the
+    rows only. The sinogram is read in place as rows broadcast over j, and
+    on the card each pass's output is stored in the row order the next
+    pass reads (a3 as (V, nx, nv, nj), a2 as (V, nx, ny, nv)); the last
+    pass sums the views into ``acc`` itself."""
     V = E.shape[0]
     nu, nv = geom.det_shape
-    nx, ny, nz = vol_shape
-    p1, p2, p3 = _passes(E, B, geom, vol_shape)
-    g3 = g.reshape(V, nu, nv).transpose(1, 2).contiguous()[:, None].expand(
+    nx, ny, nz = acc.shape
+    p1, p2, p3 = _passes(E, B, geom, acc.shape)
+    g3 = g.reshape(V, nu, nv).transpose(1, 2)[:, None].expand(
         V, geom.n_steps, nv, nu)                          # sum over j
-    a3 = resample_rows_transpose(g3, *p3[:2], nx, p3[2])  # (V, nj, nv, nx)
-    a2 = resample_rows_transpose(a3.permute(0, 3, 2, 1).contiguous(),
-                                 *p2[:2], ny, p2[2])      # (V, nx, nv, ny)
+    a3 = resample_rows_transpose(g3, *p3[:2], nx, p3[2],
+                                 out_order=(0, 3, 2, 1))  # (V, nj, nv, nx)
+    a2 = resample_rows_transpose(a3.permute(0, 3, 2, 1), *p2[:2], ny, p2[2],
+                                 out_order=(0, 1, 3, 2))  # (V, nx, nv, ny)
     del a3
-    a1 = resample_rows_transpose(a2.transpose(2, 3).contiguous(), *p1[:2],
-                                 nz, p1[2])               # (V, nx, ny, nz)
-    return a1.sum(0)
+    resample_rows_transpose(a2.transpose(2, 3), *p1[:2], nz, p1[2],
+                            add_into=acc)
 
 
 def _oriented(vol, E, B, swapped: bool):
@@ -249,7 +254,10 @@ def project(vol, geom: Geometry, views: Views, *, dtype=torch.float32):
 
 def backproject(sino, geom: Geometry, views: Views, *, dtype=torch.float32):
     """Exact adjoint of :func:`project` → ``vox_shape``: per chunk, the K8
-    chain of :func:`_backproject_marching_y`."""
+    chain of :func:`_backproject_marching_y`, which adds the chunk into
+    the volume (through its x/y-transposed view for x-marching chunks).
+    The sum runs over the views in order within a chunk and over the
+    chunks in :func:`_octant_chunks` order."""
     _require_square(geom)
     sino = sino.reshape(geom.n_proj, geom.n_det).to(dtype)
     E, B = _affine(geom, views, dtype, sino.device)
@@ -257,6 +265,5 @@ def backproject(sino, geom: Geometry, views: Views, *, dtype=torch.float32):
     acc = torch.zeros(geom.vox_shape, dtype=dtype, device=sino.device)
     for sel, sw in _octant_chunks(E, chunk):
         vol_o, E_o, B_o = _oriented(acc, E[sel], B[sel], sw)
-        part = _backproject_marching_y(sino[sel], E_o, B_o, geom, vol_o.shape)
-        acc += part.transpose(0, 1) if sw else part
+        _backproject_marching_y(sino[sel], E_o, B_o, geom, vol_o)
     return acc

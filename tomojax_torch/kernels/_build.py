@@ -39,11 +39,12 @@ _ARC = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 _ARC_ADJ = [_P, *_ARC]
 # int fn(const float* rows, const float* off, const float* slope, float* out,
 #        int V, int R1, int R2, int N, int M, long long sv, long long s1,
-#        long long s2, cudaStream_t);
-# the forward also takes the offsets' (fv, f1, f2) and the output's
-# (ov, o1, o2, oi) strides before the stream
-_RESAMPLE = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _P]
-_RESAMPLE_FWD = [*_RESAMPLE[:-1], *[_L] * 7, _P]
+#        long long s2, [long long si,] long long fv, long long f1,
+#        long long f2, long long ov, long long o1, long long o2,
+#        long long oi, cudaStream_t);
+# the bracketed argument is the transpose's: its rows' element stride
+_RESAMPLE_FWD = [_P, _P, _P, _P, *[_I] * 5, *[_L] * 10, _P]
+_RESAMPLE_T = [_P, _P, _P, _P, *[_I] * 5, *[_L] * 11, _P]
 _SIGNATURES = {
     "slab_plane_fwd": _PLANE,
     "slab_plane_adj": _PLANE,
@@ -51,7 +52,7 @@ _SIGNATURES = {
     "slab_arc_adj": _ARC_ADJ,
     "slab_arc_jac": _ARC,
     "resample_fwd": _RESAMPLE_FWD,
-    "resample_transpose": _RESAMPLE,
+    "resample_transpose": _RESAMPLE_T,
 }
 
 

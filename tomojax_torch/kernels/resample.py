@@ -8,10 +8,12 @@ row a and output i = 0..M-1, is
 with each tap zero outside [0, N). Rows carry a leading view axis and one
 or two row axes: ``arr`` is (V, *rows, N), ``offsets`` (V, *rows) and
 ``slope`` (V,), one slope per view as tomojax has under ``vmap``. Rows may
-be strided (a volume shared by every view is ``vol.expand(V, ...)``), but
-each row's elements must be contiguous. The forward's output may be laid
-out in another order than its logical (V, *rows, M) (``out_order``), so
-that the next pass reads it as contiguous rows without a copy.
+be strided (a volume shared by every view is ``vol.expand(V, ...)``); the
+forward reads rows of contiguous elements, the transpose any strides.
+Either output may be laid out in another order than its logical (V,
+*rows, W) (``out_order``), so that the next pass reads it as contiguous
+rows without a copy; the transpose can also sum its views and add them
+into a given tensor (``add_into``).
 
 One wrapper per hand-written kernel entry, each counting its launches in
 ``.launches``:
@@ -78,15 +80,19 @@ def resample_rows_plain(arr, offsets, slope, m_out: int):
     return (1 - t) * _taps(arr, kf, n) + t * _taps(arr, kf + 1, n)
 
 
-def resample_rows_transpose_plain(g, offsets, slope, n_data: int):
+def resample_rows_transpose_plain(g, offsets, slope, n_data: int, *,
+                                  add_into=None):
     """Plain version of K8: autograd's vjp of :func:`resample_rows_plain`
-    with respect to the rows."""
+    with respect to the rows; with ``add_into`` summed over the views
+    (``.sum(0)``) and added to it."""
     with torch.enable_grad():
         arr = torch.zeros((*offsets.shape, n_data), dtype=g.dtype,
                           device=g.device, requires_grad=True)
-        out = resample_rows_plain(arr, offsets, slope, g.shape[-1])
-        (abar,) = torch.autograd.grad(out, arr, g)
-    return abar
+        res = resample_rows_plain(arr, offsets, slope, g.shape[-1])
+        (abar,) = torch.autograd.grad(res, arr, g)
+    if add_into is None:
+        return abar
+    return add_into.add_(abar.sum(0))
 
 
 def _inverse(order):
@@ -126,8 +132,21 @@ def _check(name, t):
         raise TypeError(f"{name}: expected float32, got {t.dtype}")
 
 
-def _check_operands(rows, offsets, slope, n: int, m: int):
-    """The checks both kernels make; returns ``rows`` as (V, R1, R2, W)."""
+def _storage_order(t):
+    """``t``'s dims in storage order, outermost first, when ``t`` is a
+    permutation of a contiguous tensor with its last dim innermost; else
+    None (row-major)."""
+    order = sorted(range(t.dim()), key=lambda d: -t.stride(d))
+    if (order == list(range(t.dim())) or order[-1] != t.dim() - 1
+            or not t.permute(order).is_contiguous()):
+        return None
+    return tuple(order)
+
+
+def _check_operands(rows, offsets, slope, n: int, m: int,
+                    contiguous_rows: bool = True):
+    """The checks both kernels make; returns ``rows`` as (V, R1, R2, W).
+    K7 reads rows of contiguous elements, K8 any strides."""
     for name, t in (("rows", rows), ("offsets", offsets), ("slope", slope)):
         _check(name, t)
     r4 = _as_4d(rows)
@@ -140,7 +159,7 @@ def _check_operands(rows, offsets, slope, n: int, m: int):
                          f"{tuple(slope.shape)}")
     if not (offsets.is_contiguous() and slope.is_contiguous()):
         raise ValueError("offsets and slope must be contiguous")
-    if r4.shape[-1] > 1 and r4.stride(-1) != 1:
+    if contiguous_rows and r4.shape[-1] > 1 and r4.stride(-1) != 1:
         raise ValueError("each row's elements must be contiguous")
     if V > 65535 or max(R1, R2, n, m) >= 2 ** 31:
         raise ValueError(f"problem too large: V={V}, rows=({R1}, {R2}), "
@@ -198,17 +217,57 @@ def resample_fwd(arr, offsets, slope, m_out: int, out_order=None):
     return out
 
 
-def resample_transpose(g, offsets, slope, n_data: int):
-    """K8: exact transpose of :func:`resample_fwd` for the rows, ``g`` (V,
-    *rows, M) → (V, *rows, n_data), contiguous."""
-    if g.device.type == "cpu":
-        return resample_rows_transpose_plain(g, offsets, slope, n_data)
-    r4 = _check_operands(g, offsets, slope, n_data, g.shape[-1])
+def _launch_transpose(g, offsets, slope, n: int, out_order, add_into):
+    """Launch K8: the cotangent read in its own strides, the output new in
+    ``out_order``'s layout, or the views' sum added into ``add_into``
+    (output view stride 0). The kernel's inner row
+    axis is the output's unit-stride row axis when the output is
+    transposed, else the cotangent's when its elements are strided; the
+    row axes are swapped for the kernel when that is the outer one."""
+    r4 = _check_operands(g, offsets, slope, n, g.shape[-1],
+                         contiguous_rows=False)
     V, R1, R2, m = r4.shape
-    out = torch.empty((*g.shape[:-1], n_data), dtype=torch.float32,
-                      device=g.device)
-    _call("resample_transpose", r4, offsets, slope, out, V, R1, R2, n_data,
-          m, *r4.stride()[:3])
+    if add_into is None:
+        out = _empty((*g.shape[:-1], n), out_order, g.device)
+        ov, o1, o2, on = _as_4d(out).stride()
+    else:
+        if out_order is not None:
+            raise ValueError("give add_into or out_order, not both")
+        _check("add_into", add_into)
+        shape = (*g.shape[1:-1], n)
+        if tuple(add_into.shape) != shape:
+            raise ValueError(f"add_into: expected shape {shape}, got "
+                             f"{tuple(add_into.shape)}")
+        out = add_into
+        _, o1, o2, on = _as_4d(out.unsqueeze(0)).stride()
+        ov = 0
+    gv, g1, g2, gi = r4.stride()
+    f4 = offsets.unsqueeze(1) if offsets.dim() == 2 else offsets
+    fv, f1, f2 = f4.stride()
+    if on != 1 and o2 != 1 and o1 != 1:
+        raise ValueError("the output must keep its elements or a row axis "
+                         "innermost")
+    if (on != 1 and o2 != 1) or (on == 1 and gi != 1 and g2 != 1
+                                 and g1 == 1):
+        R1, R2, g1, g2, f1, f2, o1, o2 = R2, R1, g2, g1, f2, f1, o2, o1
+    _call("resample_transpose", r4, offsets, slope, out, V, R1, R2, n, m, gv,
+          g1, g2, gi, fv, f1, f2, ov, o1, o2, on)
+    return out
+
+
+def resample_transpose(g, offsets, slope, n_data: int, out_order=None, *,
+                       add_into=None):
+    """K8: exact transpose of :func:`resample_fwd` for the rows, ``g`` (V,
+    *rows, M) in any strides → (V, *rows, n_data), stored with its dims in
+    ``out_order`` (outermost first; None: row-major; the elements or a row
+    axis innermost). With ``add_into`` (*rows, n_data), in any strides of
+    that kind, the result is summed over the views in order and added into
+    it, which is returned. On the CPU the plain version runs, in its own
+    layout."""
+    if g.device.type == "cpu":
+        return resample_rows_transpose_plain(g, offsets, slope, n_data,
+                                             add_into=add_into)
+    out = _launch_transpose(g, offsets, slope, n_data, out_order, add_into)
     resample_transpose.launches += 1
     return out
 
@@ -251,6 +310,7 @@ class _ResampleRows(torch.autograd.Function):
         ctx.pos_grad = any(ctx.needs_input_grad[1:3])
         ctx.save_for_backward(arr if ctx.pos_grad else None, off, sl)
         ctx.n = n
+        ctx.abar_order = _storage_order(arr)
         return resample_fwd(arr, off, sl, m_out, out_order)
 
     @staticmethod
@@ -258,10 +318,11 @@ class _ResampleRows(torch.autograd.Function):
         arr, off, sl = ctx.saved_tensors
         abar = obar = sbar = None
         if ctx.needs_input_grad[0]:
-            # K8 reads rows of M contiguous elements: the cotangent of an
-            # output stored in another order arrives strided
-            rows = g if g.stride(-1) == 1 else g.contiguous()
-            abar = resample_transpose(rows, off, sl, ctx.n)
+            # K8 reads the cotangent in the strides it arrives in (an
+            # output stored in another order, a broadcast sum) and stores
+            # the rows' cotangent in the layout of the rows, where dense:
+            # no copy on either side
+            abar = resample_transpose(g, off, sl, ctx.n, ctx.abar_order)
         if ctx.pos_grad:
             obar, sbar = position_cotangents(arr, g, off, sl)
         return abar, obar, sbar, None, None, None
@@ -288,11 +349,14 @@ def resample_rows(arr, offsets, slope, m_out: int, max_slope: float,
 
 
 def resample_rows_transpose(g, offsets, slope, n_data: int,
-                            max_slope: float):
+                            max_slope: float, out_order=None, *,
+                            add_into=None):
     """Exact transpose of :func:`resample_rows` applied to cotangent rows
-    ``g`` (V, *rows, M) → (V, *rows, n_data): sanitize, then K8."""
+    ``g`` (V, *rows, M) → (V, *rows, n_data): sanitize, then K8 (its
+    ``out_order`` or ``add_into``)."""
     off, sl = _sanitize(offsets.to(g.dtype),
                         torch.as_tensor(slope, dtype=g.dtype,
                                         device=g.device).reshape(-1),
                         n_data, g.shape[-1], max_slope)
-    return resample_transpose(g, off, sl, n_data)
+    return resample_transpose(g, off, sl, n_data, out_order,
+                              add_into=add_into)

@@ -25,8 +25,13 @@ script exits non-zero:
    detector with at least four orientation groups: K3 per-view relative
    L2 ≤ 5e-4, K4 relative L2 ≤ 5e-4, arc adjoint identity ≤ 1e-5·‖K3 x‖·‖y‖
    (float64 dot products), each K5 field per-view relative L2 ≤ 2e-3,
-   the single-field entry bit-equal to its K5 field, and two K4 applies
-   bit-identical (no atomics); times per 90-view apply.
+   the single-field entry bit-equal to its K5 field, and two applies of
+   each of K3, K4 and K5 bit-identical (no atomics); the march's division
+   (K3/K5) bit-equal to __fdiv_rn on 2^24 numerators for every view's
+   edy; times per 90-view apply, and K3's and K5's per orientation group
+   beside their bound and the times of the one-thread-per-ray design that
+   the march replaced (17.138 and 23.968 ms on an NVIDIA H100 80GB HBM3 at
+   700 W).
 6. Main path through the CLI (BASELINE config 4): ``simulate`` 256³/90
    views in arc quadrature with ±2 px / ±0.5° jitter, then ``align`` with
    COM pre-alignment, 6 outers of 30 CGLS iterations (arc) and 10 lm_slab
@@ -79,6 +84,7 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``nvidia-smi`` name and power limit, and before that the kernels' JSON.
 """
 
+import ctypes
 import json
 import os
 import shutil
@@ -123,6 +129,9 @@ COUNTED = (slabk.slab_plane_fwd, slabk.slab_plane_adj, slabk.slab_arc_fwd,
            slabk.slab_arc_adj, slabk.slab_project_jac,
            slabk.slab_project_field, rs.resample_fwd, rs.resample_transpose,
            rs.resample_rows_raw)
+# K3's and K5's times per 90-view apply in the one-thread-per-ray design
+# that the march replaced (NVIDIA H100 80GB HBM3, 700 W)
+EARLIER_MS = {"fwd": 17.138, "jac": 23.968}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS = 67e12          # H100 SXM, published fp32 outside tensor cores
 
@@ -367,8 +376,12 @@ def phase_arc_kernels(dev):
                         kadj.double().reshape(-1))
         err["dot"].append(float(abs(lhs - rhs) / (
             torch.linalg.norm(ker.double()) * torch.linalg.norm(y.double()))))
+        check(torch.equal(ker, slabk.slab_arc_fwd(vol_or, sc, geom)),
+              "two K3 applies differ")
         del ker, ref, kadj, radj
         kj = slabk.slab_project_jac(vol_or, sc, geom)
+        check(torch.equal(kj, slabk.slab_project_jac(vol_or, sc, geom)),
+              "two K5 applies differ")
         rj, ms = timed(lambda: slabk.slab_project_jac_plain(vol_or, sc, geom))
         t["jac_plain"] += ms
         jac_rel = torch.maximum(jac_rel, per_view_rel(kj, rj).max(dim=0)
@@ -381,6 +394,8 @@ def phase_arc_kernels(dev):
                   f"single-field entry {name} differs from its K5 field")
         del kj, rj
     fields = dict(zip(slabk.JAC_PASSES, (f"{v:.2e}" for v in jac_rel)))
+    div_bad = march_division_mismatches(
+        torch.cat([sc[:, sp.S_EDY] for sc in scalars]), dev)
     print(f"K3 vs plain: max per-view rel L2 {max(err['fwd_rel']):.3e} "
           f"(tol {TOL_FWD}), max abs {max(err['fwd_abs']):.3e}")
     print(f"K4 vs plain vjp: max rel L2 {max(err['adj_rel']):.3e} "
@@ -391,7 +406,10 @@ def phase_arc_kernels(dev):
     print(f"K5 vs 12 plain passes: max per-view rel L2 per field {fields} "
           f"(tol {TOL_JAC}), max abs {max(err['jac_abs']):.3e}")
     print("single-field entry (K6): all 11 derivative fields bit-equal to "
-          "their K5 fields")
+          "their K5 fields; two applies of K3 and of K5 bit-identical")
+    print(f"march division (K3/K5) vs __fdiv_rn: {div_bad} of "
+          f"{N_ARC * DIV_NUMERATORS} quotients differ "
+          f"({N_ARC} views' edy)")
 
     def fwd(fn, *a):
         return lambda: [fn(vo, sc, geom, *a) for vo, sc, _ in groups]
@@ -414,14 +432,51 @@ def phase_arc_kernels(dev):
                      ("field", "K6 entry (px)")):
         print(f"{label} {t[k]:.3f} ms vs plain {t[k + '_plain']:.3f} ms per "
               f"{N_ARC}-view apply ({N}^3)")
+    for k, label, fn, bnd in (("fwd", "K3", slabk.slab_arc_fwd, t["bound"]),
+                              ("jac", "K5", slabk.slab_project_jac,
+                               t["bound_jac"])):
+        per_group = [f"{cuda_ms(lambda: fn(vo, sc, geom), 5):.3f} ms "
+                     f"({sc.shape[0]} views)" for vo, sc, _ in groups]
+        print(f"{label} per orientation group: {', '.join(per_group)}; "
+              f"apply {t[k]:.3f} ms vs bound {bnd[0]:.3f} ms ({bnd[1]}) and "
+              f"the one-thread-per-ray {EARLIER_MS[k]:.3f} ms")
     check(max(err["fwd_rel"]) <= TOL_FWD, f"K3 rel L2 {max(err['fwd_rel'])}")
     check(max(err["adj_rel"]) <= TOL_ADJ, f"K4 rel L2 {max(err['adj_rel'])}")
     check(max(err["dot"]) <= TOL_DOT,
           f"arc adjoint identity {max(err['dot'])}")
     check(float(jac_rel.max()) <= TOL_JAC, f"K5 fields {fields}")
+    check(div_bad == 0, f"march division differs on {div_bad} quotients")
     return {"fwd_abs": max(err["fwd_abs"]), "adj_abs": max(err["adj_abs"]),
             "jac_abs": max(err["jac_abs"]),
             "field_abs": max(err["field_abs"]), **t}
+
+
+DIV_NUMERATORS = 1 << 24
+
+
+def march_division_mismatches(edys, dev) -> int:
+    """Quotients where K3/K5's division (the correctly rounded reciprocal
+    and one fma correction) differs from __fdiv_rn: 2^24 numerators, random
+    bit patterns of both signs with magnitudes in [2^-20, 2^13) (the march
+    indices' range and well beyond), against each edy in ``edys``."""
+    lib = _build.load()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bits = torch.randint(107 << 23, 140 << 23, (DIV_NUMERATORS,),
+                         generator=gen, device=dev, dtype=torch.int32)
+    sign = torch.randint(0, 2, (DIV_NUMERATORS,), generator=gen, device=dev,
+                         dtype=torch.int32) << 31
+    a = (bits | sign).view(torch.float32)
+    q_rcp, q_div = torch.empty_like(a), torch.empty_like(a)
+    bad = 0
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for edy in edys.tolist():
+        rc = lib.slab_arc_div_check(
+            ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(q_rcp.data_ptr()),
+            ctypes.c_void_p(q_div.data_ptr()), DIV_NUMERATORS, edy,
+            ctypes.c_void_p(stream))
+        check(rc == 0, f"slab_arc_div_check: CUDA error {rc}")
+        bad += int((q_rcp.view(torch.int32) != q_div.view(torch.int32)).sum())
+    return bad
 
 
 def gauge_fit(phi, tx_err, tz_err, a_err, b_err):

@@ -133,6 +133,21 @@ def test_align_reconstruct_matches_tomojax(prob):
                                atol=1e-12)
 
 
+def test_align_accepts_debias_chunk(prob):
+    """tomojax's ``debias_chunk`` with the debias stage off: the same run
+    as without it, and tomojax's θ and volume."""
+    got = _align(prob, debias_chunk=15, debias_period=None)
+    plain = _align(prob)
+    assert torch.equal(got.views.theta6(), plain.views.theta6())
+    assert torch.equal(got.volume, plain.volume)
+    ref = prob["ref"]
+    np.testing.assert_allclose(got.views.theta6().numpy(),
+                               np.asarray(ref.views.theta6()), rtol=0,
+                               atol=1e-8)
+    np.testing.assert_allclose(got.volume.numpy(), np.asarray(ref.volume),
+                               rtol=0, atol=1e-8)
+
+
 def test_align_flip_rescue_matches_tomojax(flip_prob, capsys):
     got = _align(flip_prob, progress=True, **flip_prob["kw"])
     flips = _flip_lines(capsys.readouterr().out)

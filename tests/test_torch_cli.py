@@ -75,7 +75,9 @@ def test_reconstruct_matches_tomojax(dataset, tmp_path, pre_align):
 
 @pytest.mark.parametrize("argv, match", [
     (["align", "-i", "x.h5", "-o", "y.npy"], "ROADMAP"),
-    (["reconstruct", "-i", "x.h5", "-o", "y.npy", "--shard"], "item 18"),
+    # with more than one card (two seen here) --shard is not ported
+    (["reconstruct", "-i", "x.h5", "-o", "y.npy", "--shard", "--device",
+      "cuda"], "item 18"),
     (["reconstruct", "-i", "x.h5", "-o", "y.npy", "--pre-align", "cc"],
      "item 9"),
     (["reconstruct", "-i", "x.h5", "-o", "y.npy", "--set",
@@ -84,9 +86,30 @@ def test_reconstruct_matches_tomojax(dataset, tmp_path, pre_align):
     # tomojax simulates the fast family with the exact ray projector
     (["simulate", "-o", "x.h5", "--set", "simulate.family=fast"], "item 12"),
 ])
-def test_unported_paths_raise(argv, match):
+def test_unported_paths_raise(argv, match, monkeypatch):
+    if "--shard" in argv:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    else:
+        argv = [*argv, "--device", "cpu"]
     with pytest.raises(NotImplementedError, match=match):
-        tcli.main([*argv, "--device", "cpu"])
+        tcli.main(argv)
+
+
+def test_reconstruct_shard_on_one_device_is_unsharded(dataset, tmp_path):
+    """tomojax angle-shards only over more than one device: on one it
+    builds the plain operator, and so does the port. (This process's JAX
+    sees several CPU devices, so tomojax's reference here is its unsharded
+    run.)"""
+    args = ["reconstruct", "-i", str(dataset), *RECON]
+    jcli.main([*args, "-o", str(tmp_path / "j.npy")])
+    for name, extra in (("shard", ["--shard"]), ("plain", [])):
+        tcli.main([*args, *extra, "-o", str(tmp_path / f"{name}.npy"),
+                   "--device", "cpu"])
+    got = np.load(tmp_path / "shard.npy")
+    np.testing.assert_array_equal(got, np.load(tmp_path / "plain.npy"))
+    ref = np.load(tmp_path / "j.npy")
+    assert np.linalg.norm(got - ref) / np.linalg.norm(ref) < 1e-4
 
 
 def test_cuda_device_raises_without_card(dataset, tmp_path):

@@ -14,6 +14,8 @@ K7/K8 choose the plain version's taps to the last bit, so they agree with
 it to float32 summation rounding (1e-5 relative).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +27,7 @@ from tomojax_torch.core import phantom
 from tomojax_torch.core import slab_projector as sp
 from tomojax_torch.core.geometry import Geometry, Views
 from tomojax_torch.core.operators import make_operator
+from tomojax_torch.kernels import _build
 from tomojax_torch.kernels import resample as rs
 from tomojax_torch.kernels import slab as slabk
 from tomojax_torch.recon import cgls
@@ -253,6 +256,88 @@ def test_k6_entry_is_k5_field(cuda):
         one = slabk.slab_project(vol_or, sc, geom, "arc", dv, jw, rw)
         assert slabk.slab_project_field.launches == before + 1, name
         assert torch.equal(one, stacked[:, i]), name
+
+
+def _march_case(device, case):
+    """Arc groups that drive the K3/K5 march down each of its paths:
+    "circle", views over the full circle (every orientation group);
+    "axis", views within 0.01 rad of the axes (edy near 1: branch 1 is
+    skipped for whole tiles); "diagonal", views near 45° (edy near
+    1/sqrt(2): branch 1 valid for ~40% of the samples); "coarse", a
+    detector pitch of 2 (windows beyond the tables: direct steps); "step",
+    march step 0.5 (three branches: every step direct)."""
+    rng = np.random.default_rng(7)
+    n, n_proj, det_pix, step = 48, 12, 1.0, 1.0
+    phi = 0.3 + np.linspace(0, 2 * np.pi, n_proj, endpoint=False)
+    if case == "axis":
+        phi = np.repeat(np.arange(4) * np.pi / 2, 3) + rng.uniform(
+            -0.01, 0.01, n_proj)
+    elif case == "diagonal":
+        phi = np.repeat(np.arange(4) * np.pi / 2 + np.pi / 4, 3) + \
+            rng.uniform(-0.05, 0.05, n_proj)
+    elif case == "coarse":
+        det_pix = 2.0
+    elif case == "step":
+        step = 0.5
+    nd = int(np.ceil(n * 1.5 / det_pix))
+    geom = Geometry(n_proj=n_proj, vox_shape=(n,) * 3, det_shape=(nd, nd + 6),
+                    det_pix=(det_pix, det_pix), step_size=step)
+    views = Views.create(n_proj, phi=phi,
+                         alpha=rng.uniform(-0.01, 0.01, n_proj),
+                         beta=rng.uniform(-0.01, 0.01, n_proj),
+                         t=rng.uniform(-2, 2, (n_proj, 3)))
+    vol = phantom.shepp3d(n) + 0.1 * rng.random((n,) * 3, np.float32)
+    gstruct, scalars = sp.scalar_groups(geom, views, "arc", device=device)
+    v = torch.as_tensor(vol, device=device)
+    return geom, [(sp.orient_volume(v, geom, sw, yf).contiguous(), sc)
+                  for (_, sw, yf, _), sc in zip(gstruct, scalars)]
+
+
+@pytest.mark.parametrize("case", ["circle", "axis", "diagonal", "coarse",
+                                  "step"])
+def test_k3_k5_every_ray_matches_plain_and_repeats(cuda, case):
+    """Each ray of K3 and of every K5 field against the plain version (a
+    tap the march dropped would move its ray by ~1e-3 of its value), and
+    two applies of each bit-identical."""
+    geom, groups = _march_case(cuda, case)
+    for vol_or, sc in groups:
+        k3 = slabk.slab_arc_fwd(vol_or, sc, geom)
+        k5 = slabk.slab_project_jac(vol_or, sc, geom)
+        assert torch.equal(k3, slabk.slab_arc_fwd(vol_or, sc, geom))
+        assert torch.equal(k5, slabk.slab_project_jac(vol_or, sc, geom))
+        assert torch.equal(k5[:, 0], k3)
+        ref = slabk.slab_project_jac_plain(vol_or, sc, geom)
+        torch.cuda.synchronize()
+        scale = ref.abs().amax(dim=(-2, -1), keepdim=True)
+        err = ((k5 - ref).abs() / scale).amax(dim=(0, 2, 3))
+        assert float(err[0]) < 2e-5, err
+        assert float(err.max()) < 1e-4, dict(zip(slabk.JAC_PASSES,
+                                                 err.tolist()))
+
+
+def test_march_division_is_fdiv_rn(cuda):
+    """K3/K5 divide by edy with its correctly rounded reciprocal and one
+    fma correction: bit-equal to __fdiv_rn on 2^22 numerators (random bit
+    patterns, both signs, magnitudes in [2^-20, 2^13)) for 16 values of
+    edy in [1/sqrt(2), 1] and its ends."""
+    lib = _build.load()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n = 1 << 22
+    bits = torch.randint(107 << 23, 140 << 23, (n,), generator=gen,
+                         device=cuda, dtype=torch.int32)
+    sign = torch.randint(0, 2, (n,), generator=gen, device=cuda,
+                         dtype=torch.int32) << 31
+    a = (bits | sign).view(torch.float32)
+    q_rcp, q_div = torch.empty_like(a), torch.empty_like(a)
+    edys = [1.0, 0.70710677, 0.99999994] + np.random.default_rng(0).uniform(
+        0.7071, 1.0, 13).tolist()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for edy in edys:
+        assert lib.slab_arc_div_check(
+            ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(q_rcp.data_ptr()),
+            ctypes.c_void_p(q_div.data_ptr()), n, edy,
+            ctypes.c_void_p(stream)) == 0
+        assert torch.equal(q_rcp.view(torch.int32), q_div.view(torch.int32))
 
 
 def test_refine_views_slab_on_card_tracks_cpu(cuda):

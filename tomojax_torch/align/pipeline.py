@@ -164,6 +164,7 @@ def align_reconstruct(projections, geom: Geometry, views0: Views, *,
                       accel_period: int | None = None,
                       moment_period: int | None = 1,
                       debias_period: int | None = None,
+                      debias_chunk: int = 15,
                       bounds=None, ground_truth=None, dtype=torch.float32,
                       family: str = "ray", recon_prec: str = "f32x2",
                       reinit_tol=None, volume0=None,
@@ -193,6 +194,10 @@ def align_reconstruct(projections, geom: Geometry, views0: Views, *,
     :param moment_period: every this many outers, correct (tx, tz) by
         first-moment matching against the support-masked reprojection
         (gauge projected out).
+    :param debias_period: tomojax's exact-family debias stage every this
+        many outers; a nonzero value raises (ROADMAP Queue 1 item 12).
+    :param debias_chunk: views per call of that stage (tomojax's
+        argument, accepted and unused until the stage is ported).
     :param ground_truth: optional volume; the per-outer ``recon_rms`` then
         is ‖x − gt‖/‖gt‖.
     :param checkpoint_dir: write ``align_ckpt_####.npz`` per outer (through

@@ -13,8 +13,10 @@ raises). Ported so far:
   ``align.refine_method`` ``lm_slab`` or ``gd_fast`` (COM pre-alignment
   with ``align.pre_align_cc=true``).
 
-``--shard``, the other solvers, families, refiners and pre-aligners raise
-``NotImplementedError`` naming their ROADMAP item.
+``reconstruct --shard`` builds the plain operator on one device, as
+tomojax does; over more than one CUDA device it raises, as do the other
+solvers, families, refiners and pre-aligners: ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -155,8 +157,6 @@ def cmd_reconstruct(args):
     from tomojax_torch.core.operators import make_operator, resolve_device
     from tomojax_torch.utils import io
 
-    if args.shard:
-        raise NotImplementedError("--shard: ROADMAP Queue 1 item 18")
     if args.pre_align == "cc":
         raise NotImplementedError("--pre-align cc: ROADMAP Queue 1 item 9")
     cfg = _load_config(args)
@@ -165,6 +165,12 @@ def cmd_reconstruct(args):
         raise NotImplementedError(
             f"solver {m!r}: ROADMAP Queue 1 item 13")
     device = resolve_device(args.device)
+    # tomojax angle-shards only over more than one device; on one it
+    # builds the plain operator
+    if (args.shard and device.type == "cuda"
+            and torch.cuda.device_count() > 1):
+        raise NotImplementedError(
+            "--shard over more than one device: ROADMAP Queue 1 item 18")
     dtype = getattr(torch, cfg.solver.dtype)
     d = io.load_dataset(args.input)
     n_proj, nu, nv = d["projections"].shape
@@ -315,7 +321,8 @@ def main(argv=None):
     p.add_argument("--input", "-i", required=True)
     p.add_argument("--output", "-o", required=True)
     p.add_argument("--shard", action="store_true",
-                   help="angle-shard over all devices (not ported)")
+                   help="angle-shard over all devices (one device: "
+                        "unsharded, as tomojax; more: not ported)")
     p.add_argument("--pre-align", default="none",
                    choices=["none", "com", "cc"],
                    help="shift pre-alignment before reconstruction "

@@ -45,12 +45,16 @@ _ARC_ADJ = [_P, *_ARC]
 # the bracketed argument is the transpose's: its rows' element stride
 _RESAMPLE_FWD = [_P, _P, _P, _P, *[_I] * 5, *[_L] * 10, _P]
 _RESAMPLE_T = [_P, _P, _P, _P, *[_I] * 5, *[_L] * 11, _P]
+# int fn(const float* a, float* q_rcp, float* q_div, int n, float edy,
+#        cudaStream_t): the march's division against __fdiv_rn (a test hook)
+_DIV_CHECK = [_P, _P, _P, _I, ctypes.c_float, _P]
 _SIGNATURES = {
     "slab_plane_fwd": _PLANE,
     "slab_plane_adj": _PLANE,
     "slab_arc_fwd": _ARC,
     "slab_arc_adj": _ARC_ADJ,
     "slab_arc_jac": _ARC,
+    "slab_arc_div_check": _DIV_CHECK,
     "resample_fwd": _RESAMPLE_FWD,
     "resample_transpose": _RESAMPLE_T,
 }

@@ -36,10 +36,44 @@
 // of an integer then falls the same way in the kernels and in the plain
 // version, so they also choose the same samples as each other.
 //
-// What bounds them on an H100: gathers and, for K4, candidate tests. A
-// sample reads 2 x-taps x 2 slabs x 2 z-taps = 8 volume values; K3 puts v
-// on the fastest thread index so a warp reads neighbouring z of one row.
-// K5 runs K3's march once with 12 accumulators.
+// K3 and K5 are one march, templated on the Jacobian
+// (arc_march_kernel<kJac>), and use the same separability forward: ζ
+// depends on (x, v, r, b) and never on u. A CTA owns one view and a
+// kFU x kFV tile of detector (u, v) and marches the source slabs
+// r = -1 .. ny-1, owner-computes: each output is accumulated in registers
+// in the order of a one-thread-per-ray march (r, then b, then the two
+// x-taps) and written once, with no atomics and no scratch. Per slab:
+//   1. windows: from the tile's corners (X and ζ are affine plus a
+//      sawtooth bounded by the branch count) the x and z windows that the
+//      tile's taps can reach; and per branch b an interval test on the
+//      corners' march indices, which skips b for the whole tile only where
+//      no sample of it can pass the mask (j out of range or fy >= 1
+//      everywhere). Computed by 128 threads for a chunk of 64 steps at a
+//      time, into shared memory;
+//   2. staging: rows r and r + 1 of the window in a ring of three slabs in
+//      shared memory, filled by cp.async (16-byte copies where nz is a
+//      multiple of 4) one slab ahead; slab r + 1 of one step is slab r of
+//      the next (its window is the union of both steps'), so each row is
+//      loaded once per CTA;
+//   3. pass A, once per (x, v) of the window: grid_at (its one division),
+//      then for branches 0 and 1 the z-lerps of both sides (and for K5
+//      their derivatives) into shared tables; branch 1 reuses branch 0's
+//      taps where its floor is the same (|edz| is small);
+//   4. pass B, per owned (u, v): one march index for all branches, then
+//      per live branch sample_from's mask and X, and both x-taps read from
+//      the tables.
+// A step whose window exceeds the tables or the ring, or a march with a
+// third branch (steps below 1/sqrt(2)), runs pass B the direct way (grid_at
+// and taps_of on global memory per sample). The windows decide which taps
+// the tables hold, so they are wide enough for every tap in the volume,
+// whatever the rounding (tests/test_torch_arc_forward_split.py emulates
+// the windows, the skips and the tables); the mask, the taps and their
+// values are those of sample_at, grid_at, zeta_at and taps_of, so K3
+// holds exactly K4's matrix entries. The march's divisions by edy take
+// the correctly rounded reciprocal and one fma correction (jreal_of<true>),
+// which gives __fdiv_rn's bits. What bounds the march on an H100: issuing
+// the position arithmetic of pass A and B (the exact-rounding sequence
+// per point and pixel per slab), not bytes.
 //
 // K4 uses that the operator is separable: ζ depends on (x, v, r, b) and
 // never on u, so the transpose factors into two 1-D gathers, source-major
@@ -70,6 +104,8 @@
 // digits). Nothing of the TPU design is carried over (selection/align
 // matmuls, bf16 hi/lo split, band budget, lane padding, view bucketing).
 
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -84,7 +120,7 @@ constexpr int NJP = 12;
 
 struct Arc {
   float edy, edx, edz, rx, rz, eux, evx, evz, cxb, czb, gzx, b1, euy, evy,
-      inv_eux;
+      inv_eux, inv_edy;
 };
 
 __device__ __forceinline__ Arc load_arc(const float* __restrict__ s) {
@@ -104,6 +140,7 @@ __device__ __forceinline__ Arc load_arc(const float* __restrict__ s) {
   p.euy = __ldg(s + S_EUY);
   p.evy = __ldg(s + S_EVY);
   p.inv_eux = __fdiv_rn(1.0f, p.eux);
+  p.inv_edy = __frcp_rn(p.edy);
   return p;
 }
 
@@ -132,35 +169,73 @@ struct Sample {
   bool ok;
 };
 
-// March index (r - y0)/edy with y0 = (b1 + u*euy) + v*evy.
-__device__ __forceinline__ float jreal_at(const Arc& p, float r, float u,
-                                          float v) {
-  const float y0 = add(add(p.b1, mul(u, p.euy)), mul(v, p.evy));
-  return __fdiv_rn(sub(r, y0), p.edy);
+// A detector row's products with the view's v-axis scalars: v*evx,
+// v*evy and v*evz, shared by every position of the row.
+struct VTerms {
+  float x, y, z;
+};
+
+__device__ __forceinline__ VTerms v_terms(const Arc& p, float v) {
+  return {mul(v, p.evx), mul(v, p.evy), mul(v, p.evz)};
 }
 
-__device__ __forceinline__ Sample sample_at(const Arc& p, float r, float cx,
-                                            float u, float v, int b,
-                                            int n_steps) {
-  const float jreal = jreal_at(p, r, u, v);
+// The ray's start y0 = (b1 + u*euy) + v*evy, and the march index
+// (r - y0)/edy.
+__device__ __forceinline__ float y0_at(const Arc& p, float u,
+                                       const VTerms& vt) {
+  return add(add(p.b1, mul(u, p.euy)), vt.y);
+}
+
+// kRcp (the march): the same correctly rounded quotient without a
+// division: q = RN(a/edy) faithful from the correctly rounded reciprocal,
+// the remainder a - q*edy exact by fma, and one correction by the
+// reciprocal, which rounds to RN(a/edy) for quotients in the normal range
+// (Markstein's theorem; tests/test_torch_cuda.py holds it to __fdiv_rn).
+template <bool kRcp = false>
+__device__ __forceinline__ float jreal_of(const Arc& p, float r, float y0) {
+  const float a = sub(r, y0);
+  if (!kRcp) return __fdiv_rn(a, p.edy);
+  const float q = mul(a, p.inv_edy);
+  return __fmaf_rn(__fmaf_rn(-q, p.edy, a), p.inv_edy, q);
+}
+
+// X's affine part (cx + u*eux) + v*evx (ue = u*eux), shared by a
+// sample's branches.
+__device__ __forceinline__ float x_affine(float cx, float ue,
+                                          const VTerms& vt) {
+  return add(add(cx, ue), vt.x);
+}
+
+// Branch b's sample from the march index and X's affine part.
+__device__ __forceinline__ Sample sample_from(const Arc& p, float jreal,
+                                              float xa, int b, int n_steps) {
   Sample s;
   s.j = ceilf(jreal) + static_cast<float>(b);
   s.cfb = sub(s.j, jreal);
   s.fy = mul(p.edy, s.cfb);
   s.ok = s.j >= 0.0f && s.j < static_cast<float>(n_steps) && s.fy < 1.0f;
-  s.X = add(add(add(cx, mul(u, p.eux)), mul(v, p.evx)), mul(p.edx, s.cfb));
+  s.X = add(xa, mul(p.edx, s.cfb));
   return s;
 }
 
-// Pass A at grid column x: the grid sawtooth cf in [0, 1) and ζ's affine
-// part zaff; ζ of branch b is zeta_at(p, cf + b, zaff).
+__device__ __forceinline__ Sample sample_at(const Arc& p, float r, float cx,
+                                            float u, float v, int b,
+                                            int n_steps) {
+  const VTerms vt = v_terms(p, v);
+  return sample_from(p, jreal_of(p, r, y0_at(p, u, vt)),
+                     x_affine(cx, mul(u, p.eux), vt), b, n_steps);
+}
+
+// Pass A at grid column x of row v: the grid sawtooth cf in [0, 1) and
+// ζ's affine part zaff; ζ of branch b is zeta_at(p, cf + b, zaff).
+template <bool kRcp = false>
 __device__ __forceinline__ void grid_at(const Arc& p, float r, float cx,
-                                        float cz, float x, float v, float* cf,
-                                        float* zaff) {
-  const float d = sub(sub(x, cx), mul(v, p.evx));
-  const float jr = jreal_at(p, r, mul(d, p.inv_eux), v);
+                                        float cz, float x, const VTerms& vt,
+                                        float* cf, float* zaff) {
+  const float d = sub(sub(x, cx), vt.x);
+  const float jr = jreal_of<kRcp>(p, r, y0_at(p, mul(d, p.inv_eux), vt));
   *cf = sub(ceilf(jr), jr);
-  *zaff = add(add(cz, mul(p.gzx, d)), mul(v, p.evz));
+  *zaff = add(add(cz, mul(p.gzx, d)), vt.z);
 }
 
 __device__ __forceinline__ float zeta_at(const Arc& p, float cfg,
@@ -169,14 +244,15 @@ __device__ __forceinline__ float zeta_at(const Arc& p, float cfg,
 }
 
 // The two taps of `pos` in a row of n values: lerp (h) and d/dpos (d).
-__device__ __forceinline__ void row_taps(const float* __restrict__ row,
-                                         float pos, int n, float* h,
-                                         float* d) {
+// fetch(k) reads value k of the row (0 <= k < n).
+template <typename Fetch>
+__device__ __forceinline__ void taps_of(Fetch fetch, float pos, int n,
+                                        float* h, float* d) {
   const float f = floorf(pos);
   const int k = static_cast<int>(f);
   const float w = pos - f;
-  const float a = (k >= 0 && k < n) ? __ldg(row + k) : 0.0f;
-  const float c = (k + 1 >= 0 && k + 1 < n) ? __ldg(row + k + 1) : 0.0f;
+  const float a = (k >= 0 && k < n) ? fetch(k) : 0.0f;
+  const float c = (k + 1 >= 0 && k + 1 < n) ? fetch(k + 1) : 0.0f;
   *h = (1.0f - w) * a + w * c;
   *d = c - a;
 }
@@ -204,132 +280,536 @@ __device__ __forceinline__ void index_range(float a, float b, float inv_b,
   *hi = min(n - 1, static_cast<int>(ceilf(th)) + 1);
 }
 
-// K3: one thread per (view, u, v) of the group, v fastest; marches the
-// source slabs and branches. vol: (nx, ny, nz), scalars: (V, NS),
-// out: (V, nu, nv).
-__global__ void __launch_bounds__(256)
-arc_fwd_kernel(const float* __restrict__ vol,
-               const float* __restrict__ scalars, float* __restrict__ out,
-               int V, int nx, int ny, int nz, int nu, int nv, int n_steps,
-               int n_branch) {
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= V * nu * nv) return;
-  const int v = tid % nv;
-  const int u = (tid / nv) % nu;
-  const int view = tid / (nu * nv);
-  const Arc p = load_arc(scalars + view * NS);
-  const float fu = static_cast<float>(u), fv = static_cast<float>(v);
-  float acc = 0.0f;
-  for (int ri = -1; ri < ny; ++ri) {
-    const float r = static_cast<float>(ri);
-    const float cx = slab_cx(p, r);
-    const float cz = slab_cz(p, r);
-    for (int b = 0; b < n_branch; ++b) {
-      const Sample s = sample_at(p, r, cx, fu, fv, b, n_steps);
-      if (!s.ok) continue;
-      const float xf = floorf(s.X);
-      const int x0 = static_cast<int>(xf);
-      const float wx = s.X - xf;
-      float sval = 0.0f;
-#pragma unroll
-      for (int o = 0; o < 2; ++o) {
-        const int xi = x0 + o;
-        if (xi < 0 || xi >= nx) continue;
-        float cf, zaff;
-        grid_at(p, r, cx, cz, static_cast<float>(xi), fv, &cf, &zaff);
-        const float zeta = zeta_at(p, add(cf, static_cast<float>(b)), zaff);
-        float h0 = 0.0f, h1 = 0.0f, d;
-        if (ri >= 0)
-          row_taps(vol + (static_cast<size_t>(xi) * ny + ri) * nz, zeta, nz,
-                   &h0, &d);
-        if (ri + 1 < ny)
-          row_taps(vol + (static_cast<size_t>(xi) * ny + ri + 1) * nz, zeta,
-                   nz, &h1, &d);
-        sval += (o ? wx : 1.0f - wx) * ((1.0f - s.fy) * h0 + s.fy * h1);
-      }
-      acc += sval;
-    }
-  }
-  out[tid] = acc;
+// K3/K5 tiling. A CTA owns one view and a kFU x kFV tile of detector (u, v):
+// lane = v, and each thread owns kPix pixels u of its v (warp, warp + 8,
+// ...). Shared memory: a ring of kRing staged slabs (kSX x kSZ values of
+// rows x, z each); the pass-A tables of kQX columns x by kFV rows v: per
+// branch b < 2 a vector of the z-lerps of sides r and r + 1 (h0, h1; for
+// K5 (h0, h1, d0, d1) with their derivatives), and for K5 the grid
+// sawtooth cf; and the windows of a chunk of kChunk steps.
+constexpr int kFwdThreads = 256;
+constexpr int kFwdWarps = kFwdThreads / 32;
+constexpr int kFU = 32, kFV = 32;
+constexpr int kPix = kFU / kFwdWarps;
+constexpr int kSX = 52, kSZ = 44;      // kSZ: a multiple of 4 (16-byte rows)
+constexpr int kQX = 52;
+constexpr int kTab = kQX * kFV;        // entries of one table
+constexpr int kRing = 3;
+constexpr int kChunk = 64;             // steps per chunk of windows
+constexpr int kTabBranches = 2;        // branches the tables serve
+
+// floats per table vector, and per table entry (x, v): a vector per branch
+// and K5's cf
+template <bool kJac>
+__host__ __device__ constexpr int tab_vec() {
+  return kJac ? 4 : 2;
 }
 
-// K5: K3's march with the 12 building blocks accumulated at once.
-// out: (V, NJP, nu, nv) in JAC_PASSES order
-// (val, px, py, pz, jx, jy, jz, rx, ry, rz, zm, zc).
-__global__ void __launch_bounds__(256)
-arc_jac_kernel(const float* __restrict__ vol,
-               const float* __restrict__ scalars, float* __restrict__ out,
-               int V, int nx, int ny, int nz, int nu, int nv, int n_steps,
-               int n_branch) {
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= V * nu * nv) return;
-  const int v = tid % nv;
-  const int u = (tid / nv) % nu;
-  const int view = tid / (nu * nv);
-  const Arc p = load_arc(scalars + view * NS);
-  const float fu = static_cast<float>(u), fv = static_cast<float>(v);
-  float acc[NJP];
+template <bool kJac>
+__host__ __device__ constexpr int tab_width() {
+  return tab_vec<kJac>() * kTabBranches + (kJac ? 1 : 0);
+}
+
+template <bool kJac>
+constexpr int fwd_smem() {
+  return 4 * (kRing * kSX * kSZ + tab_width<kJac>() * kTab) +
+         kChunk * (2 * sizeof(short4) + sizeof(unsigned));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// A window of oriented voxels: x in [x0, x1], z in [z0, z1]; empty when
+// x0 > x1. Stored as a short4 (x0, x1, z0, z1): the wrapper keeps nx and
+// nz below 2^15.
+__device__ __forceinline__ short4 empty_win() {
+  return make_short4(0, -1, 0, -1);
+}
+
+__device__ __forceinline__ bool holds(short4 outer, short4 w) {
+  return outer.x <= w.x && w.y <= outer.y && outer.z <= w.z &&
+         w.w <= outer.w;
+}
+
+// The tile's spread of the positions about their slab offsets, over its
+// corners (every term is affine in u and v) and the sawtooth (cfb and
+// cf + b in [0, n_branch]); y0's range gives the march index's.
+struct FwdTile {
+  float xlo, xhi;   // X - cx_r
+  float zlo, zhi;   // ζ - (cz_r + gzx*(x - cx_r))
+  float ylo, yhi;   // y0 = b1 + u*euy + v*evy
+};
+
+__device__ __forceinline__ void span(float a, float b, float* lo,
+                                     float* hi) {
+  *lo += fminf(a, b);
+  *hi += fmaxf(a, b);
+}
+
+__device__ __forceinline__ FwdTile fwd_tile(const Arc& p, float ua, float ub,
+                                            float va, float vb,
+                                            int n_branch) {
+  const float nb = static_cast<float>(n_branch);
+  const float zav = p.evz - p.gzx * p.evx;
+  FwdTile t{0.0f, 0.0f, 0.0f, 0.0f, p.b1, p.b1};
+  span(ua * p.eux, ub * p.eux, &t.xlo, &t.xhi);
+  span(va * p.evx, vb * p.evx, &t.xlo, &t.xhi);
+  span(0.0f, p.edx * nb, &t.xlo, &t.xhi);
+  span(va * zav, vb * zav, &t.zlo, &t.zhi);
+  span(0.0f, p.edz * nb, &t.zlo, &t.zhi);
+  span(ua * p.euy, ub * p.euy, &t.ylo, &t.yhi);
+  span(va * p.evy, vb * p.evy, &t.ylo, &t.yhi);
+  return t;
+}
+
+// The taps floor(q), floor(q) + 1 of every position q in [lo, hi], the
+// bounds widened by a slack far above the positions' rounding (a few ulps
+// of values below ~10^3, computed in another order than the kernels'
+// positions).
+__device__ __forceinline__ float tap_lo(float lo) {
+  return floorf(lo - (1e-3f + 1e-5f * fabsf(lo)));
+}
+
+__device__ __forceinline__ float tap_hi(float hi) {
+  return floorf(hi + (1e-3f + 1e-5f * fabsf(hi))) + 1.0f;
+}
+
+// Step r's window: the x-taps of the tile's samples and the z-taps of ζ
+// over those columns, clamped to the volume; empty for a step outside
+// [-1, ny).
+__device__ __forceinline__ short4 step_window(const Arc& p, const FwdTile& t,
+                                              int ri, int nx, int ny,
+                                              int nz) {
+  if (ri < -1 || ri >= ny) return empty_win();
+  const float r = static_cast<float>(ri);
+  const float cx = fmaf(p.rx, r, p.cxb), cz = fmaf(p.rz, r, p.czb);
+  const float xl = tap_lo(cx + t.xlo), xh = tap_hi(cx + t.xhi);
+  if (xh < 0.0f || xl > static_cast<float>(nx - 1)) return empty_win();
+  const int x0 = max(0, static_cast<int>(xl));
+  const int x1 = min(nx - 1, static_cast<int>(xh));
+  const float ga = p.gzx * (static_cast<float>(x0) - cx);
+  const float gb = p.gzx * (static_cast<float>(x1) - cx);
+  const float zl = tap_lo(cz + fminf(ga, gb) + t.zlo);
+  const float zh = tap_hi(cz + fmaxf(ga, gb) + t.zhi);
+  if (zh < 0.0f || zl > static_cast<float>(nz - 1)) return empty_win();
+  return make_short4(x0, x1, max(0, static_cast<int>(zl)),
+                     min(nz - 1, static_cast<int>(zh)));
+}
+
+// The staged window of slab s: the union of the windows of steps s - 1 and
+// s (the two that read it), z aligned down to a multiple of 4 for 16-byte
+// copies, clamped to the ring's capacity; empty for a slab outside
+// [0, ny).
+__device__ __forceinline__ short4 stage_window(const Arc& p,
+                                               const FwdTile& t, int s,
+                                               int nx, int ny, int nz,
+                                               bool vec) {
+  if (s < 0 || s >= ny) return empty_win();
+  const short4 a = step_window(p, t, s - 1, nx, ny, nz);
+  const short4 b = step_window(p, t, s, nx, ny, nz);
+  short4 w = a;
+  if (a.x > a.y) {
+    w = b;
+  } else if (b.x <= b.y) {
+    w = make_short4(min(a.x, b.x), max(a.y, b.y), min(a.z, b.z),
+                    max(a.w, b.w));
+  }
+  if (w.x > w.y) return w;
+  if (vec) w.z &= ~3;
+  w.y = min(static_cast<int>(w.y), w.x + kSX - 1);
+  w.w = min(static_cast<int>(w.w), w.z + kSZ - 1);
+  return w;
+}
+
+// A thread's share of a slab's copies: its copy i moves 16-byte chunk c of
+// window row xl (e = tid + i*kFwdThreads over kSX rows of kRowChunks
+// chunks), packed as xl << 8 | c; fixed over the march.
+constexpr int kRowChunks = kSZ / 4;
+constexpr int kSlots = (kSX * kRowChunks + kFwdThreads - 1) / kFwdThreads;
+
+__device__ __forceinline__ int copy_slot(int tid, int i) {
+  const int e = tid + i * kFwdThreads;
+  return e < kSX * kRowChunks ? (e / kRowChunks) << 8 | e % kRowChunks
+                              : 0xFFFF << 8;
+}
+
+// Issue the copies of slab s's window into buf (one commit group).
+__device__ __forceinline__ void stage_slab(float* buf,
+                                           const float* __restrict__ vol,
+                                           int s, short4 w, int ny, int nz,
+                                           bool vec, int tid,
+                                           const int (&slot)[kSlots]) {
+  if (w.x <= w.y) {
+    const int nxw = w.y - w.x + 1;
+    const float* src = vol + (static_cast<size_t>(w.x) * ny + s) * nz + w.z;
+    const size_t pitch = static_cast<size_t>(ny) * nz;
+    if (vec) {
+      const int nch = (w.w - w.z + 4) >> 2;
 #pragma unroll
-  for (int f = 0; f < NJP; ++f) acc[f] = 0.0f;
-  for (int ri = -1; ri < ny; ++ri) {
-    const float r = static_cast<float>(ri);
-    const float cx = slab_cx(p, r);
-    const float cz = slab_cz(p, r);
-    for (int b = 0; b < n_branch; ++b) {
-      const Sample s = sample_at(p, r, cx, fu, fv, b, n_steps);
-      if (!s.ok) continue;
-      const float xf = floorf(s.X);
-      const int x0 = static_cast<int>(xf);
-      const float wx = s.X - xf;
-      const float mom = wx * (1.0f - wx);
-      float a_val = 0.0f, a_px = 0.0f, a_py = 0.0f, a_pz = 0.0f,
-            a_zm = 0.0f, a_zc = 0.0f;
-#pragma unroll
-      for (int o = 0; o < 2; ++o) {
-        const int xi = x0 + o;
-        if (xi < 0 || xi >= nx) continue;
-        const float w_h = o ? wx : 1.0f - wx;   // hat
-        const float w_d = o ? 1.0f : -1.0f;     // hat'
-        const float w_m = o ? mom : -mom;       // (tap - X) moment
-        float cf, zaff;
-        grid_at(p, r, cx, cz, static_cast<float>(xi), fv, &cf, &zaff);
-        const float cfg = add(cf, static_cast<float>(b));
-        const float zeta = zeta_at(p, cfg, zaff);
-        float h0 = 0.0f, d0 = 0.0f, h1 = 0.0f, d1 = 0.0f;
-        if (ri >= 0)
-          row_taps(vol + (static_cast<size_t>(xi) * ny + ri) * nz, zeta, nz,
-                   &h0, &d0);
-        if (ri + 1 < ny)
-          row_taps(vol + (static_cast<size_t>(xi) * ny + ri + 1) * nz, zeta,
-                   nz, &h1, &d1);
-        const float lerp_h = (1.0f - s.fy) * h0 + s.fy * h1;
-        const float lerp_d = (1.0f - s.fy) * d0 + s.fy * d1;
-        a_val += w_h * lerp_h;
-        a_px += w_d * lerp_h;
-        a_py += w_h * (h1 - h0);
-        a_pz += w_h * lerp_d;
-        a_zm += w_m * lerp_d;
-        a_zc += w_h * (lerp_d * cfg);
+      for (int i = 0; i < kSlots; ++i) {
+        const int xl = slot[i] >> 8, c = slot[i] & 255;
+        if (xl < nxw && c < nch)
+          cp_async16(buf + xl * kSZ + 4 * c, src + xl * pitch + 4 * c);
       }
-      acc[0] += a_val;
-      acc[1] += a_px;
-      acc[2] += a_py;
-      acc[3] += a_pz;
-      acc[4] += s.j * a_px;
-      acc[5] += s.j * a_py;
-      acc[6] += s.j * a_pz;
-      acc[7] += r * a_px;
-      acc[8] += r * a_py;
-      acc[9] += r * a_pz;
-      acc[10] += a_zm;
-      acc[11] += a_zc;
+    } else {
+      const int nzw = w.w - w.z + 1;
+      for (int e = tid; e < nxw * kSZ; e += kFwdThreads) {
+        const int xl = e / kSZ, zl = e - xl * kSZ;
+        if (zl < nzw) cp_async4(buf + xl * kSZ + zl, src + xl * pitch + zl);
+      }
     }
   }
-  const size_t plane = static_cast<size_t>(nu) * nv;
-  float* o = out + static_cast<size_t>(view) * NJP * plane +
-             static_cast<size_t>(u) * nv + v;
+  cp_async_commit();
+}
+
+// Branch b can hold a valid sample somewhere in a tile whose march indices
+// lie in [jlo, jhi]: some j = ceil(jreal) + b in [0, n_steps), and fy =
+// edy*(cf + b) < 1 for the least cf the interval allows (cf >= 0; where
+// the interval holds no integer step, ceil is constant over it and cf >=
+// ceil(jhi) - jhi). The margin 1e-4 on fy is far above its rounding.
+__device__ __forceinline__ bool branch_live(float jlo, float jhi, int b,
+                                            float edy, int n_steps) {
+  const float clo = ceilf(jlo), chi = ceilf(jhi);
+  const float fb = static_cast<float>(b);
+  if (chi + fb < 0.0f || clo + fb >= static_cast<float>(n_steps))
+    return false;
+  const float cf_min = clo == chi ? chi - jhi : 0.0f;
+  return edy * (fb + cf_min) < 1.0001f;
+}
+
+// Step r's live branches (bit b): none where its window is empty.
+__device__ __forceinline__ unsigned live_branches(const Arc& p,
+                                                  const FwdTile& t, int ri,
+                                                  short4 w, int n_branch,
+                                                  int n_steps) {
+  if (w.x > w.y) return 0u;
+  const float r = static_cast<float>(ri);
+  const float jlo = __fdividef(r - t.yhi, p.edy);
+  const float jhi = __fdividef(r - t.ylo, p.edy);
+  const float m = 1e-3f + 1e-5f * fmaxf(fabsf(jlo), fabsf(jhi));
+  unsigned live = 0;
+  for (int b = 0; b < n_branch; ++b)
+    if (branch_live(jlo - m, jhi + m, b, p.edy, n_steps)) live |= 1u << b;
+  return live;
+}
+
+// The z-lerps h of sides r (0) and r + 1 (1) at (x, v) and their
+// derivatives d; a side outside the volume (slab -1 or ny) is zero.
+struct Lerps {
+  float h0, h1, d0, d1;
+};
+
+// A sample's x-tap: its z-lerps, branch sawtooth cf + b, and whether it
+// lies in the volume.
+struct Tap {
+  Lerps l;
+  float cfg;
+  bool in;
+};
+
+// Add sample s's two x-taps into a pixel's accumulators a, in K3's (and
+// K5's) order.
+template <bool kJac>
+__device__ __forceinline__ void accumulate(float (&a)[kJac ? NJP : 1],
+                                           const Sample& s, float r,
+                                           float wx, const Tap (&t)[2]) {
+  const float mom = wx * (1.0f - wx);
+  float a_val = 0.0f, a_px = 0.0f, a_py = 0.0f, a_pz = 0.0f, a_zm = 0.0f,
+        a_zc = 0.0f;
 #pragma unroll
-  for (int f = 0; f < NJP; ++f) o[f * plane] = acc[f];
+  for (int o = 0; o < 2; ++o) {
+    if (!t[o].in) continue;
+    const Lerps& l = t[o].l;
+    const float w_h = o ? wx : 1.0f - wx;   // hat
+    const float lerp_h = (1.0f - s.fy) * l.h0 + s.fy * l.h1;
+    a_val += w_h * lerp_h;
+    if (kJac) {
+      const float w_d = o ? 1.0f : -1.0f;   // hat'
+      const float w_m = o ? mom : -mom;     // (tap - X) moment
+      const float lerp_d = (1.0f - s.fy) * l.d0 + s.fy * l.d1;
+      a_px += w_d * lerp_h;
+      a_py += w_h * (l.h1 - l.h0);
+      a_pz += w_h * lerp_d;
+      a_zm += w_m * lerp_d;
+      a_zc += w_h * (lerp_d * t[o].cfg);
+    }
+  }
+  a[0] += a_val;
+  if (kJac) {
+    constexpr int kF = kJac ? NJP : 1;
+    a[1 % kF] += a_px;
+    a[2 % kF] += a_py;
+    a[3 % kF] += a_pz;
+    a[4 % kF] += s.j * a_px;
+    a[5 % kF] += s.j * a_py;
+    a[6 % kF] += s.j * a_pz;
+    a[7 % kF] += r * a_px;
+    a[8 % kF] += r * a_py;
+    a[9 % kF] += r * a_pz;
+    a[10 % kF] += a_zm;
+    a[11 % kF] += a_zc;
+  }
+}
+
+// K3 (kJac false): out (V, nu, nv). K5 (kJac true): out (V, NJP, nu, nv),
+// the 12 building blocks in JAC_PASSES order (val, px, py, pz, jx, jy, jz,
+// rx, ry, rz, zm, zc). grid (v tiles, u tiles, views); vol (nx, ny, nz),
+// scalars (V, NS). Every output is written exactly once.
+//
+// A step is fast when its tables cover its window, the staged windows hold
+// it and the march has at most two branches: pass A fills the tables from
+// the staged rows, and pass B reads every tap from the tables (a tap in the
+// volume lies in the window: the emulation test checks the windows). Any
+// other step (a window beyond the capacities, a march step below 1/sqrt(2))
+// runs pass B the direct way, grid_at and taps_of on global memory per
+// sample, as a one-thread-per-ray march does.
+template <bool kJac>
+__global__ void __launch_bounds__(kFwdThreads, kJac ? 2 : 4)
+arc_march_kernel(const float* __restrict__ vol,
+                 const float* __restrict__ scalars, float* __restrict__ out,
+                 int nx, int ny, int nz, int nu, int nv, int n_steps,
+                 int n_branch, bool vec) {
+  constexpr int kF = kJac ? NJP : 1;
+  constexpr int kVec = tab_vec<kJac>();
+  extern __shared__ __align__(16) float sm[];
+  float* const ring = sm;
+  float* const tab = sm + kRing * kSX * kSZ;   // [branch][xl][v] vectors
+  float* const tab_cf = tab + kVec * kTabBranches * kTab;   // K5: [xl][v]
+  short4* const c_step =
+      reinterpret_cast<short4*>(tab + tab_width<kJac>() * kTab);
+  short4* const c_stage = c_step + kChunk;
+  unsigned* const c_live = reinterpret_cast<unsigned*>(c_stage + kChunk);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int view = blockIdx.z;
+  const int v0 = blockIdx.x * kFV, u0 = blockIdx.y * kFU;
+  const Arc p = load_arc(scalars + static_cast<size_t>(view) * NS);
+  const int v = v0 + lane;
+  const bool v_in = v < nv;
+  const VTerms vt = v_terms(p, static_cast<float>(v));
+  const FwdTile tile = fwd_tile(
+      p, static_cast<float>(u0), static_cast<float>(min(u0 + kFU, nu) - 1),
+      static_cast<float>(v0), static_cast<float>(min(v0 + kFV, nv) - 1),
+      n_branch);
+  auto slab_at = [&](int s) { return ((s + 1) % kRing) * kSX * kSZ; };
+
+  // the owned pixels' y0 and u*eux, fixed over the march
+  float y0[kPix], ue[kPix];
+  float acc[kPix][kF];
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const float fu = static_cast<float>(u0 + warp + kFwdWarps * k);
+    y0[k] = y0_at(p, fu, vt);
+    ue[k] = mul(fu, p.eux);
+#pragma unroll
+    for (int f = 0; f < kF; ++f) acc[k][f] = 0.0f;
+  }
+
+  int slot[kSlots];
+#pragma unroll
+  for (int i = 0; i < kSlots; ++i) slot[i] = copy_slot(tid, i);
+
+  // staged windows of slabs r and r + 1 (slab 0 staged before step -1)
+  short4 st_r = empty_win();
+  short4 st_r1 = stage_window(p, tile, 0, nx, ny, nz, vec);
+  stage_slab(ring + slab_at(0), vol, 0, st_r1, ny, nz, vec, tid, slot);
+
+  for (int ri = -1; ri < ny; ++ri) {
+    cp_async_wait_all();   // slab r + 1
+    __syncthreads();       // ... visible; step r - 1 done with the ring
+    const int ci = (ri + 1) % kChunk;
+    if (ci == 0) {
+      // windows of steps r .. r + kChunk - 1, stages of slabs r + 2 ..
+      if (tid < kChunk) {
+        // the step's live branches, and bit 31: it is fast (its tables
+        // cover its window, and the staged windows of both its slabs
+        // hold it)
+        const int rs = ri + tid;
+        const short4 w = step_window(p, tile, rs, nx, ny, nz);
+        const bool fast =
+            w.y - w.x < kQX && n_branch <= kTabBranches &&
+            (rs < 0 || holds(stage_window(p, tile, rs, nx, ny, nz, vec), w)) &&
+            (rs + 1 >= ny ||
+             holds(stage_window(p, tile, rs + 1, nx, ny, nz, vec), w));
+        const unsigned lb =
+            live_branches(p, tile, rs, w, n_branch, n_steps);
+        c_step[tid] = w;
+        c_live[tid] = lb && fast ? lb | 1u << 31 : lb;
+      } else if (tid < 2 * kChunk) {
+        c_stage[tid - kChunk] =
+            stage_window(p, tile, ri + tid - kChunk + 2, nx, ny, nz, vec);
+      }
+      __syncthreads();
+    }
+    const short4 st_r2 = c_stage[ci];
+    stage_slab(ring + slab_at(ri + 2), vol, ri + 2, st_r2, ny, nz, vec, tid,
+               slot);
+
+    const short4 w_r = c_step[ci];
+    const unsigned live = c_live[ci];
+    if (live) {
+      const float r = static_cast<float>(ri);
+      const float cx = slab_cx(p, r), cz = slab_cz(p, r);
+      const int qx0 = w_r.x, nq = w_r.y - w_r.x + 1;
+      const bool side0 = ri >= 0, side1 = ri + 1 < ny;
+      if (live >> 31) {
+        // pass A, once per (x, v) of the window: staged row (x, z) of the
+        // side slabs at sm[base + x*kSZ + z]
+        const int base0 = slab_at(ri) - st_r.x * kSZ - st_r.z;
+        const int base1 = slab_at(ri + 1) - st_r1.x * kSZ - st_r1.z;
+        const unsigned unz = static_cast<unsigned>(nz);
+        if (v_in) {
+          for (int xl = warp; xl < nq; xl += kFwdWarps) {
+            const int x = qx0 + xl, e = xl * kFV + lane;
+            float cf, zaff;
+            grid_at<true>(p, r, cx, cz, static_cast<float>(x), vt, &cf,
+                          &zaff);
+            if (kJac) tab_cf[e] = cf;
+            const float* row0 = sm + base0 + x * kSZ;
+            const float* row1 = sm + base1 + x * kSZ;
+            float a0 = 0.0f, c0 = 0.0f, a1 = 0.0f, c1 = 0.0f;
+            int k_prev = 0;
+#pragma unroll
+            for (int b = 0; b < kTabBranches; ++b) {
+              if (!(live >> b & 1u)) continue;
+              // branch 0's cf + 0 is cf (cf is never -0)
+              const float zeta =
+                  zeta_at(p, b ? add(cf, static_cast<float>(b)) : cf, zaff);
+              const float f = floorf(zeta);
+              const int k = static_cast<int>(f);
+              const float w = zeta - f;
+              // branch 1 reuses branch 0's taps where its floor is the
+              // same (|edz| is small)
+              if (b == 0 || !(live & 1u) || k != k_prev) {
+                const bool ia = static_cast<unsigned>(k) < unz;
+                const bool ic = static_cast<unsigned>(k) + 1u < unz;
+                a0 = side0 && ia ? row0[k] : 0.0f;
+                c0 = side0 && ic ? row0[k + 1] : 0.0f;
+                a1 = side1 && ia ? row1[k] : 0.0f;
+                c1 = side1 && ic ? row1[k + 1] : 0.0f;
+                k_prev = k;
+              }
+              float* t = tab + (b * kTab + e) * kVec;
+              const float h0 = (1.0f - w) * a0 + w * c0;
+              const float h1 = (1.0f - w) * a1 + w * c1;
+              if (kJac) {
+                *reinterpret_cast<float4*>(t) =
+                    make_float4(h0, h1, c0 - a0, c1 - a1);
+              } else {
+                *reinterpret_cast<float2*>(t) = make_float2(h0, h1);
+              }
+            }
+          }
+        }
+        __syncthreads();
+        // pass B, per owned (u, v): both taps from the tables (a tap
+        // outside the table window lies outside the volume)
+#pragma unroll
+        for (int k = 0; k < kPix; ++k) {
+          const int u = u0 + warp + kFwdWarps * k;
+          if (!v_in || u >= nu) continue;
+          const float jreal = jreal_of<true>(p, r, y0[k]);
+          const float xa = x_affine(cx, ue[k], vt);
+#pragma unroll
+          for (int b = 0; b < kTabBranches; ++b) {
+            if (!(live >> b & 1u)) continue;
+            const Sample s = sample_from(p, jreal, xa, b, n_steps);
+            if (!s.ok) continue;
+            const float xf = floorf(s.X);
+            const int xl = static_cast<int>(xf) - qx0;
+            Tap t[2];
+#pragma unroll
+            for (int o = 0; o < 2; ++o) {
+              t[o].in = static_cast<unsigned>(xl + o) <
+                        static_cast<unsigned>(nq);
+              const int e = t[o].in ? (xl + o) * kFV + lane : lane;
+              const float* q = tab + (b * kTab + e) * kVec;
+              if (kJac) {
+                const float4 h = *reinterpret_cast<const float4*>(q);
+                t[o].l = {h.x, h.y, h.z, h.w};
+                // branch 0's cf + 0 is cf
+                t[o].cfg = b ? add(tab_cf[e], static_cast<float>(b))
+                             : tab_cf[e];
+              } else {
+                const float2 h = *reinterpret_cast<const float2*>(q);
+                t[o].l = {h.x, h.y, 0.0f, 0.0f};
+                t[o].cfg = 0.0f;
+              }
+            }
+            accumulate<kJac>(acc[k], s, r, s.X - xf, t);
+          }
+        }
+      } else {
+        // the direct way, per sample
+#pragma unroll
+        for (int k = 0; k < kPix; ++k) {
+          const int u = u0 + warp + kFwdWarps * k;
+          if (!v_in || u >= nu) continue;
+          const float jreal = jreal_of<true>(p, r, y0[k]);
+          const float xa = x_affine(cx, ue[k], vt);
+          for (int b = 0; b < n_branch; ++b) {
+            if (!(live >> b & 1u)) continue;
+            const Sample s = sample_from(p, jreal, xa, b, n_steps);
+            if (!s.ok) continue;
+            const float xf = floorf(s.X);
+            const int x0 = static_cast<int>(xf);
+            Tap t[2];
+#pragma unroll
+            for (int o = 0; o < 2; ++o) {
+              const int xi = x0 + o;
+              t[o].in = xi >= 0 && xi < nx;
+              t[o].l = {0.0f, 0.0f, 0.0f, 0.0f};
+              t[o].cfg = 0.0f;
+              if (!t[o].in) continue;
+              float cf, zaff;
+              grid_at<true>(p, r, cx, cz, static_cast<float>(xi), vt, &cf,
+                            &zaff);
+              t[o].cfg = add(cf, static_cast<float>(b));
+              const float zeta = zeta_at(p, t[o].cfg, zaff);
+              const float* col = vol + static_cast<size_t>(xi) * ny * nz;
+              if (side0)
+                taps_of([&](int kz) { return __ldg(col + ri * nz + kz); },
+                        zeta, nz, &t[o].l.h0, &t[o].l.d0);
+              if (side1)
+                taps_of(
+                    [&](int kz) { return __ldg(col + (ri + 1) * nz + kz); },
+                    zeta, nz, &t[o].l.h1, &t[o].l.d1);
+            }
+            accumulate<kJac>(acc[k], s, r, s.X - xf, t);
+          }
+        }
+      }
+    }
+    st_r = st_r1;
+    st_r1 = st_r2;
+  }
+
+  const size_t plane = static_cast<size_t>(nu) * nv;
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const int u = u0 + warp + kFwdWarps * k;
+    if (!v_in || u >= nu) continue;
+    float* o = out + static_cast<size_t>(view) * kF * plane +
+               static_cast<size_t>(u) * nv + v;
+#pragma unroll
+    for (int f = 0; f < kF; ++f) o[f * plane] = acc[k][f];
+  }
 }
 
 // K4 tiling. A CTA owns source slab r and the oriented voxels (x, z) of a
@@ -364,7 +844,7 @@ __device__ __forceinline__ void range_union(float a0, float a1, float b,
 }
 
 // A position's lerp taps as (k = floor, w = fraction): tap k weighs 1 - w
-// and tap k + 1 weighs w, as in row_taps. The floor is clamped to
+// and tap k + 1 weighs w, as in taps_of. The floor is clamped to
 // [lo - 2, hi + 2] (its taps then miss [lo, hi] exactly when the unclamped
 // ones do) and carried as int bits, so an owner tests a candidate with an
 // integer compare.
@@ -469,9 +949,10 @@ arc_adj_kernel(const float* __restrict__ g, const float* __restrict__ scalars,
             if (vl >= nvw || xa > xb) continue;
             const float fv = static_cast<float>(vc0 + vl);
             if (first) {
+              const VTerms vt = v_terms(p, fv);
               for (int x = xa; x <= xb; ++x) {
                 float cf, zaff;
-                grid_at(p, r, cx, cz, static_cast<float>(x), fv, &cf, &zaff);
+                grid_at(p, r, cx, cz, static_cast<float>(x), vt, &cf, &zaff);
                 sZ[(x - x0) * kVP + vl] =
                     tap_code(zeta_at(p, add(cf, fb), zaff), fza, fzb);
                 sT[(x - x0) * kVP + vl] = make_float2(0.0f, 0.0f);
@@ -545,10 +1026,40 @@ add_kernel(float* __restrict__ vol, const float* __restrict__ side1,
     vol[i] = vol[i] + side1[i];
 }
 
-constexpr int kThreads = 256;
+// jreal_of<true>'s quotient a/edy and __fdiv_rn's, for a test to compare
+// their bits.
+__global__ void __launch_bounds__(256)
+div_check_kernel(const float* __restrict__ a, float* __restrict__ q_rcp,
+                 float* __restrict__ q_div, int n, float edy) {
+  Arc p{};
+  p.edy = edy;
+  p.inv_edy = __frcp_rn(edy);
+  for (int i = blockIdx.x * 256 + threadIdx.x; i < n; i += gridDim.x * 256) {
+    q_rcp[i] = jreal_of<true>(p, a[i], 0.0f);
+    q_div[i] = __fdiv_rn(a[i], edy);
+  }
+}
 
-int blocks_for(long long n) {
-  return static_cast<int>((n + kThreads - 1) / kThreads);
+// Launch the march: K3 (kJac false) or K5.
+template <bool kJac>
+int launch_march(const float* vol, const float* scalars, float* out, int V,
+                 int nx, int ny, int nz, int nu, int nv, int n_steps,
+                 int n_branch, void* stream) {
+  if (V <= 0 || nu <= 0 || nv <= 0) return 0;
+  // grid z holds the views; windows are kept as 16-bit indices
+  if (V > 65535 || nx >= 32768 || nz >= 32768)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaError_t e = cudaFuncSetAttribute(
+      arc_march_kernel<kJac>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fwd_smem<kJac>());
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const bool vec =
+      nz % 4 == 0 && reinterpret_cast<std::uintptr_t>(vol) % 16 == 0;
+  const dim3 grid((nv + kFV - 1) / kFV, (nu + kFU - 1) / kFU, V);
+  arc_march_kernel<kJac><<<grid, kFwdThreads, fwd_smem<kJac>(),
+                           static_cast<cudaStream_t>(stream)>>>(
+      vol, scalars, out, nx, ny, nz, nu, nv, n_steps, n_branch, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -558,13 +1069,8 @@ extern "C" {
 int slab_arc_fwd(const float* vol, const float* scalars, float* out, int V,
                  int nx, int ny, int nz, int nu, int nv, int n_steps,
                  int n_branch, void* stream) {
-  const long long n = static_cast<long long>(V) * nu * nv;
-  if (n > 0) {
-    arc_fwd_kernel<<<blocks_for(n), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-        vol, scalars, out, V, nx, ny, nz, nu, nv, n_steps, n_branch);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_march<false>(vol, scalars, out, V, nx, ny, nz, nu, nv,
+                             n_steps, n_branch, stream);
 }
 
 // vol receives side 0 and then side 1 added; side1 is scratch of vol's
@@ -592,11 +1098,15 @@ int slab_arc_adj(const float* g, const float* scalars, float* vol,
 int slab_arc_jac(const float* vol, const float* scalars, float* out, int V,
                  int nx, int ny, int nz, int nu, int nv, int n_steps,
                  int n_branch, void* stream) {
-  const long long n = static_cast<long long>(V) * nu * nv;
+  return launch_march<true>(vol, scalars, out, V, nx, ny, nz, nu, nv,
+                            n_steps, n_branch, stream);
+}
+
+int slab_arc_div_check(const float* a, float* q_rcp, float* q_div, int n,
+                       float edy, void* stream) {
   if (n > 0) {
-    arc_jac_kernel<<<blocks_for(n), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-        vol, scalars, out, V, nx, ny, nz, nu, nv, n_steps, n_branch);
+    div_check_kernel<<<1024, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        a, q_rcp, q_div, n, edy);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,8 +24,10 @@ the single-field entry :func:`slab_project_field`, which tomojax served
 with K6 — here it launches K5 and returns one field) and
 :func:`slab_backproject` (K2, K4).
 
-K1/K2 are in ``csrc/slab_plane.cu``, K3/K4/K5 in ``csrc/slab_arc.cu``:
-hand-written CUDA C++ for ``sm_90a``, built by ``_build.py`` at first use.
+K1/K2 are in ``csrc/slab_plane.cu``, K3/K4/K5 in ``csrc/slab_arc.cu``
+(K3 and K5 are one kernel, ``arc_march_kernel``, templated on the
+Jacobian): hand-written CUDA C++ for ``sm_90a``, built by ``_build.py`` at
+first use.
 A tensor on the CPU takes the plain PyTorch version beside each wrapper
 (``core.slab_projector``'s spec); a CUDA tensor launches the kernel or
 raises.

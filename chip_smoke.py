@@ -12,8 +12,10 @@ script exits non-zero:
    jittered views × 256² detector with all four orientation groups: K1
    per-view relative L2 ≤ 5e-4, K2 relative L2 ≤ 5e-4, adjoint identity
    |⟨K1 x, y⟩ − ⟨x, K2 y⟩| ≤ 1e-5·‖K1 x‖·‖y‖ (float64 dot products), two
-   K2 applies bit-identical (no atomics), each one's time per 180-view
-   apply (CUDA events, after warm-up) and K2's per orientation group.
+   applies of K1 and of K2 bit-identical (no atomics), each one's time per
+   180-view apply (CUDA events, after warm-up) and per orientation group,
+   K1's beside its bound and the one-thread-per-ray design's 10.221 ms
+   that the staged march replaced (NVIDIA H100 80GB HBM3 at 700 W).
 4. Main path through the CLI (BASELINE config 3 on slab_plane):
    ``simulate`` 256³/180 views with ±4 px shifts, then ``reconstruct``
    with COM pre-alignment + 60 CGLS iterations, and a second CGLS run on
@@ -129,9 +131,10 @@ COUNTED = (slabk.slab_plane_fwd, slabk.slab_plane_adj, slabk.slab_arc_fwd,
            slabk.slab_arc_adj, slabk.slab_project_jac,
            slabk.slab_project_field, rs.resample_fwd, rs.resample_transpose,
            rs.resample_rows_raw)
-# K3's and K5's times per 90-view apply in the one-thread-per-ray design
-# that the march replaced (NVIDIA H100 80GB HBM3, 700 W)
-EARLIER_MS = {"fwd": 17.138, "jac": 23.968}
+# K3's and K5's times per 90-view apply, and K1's per 180-view apply, in the
+# one-thread-per-ray designs that the marches replaced (NVIDIA H100 80GB
+# HBM3, 700 W)
+EARLIER_MS = {"fwd": 17.138, "jac": 23.968, "plane_fwd": 10.221}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS = 67e12          # H100 SXM, published fp32 outside tensor cores
 
@@ -221,6 +224,8 @@ def phase_kernels(dev):
         fwd_rel.append(float((torch.linalg.norm(ker - ref, dim=(1, 2))
                               / torch.linalg.norm(ref, dim=(1, 2))).max()))
         fwd_abs.append(float((ker - ref).abs().max()))
+        check(torch.equal(ker, slabk.slab_plane_fwd(vol_or, sc, geom)),
+              "two K1 applies differ")
         kadj = slabk.slab_plane_adj(y, sc, geom)
         check(torch.equal(kadj, slabk.slab_plane_adj(y, sc, geom)),
               "two K2 applies differ")
@@ -238,7 +243,8 @@ def phase_kernels(dev):
     print(f"K1 vs plain: max per-view rel L2 {max(fwd_rel):.3e} "
           f"(tol {TOL_FWD}), max abs {max(fwd_abs):.3e}")
     print(f"K2 vs plain vjp: max rel L2 {max(adj_rel):.3e} (tol {TOL_ADJ}), "
-          f"max abs {max(adj_abs):.3e}; two applies bit-identical")
+          f"max abs {max(adj_abs):.3e}; two applies of K1 and of K2 "
+          "bit-identical")
     print(f"adjoint identity |<K1x,y>-<x,K2y>|/(|K1x||y|): max "
           f"{max(dot_rel):.3e} (tol {TOL_DOT})")
 
@@ -256,9 +262,15 @@ def phase_kernels(dev):
           f"{N_PROJ}-view apply ({N}^3)")
     print(f"K2 {t['adj']:.3f} ms vs plain {t['adj_plain']:.3f} ms per "
           f"{N_PROJ}-view apply ({N}^3)")
-    per_group = [f"{cuda_ms(lambda: slabk.slab_plane_adj(y, sc, geom), 5):.3f}"
-                 f" ms ({sc.shape[0]} views)" for _, sc, y in groups]
-    print(f"K2 per orientation group: {', '.join(per_group)}")
+    t["bound"] = slab_bound(groups, taps=4)
+    for label, fn, arg in (("K1", slabk.slab_plane_fwd, 0),
+                           ("K2", slabk.slab_plane_adj, 2)):
+        per_group = [f"{cuda_ms(lambda: fn(g[arg], g[1], geom), 5):.3f} ms "
+                     f"({g[1].shape[0]} views)" for g in groups]
+        print(f"{label} per orientation group: {', '.join(per_group)}")
+    print(f"K1 apply {t['fwd']:.3f} ms vs bound {t['bound'][0]:.3f} ms "
+          f"({t['bound'][1]}) and the one-thread-per-ray "
+          f"{EARLIER_MS['plane_fwd']:.3f} ms")
 
     op = make_operator(geom, views, device=dev)
     sino = op.A(vol)
@@ -268,7 +280,6 @@ def phase_kernels(dev):
           f"fwd+adjoint {N_PROJ / ((t_A + t_AT) / 1e3):.1f} proj/s "
           f"({N}^3, {N_PROJ} views, slab_plane)")
 
-    t["bound"] = slab_bound(groups, taps=4)
     check(max(fwd_rel) <= TOL_FWD, f"K1 rel L2 {max(fwd_rel)}")
     check(max(adj_rel) <= TOL_ADJ, f"K2 rel L2 {max(adj_rel)}")
     check(max(dot_rel) <= TOL_DOT, f"adjoint identity {max(dot_rel)}")

@@ -637,6 +637,59 @@ def test_k2_matches_plain_vjp_identity_and_repeats(cuda, case):
         assert float(abs(lhs - rhs)) <= float(bound), (lhs, rhs)
 
 
+def _plane_k1_case(device, case):
+    """Plane groups that drive K1 down each of its paths: "odd", odd sizes
+    at det_pix 0.7 (every window in the tables, 4-byte staging: nz odd);
+    "coarse", det_pix 2 (T's columns exceed the table: the direct way per
+    sample); "tilt", 0.35 rad tilts (zeta's rows exceed the ring for part
+    of the slabs, so one march mixes table and direct slabs)."""
+    if case == "odd":
+        geom, views, vol, _ = _plane_odd_case(device)
+    else:
+        rng = np.random.default_rng(3)
+        n, n_proj = 48, 12
+        det_pix, tilt = (2.0, 0.02) if case == "coarse" else (1.0, 0.35)
+        nd = int(np.ceil(n * 1.5 / det_pix))
+        geom = Geometry(n_proj=n_proj, vox_shape=(n,) * 3,
+                        det_shape=(nd, nd + 4), det_pix=(det_pix, det_pix))
+        views = Views.create(
+            n_proj, phi=0.3 + np.linspace(0, 2 * np.pi, n_proj,
+                                          endpoint=False),
+            alpha=rng.uniform(-tilt, tilt, n_proj),
+            beta=rng.uniform(-tilt, tilt, n_proj),
+            t=rng.uniform(-2, 2, (n_proj, 3)))
+        vol = rng.random((n,) * 3).astype(np.float32)
+    return geom, list(_groups(geom, views, vol, device))
+
+
+@pytest.mark.parametrize("case", ["odd", "coarse", "tilt"])
+def test_k1_matches_plain_repeats_and_transposes_k2(cuda, case):
+    """K1 on each of its paths: per-view relative L2 within 5e-4 of the
+    plain forward and every ray within 2e-5 of its view's largest value (a
+    tap the tables dropped would move a ray by ~1e-3 of it), two applies
+    bit-identical, and the adjoint identity with K2 to 1e-5."""
+    geom, groups = _plane_k1_case(cuda, case)
+    nu, nv = geom.det_shape
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for vol_or, sc in groups:
+        ker = slabk.slab_plane_fwd(vol_or, sc, geom)
+        again = slabk.slab_plane_fwd(vol_or, sc, geom)
+        assert torch.equal(ker.view(torch.int32), again.view(torch.int32))
+        ref = slabk.slab_project_plain(vol_or, sc, geom)
+        torch.cuda.synchronize()
+        assert float(_per_view_rel(ker, ref).max()) < 5e-4
+        scale = ref.abs().amax(dim=(-2, -1), keepdim=True)
+        assert float(((ker - ref).abs() / scale).max()) < 2e-5
+        y = torch.randn((sc.shape[0], nu, nv), generator=gen, device=cuda)
+        aty = slabk.slab_plane_adj(y, sc, geom)
+        lhs = torch.dot(ker.double().reshape(-1), y.double().reshape(-1))
+        rhs = torch.dot(vol_or.double().reshape(-1),
+                        aty.double().reshape(-1))
+        bound = 1e-5 * torch.linalg.norm(ker.double()) * torch.linalg.norm(
+            y.double())
+        assert float(abs(lhs - rhs)) <= float(bound), (lhs, rhs)
+
+
 def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("a CUDA tensor reached a plain version")

@@ -7,7 +7,7 @@ import torch
 
 from tomojax_torch import align as ta
 from tomojax_torch.align import pipeline as tp
-from tomojax_torch.tools import config4_floor, config4_profile
+from tomojax_torch.tools import config4_floor, config4_profile, k1_split
 
 torch.set_num_threads(1)
 
@@ -47,3 +47,13 @@ def test_config4_floor_prints_both_families(capsys):
         rel = [float(tok) for tok in line.split(":")[1].split(";")[0].split()
                if not tok.startswith("@")]
         assert len(rel) == 2 and rel[1] <= rel[0] < 1.0
+
+
+def test_k1_split_variants_apply_to_the_kernel_source():
+    """Each of tools/k1_split's variants matches its text in slab_plane.cu
+    exactly once and changes it (the tool itself needs the card)."""
+    src = k1_split.SOURCE.read_text()
+    for name in k1_split.VARIANTS:
+        out = k1_split.variant_source(name)
+        assert out != src, name
+        assert "fwd_kernel" in out

@@ -16,14 +16,43 @@
 // lerp: tap k = floor(p) has weight 1 - w, tap k + 1 weight w (w = p - k),
 // taps outside the axis contribute zero.
 //
-// What bounds these kernels on an H100: gathers. Each sample reads about
-// four volume values (2 x-taps x 2 z-taps) and does ~20 flops, so both
-// kernels are bound by L1/L2 gather traffic, not by HBM bandwidth or
-// arithmetic. K1 keeps its reads coalesced by putting v on the fastest
-// thread index (zav ~ 1, so neighbouring threads read neighbouring z of
-// one row of vol[x, r, :]). Nothing of the TPU design is carried over
-// (one-hot selection matmuls, bf16 hi/lo split, band budget, lane padding,
-// view bucketing): a Hopper thread gathers directly.
+// K1 is the plane case of the arc forward's staged two-pass march
+// (slab_arc.cu, arc_march_kernel), without branches, slab pairs or
+// sawtooth. A CTA owns one view and a kFU x kFV tile of detector (u, v)
+// (lane = v) and marches the slabs r = 0..ny-1, owner-computes: each
+// output adds its terms in registers in the order of a one-thread-per-ray
+// march (slab r, then tap 0, then tap 1) and is written once, with no
+// atomics. Per slab, from the tile's corners (X and zeta are affine):
+//   1. the window: T's columns x (every x-tap of the tile's pixels) and the
+//      rows z that pass A's taps reach over those columns, widened by a
+//      rounding slack; computed 128 steps ahead into shared slots that are
+//      refilled 64 at a time;
+//   2. staging: the slab's rows over the window into a ring of three slabs
+//      (cp.async, 16-byte copies where nz is a multiple of 4, a fixed copy
+//      map per thread), zeros outside the volume, two slabs ahead;
+//   3. pass A, once per (x, v) of the window: T[x, v], the z-lerp of the
+//      staged row at zeta_r(x, v), into one of two shared tables; the
+//      staged zeros make a tap outside the volume contribute nothing;
+//   4. pass B, per owned (u, v): X_r(u, v) and both taps from the table.
+// Pass A of slab r + 1 and pass B of slab r run between the same pair of
+// barriers (the tables alternate), so a slab costs one __syncthreads.
+// A slab whose window exceeds the table or the ring (large |evx|, gzx or
+// detector pitch) runs pass B the direct way for that tile: per sample on
+// global memory, as a one-thread-per-ray march does.
+//
+// Both passes compute the positions with the __device__ functions that K2
+// uses (x_at, zeta_at, with the same fmaf order) and the lerps in the
+// order that nvcc's contraction gave the one-thread-per-ray K1 that this
+// march replaced (lerp_pair, then fmaf into the sum), so K1 gives that
+// kernel's bits and
+// K2 holds exactly K1's matrix entries. The windows only decide what the
+// tables hold; tests/test_torch_plane_forward_split.py emulates them and
+// counts a tap outside them as a miss. In the table passes floor() is an
+// add rounded down (floor_small): F2I and FRND issue at a quarter of the
+// FMA rate and were four of a sample's conversions. What bounds K1: the
+// issue rate of the two passes' position arithmetic and the per-slab
+// skeleton (windows, copies, barrier), not bytes: it reads each staged row
+// from L2 once per tile.
 //
 // K2 uses that the operator is separable (zeta never depends on u), as the
 // arc adjoint K4 does: per view and slab r the transpose is two 1-D
@@ -43,7 +72,9 @@
 // plane_zeta, with the same fmaf order) decide, so K2 holds exactly K1's
 // matrix entries in float32 and the pair stays an exact transpose (CGLS
 // needs that). What bounds K2: the candidate tests and shared-memory
-// traffic of the two transposes, not bytes.
+// traffic of the two transposes, not bytes. Nothing of the TPU design is
+// carried over (one-hot selection matmuls, bf16 hi/lo split, band budget,
+// lane padding, view bucketing): a Hopper thread gathers directly.
 
 #include <cstdint>
 
@@ -74,20 +105,36 @@ __device__ __forceinline__ Plane load_plane(const float* __restrict__ s) {
   return p;
 }
 
-// Pass-B position X_r(u, v). Explicit fmaf keeps one rounding sequence in
-// both kernels whatever the compiler contracts.
-__device__ __forceinline__ float plane_X(const Plane& p, float r, float u,
-                                         float v) {
-  const float cx = fmaf(p.rx, r, p.cxb);
+// Slab r's offsets cx_r, cz_r.
+__device__ __forceinline__ float slab_cx(const Plane& p, float r) {
+  return fmaf(p.rx, r, p.cxb);
+}
+
+__device__ __forceinline__ float slab_cz(const Plane& p, float r) {
+  return fmaf(p.rz, r, p.czb);
+}
+
+// Pass-B position X_r(u, v) from cx_r. Explicit fmaf keeps one rounding
+// sequence in both kernels whatever the compiler contracts.
+__device__ __forceinline__ float x_at(const Plane& p, float cx, float u,
+                                      float v) {
   return fmaf(p.evx, v, fmaf(p.eux, u, cx));
 }
 
-// Pass-A position zeta_r(x, v) at grid column x.
+// Pass-A position zeta_r(x, v) at grid column x, from cx_r and cz_r.
+__device__ __forceinline__ float zeta_at(const Plane& p, float cx, float cz,
+                                         float x, float v) {
+  return fmaf(p.zav, v, fmaf(p.gzx, x - cx, cz));
+}
+
+__device__ __forceinline__ float plane_X(const Plane& p, float r, float u,
+                                         float v) {
+  return x_at(p, slab_cx(p, r), u, v);
+}
+
 __device__ __forceinline__ float plane_zeta(const Plane& p, float r, float x,
                                             float v) {
-  const float cx = fmaf(p.rx, r, p.cxb);
-  const float cz = fmaf(p.rz, r, p.czb);
-  return fmaf(p.zav, v, fmaf(p.gzx, x - cx, cz));
+  return zeta_at(p, slab_cx(p, r), slab_cz(p, r), x, v);
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -147,42 +194,379 @@ __device__ __forceinline__ void window(float a, float b, float inv_b,
   *hi = min(n - 1, static_cast<int>(floorf(th)));
 }
 
-// K1: one thread per (view, u, v) of the group, v fastest; loops over the
-// slabs. vol: (nx, ny, nz), scalars: (V, NS), out: (V, nu, nv).
-__global__ void __launch_bounds__(256)
-fwd_kernel(const float* __restrict__ vol, const float* __restrict__ scalars,
-           float* __restrict__ out, int V, int nx, int ny, int nz, int nu,
-           int nv) {
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= V * nu * nv) return;
-  const int v = tid % nv;
-  const int u = (tid / nv) % nu;
-  const int view = tid / (nu * nv);
-  const Plane p = load_plane(scalars + view * NS);
-  const float fu = static_cast<float>(u), fv = static_cast<float>(v);
-  float acc = 0.0f;
-  for (int r = 0; r < ny; ++r) {
-    const float fr = static_cast<float>(r);
-    const float X = plane_X(p, fr, fu, fv);
-    const float xf = floorf(X);
-    const int x0 = static_cast<int>(xf);
-    const float wx = X - xf;
+// Zero-filling copies: src_bytes (0 or the copy's size) are read, the rest
+// of the copy is zero.
+__device__ __forceinline__ void cp_async4_zfill(float* dst, const float* src,
+                                                int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async16_zfill(float* dst, const float* src,
+                                                 int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+
+// The lerp of taps a (weight 1 - w) and c (weight w), in the order nvcc's
+// contraction gave the one-thread-per-ray K1: the first product rounded,
+// the second fused into it. A tap outside the axis is passed as zero,
+// which gives that kernel's value (it skipped the tap) up to the sign of a
+// zero, and a zero's sign never reaches an output: the sums start at +0.
+__device__ __forceinline__ float lerp_pair(float a, float c, float w) {
+  return fmaf(w, c, __fmul_rn(1.0f - w, a));
+}
+
+// floor(q) as a float and an int, for |q| < 2^22: q + 1.5 * 2^23 rounded
+// down is 1.5 * 2^23 + floor(q), exactly, with floor(q) in its low
+// mantissa bits. Adds instead of FRND and F2I, which issue at a quarter of
+// the FMA rate.
+struct Floor {
+  float f;
+  int k;
+};
+
+__device__ __forceinline__ Floor floor_small(float q) {
+  const float s = __fadd_rd(q, 12582912.0f);
+  return {s - 12582912.0f, __float_as_int(s) - 0x4B400000};
+}
+
+// K1 tiling. A CTA owns one view and a kFU x kFV tile of detector (u, v):
+// lane = v, and each thread owns kPix pixels u of its v (warp, warp + 8,
+// ...). Shared memory: a ring of kRing staged slabs (kSX rows x of kSZ
+// values z); two pass-A tables T[x][v] of kSX columns x by kFV rows v
+// (pass A of slab r + 1 fills one while pass B of slab r reads the other);
+// and the windows of kWin steps, refilled kWin / 2 at a time.
+constexpr int kFwdThreads = 256;
+constexpr int kFwdWarps = kFwdThreads / 32;
+constexpr int kFU = 32, kFV = 32;
+constexpr int kPix = kFU / kFwdWarps;
+constexpr int kSX = 56, kSZ = 44;   // kSZ: a multiple of 4 (16-byte rows)
+constexpr int kRowsA = kSX / kFwdWarps;   // pass-A columns per warp
+constexpr int kSlab = kSX * kSZ;
+constexpr int kTab = kSX * kFV;
+constexpr int kRing = 3;
+constexpr int kWin = 128;
+constexpr int kFwdSmem = 4 * (kRing * kSlab + 2 * kTab) + kWin * 16;
+static_assert(kFwdSmem <= 227 * 1024, "K1 fits an SM's shared memory");
+// A step's window: int4 (x0, x1, z0, z1): T's columns x in [x0, x1] (the
+// staged rows) and the staged rows' z in [z0, z1], unclamped: a column or z
+// outside the volume holds zeros; z0 a multiple of 4 for 16-byte copies
+// (kVec). z1 < 0 marks a step without windows:
+// kEmpty (no tap of the tile reaches the volume) or kDirect (the windows
+// exceed the capacities, or a position is out of floor_small's range).
+constexpr int kEmpty = -1, kDirect = -2;
+constexpr float kPosMax = 2097152.0f;   // 2^21: windows within floor_small's
+
+// The tile's corners: u in [ua, ub], v in [va, vb].
+struct Corners {
+  float ua, ub, va, vb;
+};
+
+// The lowest tap floor(q) of any q >= lo and the highest tap floor(q) + 1
+// of any q <= hi, widened by a slack far above the rounding of the
+// kernel's positions and of the window's own arithmetic (each a few
+// roundings of terms whose magnitudes sum to at most mag: below 6 u mag).
+__device__ __forceinline__ float tap_lo(float lo, float mag) {
+  return floorf(lo - (1e-3f + 4e-6f * mag));
+}
+
+__device__ __forceinline__ float tap_hi(float hi, float mag) {
+  return floorf(hi + (1e-3f + 4e-6f * mag)) + 1.0f;
+}
+
+// Step r's window. X - cx_r = eux*u + evx*v and zeta - cz_r = gzx*(x - cx_r)
+// + zav*v are affine, so their extremes over the tile lie at its corners
+// (and at T's extreme columns).
+template <bool kVec>
+__device__ int4 step_window(const Plane& p, const Corners& c, int ri, int nx,
+                            int ny, int nz) {
+  if (ri >= ny) return make_int4(0, -1, 0, kEmpty);
+  const float r = static_cast<float>(ri);
+  const float cx = slab_cx(p, r), cz = slab_cz(p, r);
+  const float xa = p.eux * c.ua, xb = p.eux * c.ub;
+  const float ya = p.evx * c.va, yb = p.evx * c.vb;
+  const float mx = fabsf(cx) + fmaxf(fabsf(xa), fabsf(xb)) +
+                   fmaxf(fabsf(ya), fabsf(yb));
+  const float xl = tap_lo(cx + fminf(xa, xb) + fminf(ya, yb), mx);
+  const float xh = tap_hi(cx + fmaxf(xa, xb) + fmaxf(ya, yb), mx);
+  const float ga = p.gzx * (xl - cx), gb = p.gzx * (xh - cx);
+  const float za = p.zav * c.va, zb = p.zav * c.vb;
+  const float mz = fabsf(cz) + fmaxf(fabsf(ga), fabsf(gb)) +
+                   fmaxf(fabsf(za), fabsf(zb)) +
+                   fabsf(p.gzx) * (fabsf(cx) + fmaxf(fabsf(xl), fabsf(xh)));
+  const float zl = tap_lo(cz + fminf(ga, gb) + fminf(za, zb), mz);
+  const float zh = tap_hi(cz + fmaxf(ga, gb) + fmaxf(za, zb), mz);
+  if (!(fmaxf(fabsf(xl), fabsf(xh)) < kPosMax &&
+        fmaxf(fabsf(zl), fabsf(zh)) < kPosMax))
+    return make_int4(0, -1, 0, kDirect);   // NaN included
+  if (xh < 0.0f || xl > static_cast<float>(nx - 1) || zh < 0.0f ||
+      zl > static_cast<float>(nz - 1))
+    return make_int4(0, -1, 0, kEmpty);
+  const int x0 = static_cast<int>(xl), x1 = static_cast<int>(xh);
+  const int z0 = static_cast<int>(zl) & (kVec ? ~3 : ~0);   // rounds down
+  const int z1 = static_cast<int>(zh);
+  if (x1 - x0 >= kSX || z1 - z0 >= kSZ) return make_int4(0, -1, 0, kDirect);
+  return make_int4(x0, x1, z0, z1);
+}
+
+// A thread's share of a slab's copies (kVec): 16-byte chunk c = tid %
+// kRowChunks of the ring rows g + k * kCopyRows (g = tid / kRowChunks, k <
+// kCopyIters); fixed over the march.
+constexpr int kRowChunks = kSZ / 4;
+constexpr int kCopyRows = kFwdThreads / kRowChunks;
+constexpr int kCopyIters = (kSX + kCopyRows - 1) / kCopyRows;
+
+// Issue the copies of slab s's rows x in [w.x, w.y], z in [w.z, w.w]
+// (zeros outside the volume) into buf[x - w.x][z - w.z] as one cp.async
+// commit group (empty for a step without windows): 16-byte copies (kVec:
+// nz and w.z multiples of 4, so a copy lies wholly in or out of the
+// volume) or 4-byte ones. Offsets are 32-bit (the wrapper keeps the volume
+// below 2^31 elements); a zero fill reads nothing and points at vol.
+template <bool kVec>
+__device__ __forceinline__ void stage_slab(float* buf,
+                                          const float* __restrict__ vol,
+                                          int s, int4 w, int nx, int ny,
+                                          int nz, int tid, int c, int g) {
+  if (w.w >= 0) {
+    const unsigned unx = static_cast<unsigned>(nx);
+    const unsigned unz = static_cast<unsigned>(nz);
+    if (kVec) {
+      const int z = w.z + 4 * c;
+      if (g < kCopyRows && 4 * c <= w.w - w.z) {
+        const bool z_in = static_cast<unsigned>(z) < unz;
+        // rows kCopyRows apart, modulo 2^32 (a row in the volume is exact)
+        const unsigned step = static_cast<unsigned>(kCopyRows) * ny * unz;
+        unsigned off =
+            (static_cast<unsigned>(w.x + g) * ny + s) * unz + z;
+        int x = w.x + g;
+        float* const dst = buf + g * kSZ + 4 * c;
+        if (w.x >= 0 && w.y < nx) {
+          // every row in the volume: a copy needs only its address
+          const float* src = vol + (z_in ? off : 0);
+          const size_t stride =
+              z_in ? static_cast<size_t>(kCopyRows) * ny * nz : 0;
 #pragma unroll
-    for (int o = 0; o < 2; ++o) {
-      const int xi = x0 + o;
-      if (xi < 0 || xi >= nx) continue;
-      const float zeta = plane_zeta(p, fr, static_cast<float>(xi), fv);
-      const float zf = floorf(zeta);
-      const int z0 = static_cast<int>(zf);
-      const float wz = zeta - zf;
-      const float* row = vol + (static_cast<size_t>(xi) * ny + r) * nz;
-      float val = 0.0f;
-      if (z0 >= 0 && z0 < nz) val += (1.0f - wz) * __ldg(row + z0);
-      if (z0 + 1 >= 0 && z0 + 1 < nz) val += wz * __ldg(row + z0 + 1);
-      acc += (o ? wx : 1.0f - wx) * val;
+          for (int k = 0; k < kCopyIters; ++k) {
+            if (x + k * kCopyRows <= w.y)
+              cp_async16_zfill(dst + k * kCopyRows * kSZ, src,
+                               z_in ? 16 : 0);
+            src += stride;
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < kCopyIters; ++k) {
+            if (x <= w.y) {
+              const bool in = z_in && static_cast<unsigned>(x) < unx;
+              cp_async16_zfill(dst + k * kCopyRows * kSZ,
+                               vol + (in ? off : 0), in ? 16 : 0);
+            }
+            x += kCopyRows;
+            off += step;
+          }
+        }
+      }
+    } else {
+      const int nq = w.y - w.x + 1, nzw = w.w - w.z + 1;
+      for (int e = tid; e < nq * kSZ; e += kFwdThreads) {
+        const int xl = e / kSZ, zl = e - xl * kSZ;
+        if (zl < nzw) {
+          const int x = w.x + xl, z = w.z + zl;
+          const bool in = static_cast<unsigned>(x) < unx &&
+                          static_cast<unsigned>(z) < unz;
+          cp_async4_zfill(
+              buf + e,
+              vol + (in ? (static_cast<unsigned>(x) * ny + s) * unz + z : 0),
+              in ? 4 : 0);
+        }
+      }
     }
   }
-  out[tid] = acc * p.scale;
+  cp_async_commit();
+}
+
+// Pass A's rows i in [kI0, kI1) of a warp: the z-lerp at zeta_s(x, v),
+// x = fx + i * kFwdWarps, of staged row q[i * kFwdWarps][.] into
+// t[i * kFwdWarps][lane]; kGuard: only the rows below nq (counted from
+// the warp's first).
+template <int kI0, int kI1, bool kGuard>
+__device__ __forceinline__ void pass_a_rows(float* __restrict__ t,
+                                            const float* __restrict__ q,
+                                            const Plane& p, float cx,
+                                            float cz, float fx, float fv,
+                                            int nq) {
+#pragma unroll
+  for (int i = kI0; i < kI1; ++i) {
+    if (kGuard && i * kFwdWarps >= nq) continue;
+    const float zeta =
+        zeta_at(p, cx, cz, fx + static_cast<float>(i * kFwdWarps), fv);
+    const Floor f = floor_small(zeta);
+    const float* const row = q + i * kFwdWarps * kSZ + f.k;
+    t[i * kFwdWarps * kFV] = lerp_pair(row[0], row[1], zeta - f.f);
+  }
+}
+
+// Pass A of step s with window w (its slab staged in buf): the z-lerp at
+// zeta_s(x, v) of T's columns x into tab[x - w.x][lane], warp-strided. A
+// window of at least 4 * kFwdWarps columns (every one at 256^3 with a unit
+// pitch) runs the first 4 rows of each warp without tests.
+__device__ __forceinline__ void pass_a(float* __restrict__ tab,
+                                       const float* __restrict__ buf,
+                                       const Plane& p, int s, int4 w,
+                                       int warp, int lane, float fv) {
+  const float r = static_cast<float>(s);
+  const float cx = slab_cx(p, r), cz = slab_cz(p, r);
+  const int nq = w.y - w.x + 1 - warp;   // this warp's rows: i*kFwdWarps < nq
+  const float fx = static_cast<float>(w.x + warp);
+  const float* const q = buf + warp * kSZ - w.z;   // z at [z]
+  float* const t = tab + warp * kFV + lane;
+  if (nq > 3 * kFwdWarps) {
+    pass_a_rows<0, 4, false>(t, q, p, cx, cz, fx, fv, nq);
+    pass_a_rows<4, kRowsA, true>(t, q, p, cx, cz, fx, fv, nq);
+  } else {
+    pass_a_rows<0, kRowsA, true>(t, q, p, cx, cz, fx, fv, nq);
+  }
+}
+
+// Pass B of a fast step: both taps of each owned pixel from the table tab
+// (T's columns hold every tap of the tile), added into acc; kGuard: only
+// the pixels inside the detector.
+template <bool kGuard>
+__device__ __forceinline__ void pass_b(float (&acc)[kPix],
+                                       const bool (&pix)[kPix],
+                                       const float (&fu)[kPix],
+                                       const Plane& p, float cx, float fv,
+                                       const float* __restrict__ tab) {
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    if (kGuard && !pix[k]) continue;
+    const float X = x_at(p, cx, fu[k], fv);
+    const Floor f = floor_small(X);
+    const float wx = X - f.f;
+    const float* const t = tab + f.k * kFV;
+    acc[k] = fmaf(1.0f - wx, t[0], acc[k]);
+    acc[k] = fmaf(wx, t[kFV], acc[k]);
+  }
+}
+
+// K1: grid (v tiles, u tiles, views); vol (nx, ny, nz), scalars (V, NS),
+// out (V, nu, nv); kVec: nz a multiple of 4 and vol 16-byte aligned. Every
+// output is written exactly once.
+//
+// Iteration r: wait for slab r + 1; one barrier; stage slab r + 3 into the
+// slot of slab r (pass A of r ran last iteration); pass A of slab r + 1
+// into table (r + 1) & 1; pass B of slab r from table r & 1 for a fast
+// step, per sample on global memory (the one-thread-per-ray code) for a
+// direct one, nothing for an empty one (no tap of the tile reaches the
+// volume).
+template <bool kVec>
+__global__ void __launch_bounds__(kFwdThreads, 4)
+fwd_kernel(const float* __restrict__ vol, const float* __restrict__ scalars,
+           float* __restrict__ out, int nx, int ny, int nz, int nu, int nv) {
+  extern __shared__ __align__(16) float sm[];
+  float* const ring = sm;
+  float* const tabs = sm + kRing * kSlab;
+  int4* const win = reinterpret_cast<int4*>(tabs + 2 * kTab);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int view = blockIdx.z;
+  const int v0 = blockIdx.x * kFV, u0 = blockIdx.y * kFU;
+  const Plane p = load_plane(scalars + static_cast<size_t>(view) * NS);
+  const Corners corners{static_cast<float>(u0),
+                        static_cast<float>(min(u0 + kFU, nu) - 1),
+                        static_cast<float>(v0),
+                        static_cast<float>(min(v0 + kFV, nv) - 1)};
+  const int v = v0 + lane;
+  const bool v_in = v < nv;
+  const float fv = static_cast<float>(v);
+  float fu[kPix], acc[kPix];
+  bool pix[kPix];
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const int u = u0 + warp + kFwdWarps * k;
+    fu[k] = static_cast<float>(u);
+    pix[k] = v_in && u < nu;
+    acc[k] = 0.0f;
+  }
+  const bool full = u0 + kFU <= nu && v0 + kFV <= nv;   // every pixel inside
+
+  const int copy_c = tid % kRowChunks, copy_g = tid / kRowChunks;
+
+  for (int s = tid; s < kWin; s += kFwdThreads)
+    win[s] = step_window<kVec>(p, corners, s, nx, ny, nz);
+  __syncthreads();
+  for (int s = 0; s < kRing; ++s)
+    stage_slab<kVec>(ring + s * kSlab, vol, s, win[s], nx, ny, nz, tid, copy_c,
+                     copy_g);
+  int4 w_a = win[0];   // the window of the step whose pass A runs next
+  cp_async_wait<kRing - 1>();   // slab 0
+  __syncthreads();
+  if (w_a.w >= 0 && v_in) pass_a(tabs, ring, p, 0, w_a, warp, lane, fv);
+
+  int slot = 0;   // ring slot of slab r
+  for (int ri = 0; ri < ny; ++ri) {
+    const int slot1 = slot == kRing - 1 ? 0 : slot + 1;
+    const int4 w_b = w_a;
+    w_a = win[(ri + 1) % kWin];
+    cp_async_wait<kRing - 2>();   // slab r + 1
+    __syncthreads();   // ... visible; pass A of r, pass B of r - 1 done
+    stage_slab<kVec>(ring + slot * kSlab, vol, ri + kRing,
+                     win[(ri + kRing) % kWin], nx, ny, nz, tid, copy_c, copy_g);
+    if (w_a.w >= 0 && v_in)
+      pass_a(tabs + ((ri + 1) & 1) * kTab, ring + slot1 * kSlab, p, ri + 1,
+             w_a, warp, lane, fv);
+    const float r = static_cast<float>(ri);
+    const float cx = slab_cx(p, r);
+    if (w_b.w >= 0) {
+      const float* const tab = tabs + (ri & 1) * kTab + lane - w_b.x * kFV;
+      if (full)
+        pass_b<false>(acc, pix, fu, p, cx, fv, tab);
+      else
+        pass_b<true>(acc, pix, fu, p, cx, fv, tab);
+    } else if (w_b.w == kDirect) {
+      const float cz = slab_cz(p, r);
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        if (!pix[k]) continue;
+        const float X = x_at(p, cx, fu[k], fv);
+        const float xf = floorf(X);
+        const int x0 = static_cast<int>(xf);
+        const float wx = X - xf;
+#pragma unroll
+        for (int o = 0; o < 2; ++o) {
+          const int xi = x0 + o;
+          if (xi < 0 || xi >= nx) continue;
+          const float zeta = zeta_at(p, cx, cz, static_cast<float>(xi), fv);
+          const float zf = floorf(zeta);
+          const int z0 = static_cast<int>(zf);
+          const float* row = vol + (static_cast<size_t>(xi) * ny + ri) * nz;
+          const unsigned unz = static_cast<unsigned>(nz);
+          const float a =
+              static_cast<unsigned>(z0) < unz ? __ldg(row + z0) : 0.0f;
+          const float c =
+              static_cast<unsigned>(z0) + 1u < unz ? __ldg(row + z0 + 1)
+                                                   : 0.0f;
+          acc[k] = fmaf(o ? wx : 1.0f - wx, lerp_pair(a, c, zeta - zf),
+                        acc[k]);
+        }
+      }
+    }
+    // windows of steps r + kWin/2 .. r + kWin - 1 into the slots of steps
+    // r - kWin/2 .. r - 1 (read again after kWin/2 - kRing barriers)
+    if (ri % (kWin / 2) == 0 && ri > 0 && tid < kWin / 2) {
+      const int s = ri + kWin / 2 + tid;
+      win[s % kWin] = step_window<kVec>(p, corners, s, nx, ny, nz);
+    }
+    slot = slot1;
+  }
+
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    if (pix[k])
+      out[(static_cast<size_t>(view) * nu + u0 + warp + kFwdWarps * k) * nv +
+          v] = acc[k] * p.scale;
+  }
 }
 
 // K2 tiling. A CTA owns slab r and the oriented voxels (x, z) of a kTX x
@@ -485,25 +869,37 @@ adj_kernel(const float* __restrict__ g, const float* __restrict__ scalars,
   }
 }
 
-constexpr int kThreads = 256;
-
-int blocks_for(long long n) {
-  return static_cast<int>((n + kThreads - 1) / kThreads);
-}
-
 }  // namespace
 
 extern "C" {
 
 int slab_plane_fwd(const float* vol, const float* scalars, float* out, int V,
                    int nx, int ny, int nz, int nu, int nv, void* stream) {
-  const long long n = static_cast<long long>(V) * nu * nv;
-  if (n > 0) {
-    fwd_kernel<<<blocks_for(n), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(vol, scalars, out, V,
-                                                      nx, ny, nz, nu, nv);
+  if (V <= 0 || nu <= 0 || nv <= 0) return 0;
+  const bool vec =
+      nz % 4 == 0 && reinterpret_cast<std::uintptr_t>(vol) % 16 == 0;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      vec ? fwd_kernel<true> : fwd_kernel<false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tv = (nv + kFV - 1) / kFV, tu = (nu + kFU - 1) / kFU;
+  // grid z holds the views, at most 65535 a launch
+  for (int v0 = 0; v0 < V; v0 += 65535) {
+    const dim3 grid(tv, tu, V - v0 < 65535 ? V - v0 : 65535);
+    const float* sc = scalars + static_cast<size_t>(v0) * NS;
+    float* o = out + static_cast<size_t>(v0) * nu * nv;
+    if (vec) {
+      fwd_kernel<true><<<grid, kFwdThreads, kFwdSmem, s>>>(vol, sc, o, nx, ny,
+                                                           nz, nu, nv);
+    } else {
+      fwd_kernel<false><<<grid, kFwdThreads, kFwdSmem, s>>>(vol, sc, o, nx, ny,
+                                                            nz, nu, nv);
+    }
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  return static_cast<int>(cudaGetLastError());
+  return 0;
 }
 
 int slab_plane_adj(const float* g, const float* scalars, float* vol, int V,

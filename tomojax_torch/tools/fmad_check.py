@@ -1,4 +1,4 @@
-"""Do K2, K3 and K5 depend on nvcc contracting multiply-adds? Builds the
+"""Do K1, K2, K3 and K5 depend on nvcc contracting multiply-adds? Builds the
 kernels a second time with the same flags plus ``--fmad=false`` (its own
 nvcc run into ``build/kernels/fmad_check/``, so the default library is
 untouched), runs both builds on the same inputs at 256³, and reports per
@@ -6,8 +6,9 @@ kernel whether the bits match and each build's time.
 
     python -m tomojax_torch.tools.fmad_check [--size 256] [--out fmad.json]
 
-K2 (``slab_plane_adj``) on 180 views over the full circle with ±0.02 rad
-tilts and ±4 px shifts (as ``chip_smoke.py`` phase 3), K3 and K5 on 90
+K1 and K2 (``slab_plane_fwd``, ``slab_plane_adj``) on 180 views over the
+full circle with ±0.02 rad tilts and ±4 px shifts (as ``chip_smoke.py``
+phase 3), K3 and K5 on 90
 views with ±0.5° tilts and ±2 px shifts (phase 5); times are CUDA-event
 means of 5 applies after a warm-up, the builds taken in turns (default,
 no-fma, no-fma, default). Needs a CUDA device.
@@ -29,7 +30,8 @@ from tomojax_torch.kernels import _build
 from tomojax_torch.kernels import slab as slabk
 
 NO_FMAD = (*_build.NVCC_FLAGS, "--fmad=false")
-ENTRIES = ("slab_plane_adj", "slab_arc_fwd", "slab_arc_jac")
+ENTRIES = ("slab_plane_fwd", "slab_plane_adj", "slab_arc_fwd",
+           "slab_arc_jac")
 
 
 def load_no_fmad() -> ctypes.CDLL:
@@ -80,6 +82,9 @@ def apply(lib, entry, geom, grps):
         if entry == "slab_plane_adj":
             inp, out, extra = y, torch.empty(geom.vox_shape,
                                              device=y.device), ()
+        elif entry == "slab_plane_fwd":
+            inp, out, extra = vol_or, torch.empty((V, nu, nv),
+                                                  device=y.device), ()
         else:
             shape = (V, nu, nv) if entry == "slab_arc_fwd" else (
                 V, slabk.NJP, nu, nv)
@@ -116,7 +121,8 @@ def main(argv=None):
     arc = groups(args.size, 90, "arc", np.deg2rad(0.5), 2.0, dev)
     report = {"device": torch.cuda.get_device_name(0), "kernels": {}}
     for name, entry, (geom, grps) in (
-            ("K2", "slab_plane_adj", plane), ("K3", "slab_arc_fwd", arc),
+            ("K1", "slab_plane_fwd", plane), ("K2", "slab_plane_adj", plane),
+            ("K3", "slab_arc_fwd", arc),
             ("K5", "slab_arc_jac", arc)):
         a = apply(libs["default"], entry, geom, grps)
         b = apply(libs["no_fmad"], entry, geom, grps)

@@ -18,10 +18,13 @@ script exits non-zero:
    that the staged march replaced (NVIDIA H100 80GB HBM3 at 700 W).
 4. Main path through the CLI (BASELINE config 3 on slab_plane):
    ``simulate`` 256³/180 views with ±4 px shifts, then ``reconstruct``
-   with COM pre-alignment + 60 CGLS iterations, and a second CGLS run on
-   the dataset's true views. rel-L2 against the phantom must not rise
-   from iteration 20 to 40 to 60, the true-views run must end at ≤ 0.25,
-   and both kernels' launch counters must have risen in this phase.
+   with COM pre-alignment + 60 CGLS iterations, a second CGLS run on the
+   dataset's true views and a third with the FFT cross-correlation chain
+   (``--pre-align cc``). rel-L2 against the phantom must not rise from
+   iteration 20 to 40 to 60 (the CC run: must fall from 20 to 60, and end
+   at ≤ 0.30), the true-views run must end at ≤ 0.25, the CC residual's
+   mean |tx| and |tz| must be ≤ 0.5 px, both kernels' launch counters must
+   have risen in this phase and in the CC run.
 5. The arc kernels K3/K4/K5 against their plain versions, fp32, at 256³ ×
    90 jittered views (full circle, ±0.5° tilts, ±2 px shifts) × 256²
    detector with at least four orientation groups: K3 per-view relative
@@ -76,6 +79,32 @@ script exits non-zero:
    at most half their start values, the α and β mean errors below their
    start values, and K7 and K8 must have launched in this phase (K9 not).
 
+9. BASELINE config 2 (``tomojax_torch/tools/config2.py`` at its
+   defaults): 128³, 180 views, slab_plane, SIRT 100 with positivity and
+   FISTA-TV 60 (step by power iteration, β_tv 2, 20 prox iterations) on
+   clean and 1%-noisy data: SIRT ≤ 0.235 and FISTA-TV ≤ 0.10 and below
+   its SIRT, clean and noisy (the JAX record: 0.2214 / 0.2216 and
+   0.0788 / 0.0795); then ``cli reconstruct`` with ``tikhonov``,
+   ``lasso`` and ``fista_tv`` for 10 iterations on the clean data, each
+   volume finite and its rel-L2 falling; K1 and K2 launched, then held
+   against their plain versions at config 2's shapes with phase 3's
+   tolerances, two applies of each bit-identical.
+10. BASELINE config 1 and the exact ray family: ``cli simulate`` with the
+   default family (ray) at 64³ × 90 views; ``tomojax_torch/tools/
+   config1.py`` at its defaults (ray and slab, CGLS 50 each on its own
+   data): each rel-L2 ≤ 0.25 (the JAX record: slab 0.185); K3 and K4
+   launched, then held against their plain versions at config 1's shapes
+   and jittered views with phase 5's tolerances, two applies of each
+   bit-identical. The ray A on the card (fp32) against float64 on the CPU
+   (per-view relative L2 ≤ 1e-5; also the simulated dataset, ≤ 1e-6),
+   its adjoint identity (≤ 1e-5), the max abs difference of two Aᵀ
+   (``index_add_``'s float atomics; printed, not bounded) and the time
+   per A and Aᵀ.
+
+The JSON line's launches count phase 4 for K1/K2 (all three CGLS runs
+and ``simulate``), phase 6 for K3-K6 and phase 8 for K7-K9; phases 9 and
+10 print their own.
+
 Every kernel's entry in the JSON line carries its time, its plain
 version's, the time of one PyTorch call computing the same function where
 there is one (``library_ms``, else null), and its bound: the larger of
@@ -108,6 +137,7 @@ from tomojax_torch.core.operators import make_operator
 from tomojax_torch.kernels import _build
 from tomojax_torch.kernels import resample as rs
 from tomojax_torch.kernels import slab as slabk
+from tomojax_torch.tools import config1, config2
 from tomojax_torch.utils import io
 
 N, N_PROJ, SEED = 256, 180, 0
@@ -116,6 +146,13 @@ TOL_FWD = TOL_ADJ = 5e-4
 TOL_DOT = 1e-5
 TOL_JAC = 2e-3
 REL_L2_TRUE_MAX = 0.25
+REL_L2_CC_MAX = 0.30       # config 3, CC-chain pre-alignment, CGLS 60
+CC_RESID_MAX = 0.5         # px, mean |t - t_true| per axis after CC
+C2_SIRT_MAX = 0.235        # config 2 (reference: 0.2214 / 0.2216)
+C2_FISTA_MAX = 0.10        # config 2 (reference: 0.0788 / 0.0795)
+C1_REL_L2_MAX = 0.25       # config 1, each family (reference: slab 0.185)
+TOL_RAY = 1e-5             # ray family: per-view rel L2 vs float64, and
+                           # the adjoint identity
 C4_REL_L2_MAX = 0.21       # config 4, outer 5 (reference: 0.193 plane,
                            # 0.180 arc)
 C4_T_MAX = 0.05            # px, gauge-corrected max |tx|, |tz| error
@@ -197,6 +234,64 @@ def reset_counts():
         fn.launches = 0
 
 
+def per_view_rel(ker, ref):
+    return (torch.linalg.norm(ker - ref, dim=(-2, -1))
+            / torch.linalg.norm(ref, dim=(-2, -1)))
+
+
+def slab_groups(geom, views, vol, quad, dev):
+    """Per orientation group of ``views``: the oriented volume, the group's
+    scalars and a seeded random cotangent (V, nu, nv)."""
+    gstruct, scalars = sp.scalar_groups(geom, views, quad, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    nu, nv = geom.det_shape
+    return [(sp.orient_volume(vol, geom, sw, yf).contiguous(), sc,
+             torch.randn((len(idx), nu, nv), generator=gen, device=dev))
+            for (idx, sw, yf, _), sc in zip(gstruct, scalars)]
+
+
+def pair_errors(groups, geom, quad):
+    """The slab forward kernel (K1 plane, K3 arc) and its transpose (K2,
+    K4) against their plain versions on every group, after checking that
+    two applies of each are bit-identical: max per-view rel L2 and max abs
+    of the forward, max rel L2 and max abs of the transpose, and the max
+    adjoint identity |<Kx,y>-<x,Kᵀy>|/(|Kx||y|) in float64."""
+    fwd, adj = ((slabk.slab_plane_fwd, slabk.slab_plane_adj)
+                if quad == "plane" else
+                (slabk.slab_arc_fwd, slabk.slab_arc_adj))
+    err = {k: [] for k in ("fwd_rel", "fwd_abs", "adj_rel", "adj_abs",
+                           "dot")}
+    for vol_or, sc, y in groups:
+        ker = fwd(vol_or, sc, geom)
+        check(torch.equal(ker, fwd(vol_or, sc, geom)),
+              f"two {quad} forward applies differ")
+        ref = slabk.slab_project_plain(vol_or, sc, geom, quad)
+        err["fwd_rel"].append(float(per_view_rel(ker, ref).max()))
+        err["fwd_abs"].append(float((ker - ref).abs().max()))
+        del ref
+        kadj = adj(y, sc, geom)
+        check(torch.equal(kadj, adj(y, sc, geom)),
+              f"two {quad} transpose applies differ")
+        radj = slabk.slab_backproject_plain(y, sc, geom, quad)
+        err["adj_rel"].append(float(torch.linalg.norm(kadj - radj)
+                                    / torch.linalg.norm(radj)))
+        err["adj_abs"].append(float((kadj - radj).abs().max()))
+        lhs = torch.dot(ker.double().reshape(-1), y.double().reshape(-1))
+        rhs = torch.dot(vol_or.double().reshape(-1),
+                        kadj.double().reshape(-1))
+        err["dot"].append(float(abs(lhs - rhs) / (
+            torch.linalg.norm(ker.double()) * torch.linalg.norm(y.double()))))
+        del ker, kadj, radj
+    return {k: max(v) for k, v in err.items()}
+
+
+def check_pair(e, fwd_name, adj_name):
+    check(e["fwd_rel"] <= TOL_FWD, f"{fwd_name} rel L2 {e['fwd_rel']}")
+    check(e["adj_rel"] <= TOL_ADJ, f"{adj_name} rel L2 {e['adj_rel']}")
+    check(e["dot"] <= TOL_DOT,
+          f"{fwd_name}/{adj_name} adjoint identity {e['dot']}")
+
+
 def phase_kernels(dev):
     """K1/K2 against their plain versions at the main path's shapes."""
     rng = np.random.default_rng(SEED)
@@ -206,47 +301,17 @@ def phase_kernels(dev):
         alpha=rng.uniform(-0.02, 0.02, N_PROJ),
         beta=rng.uniform(-0.02, 0.02, N_PROJ),
         t=rng.uniform(-4, 4, (N_PROJ, 3)), device=dev)
-    gstruct, scalars = sp.scalar_groups(geom, views, device=dev)
-    check(len(gstruct) == 4, f"expected 4 orientation groups: {gstruct}")
     vol = torch.as_tensor(phantom.shepp3d(N), device=dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    nu, nv = geom.det_shape
-    groups = []
-    for (idx, sw, yf, uf), sc in zip(gstruct, scalars):
-        vol_or = sp.orient_volume(vol, geom, sw, yf).contiguous()
-        y = torch.randn((len(idx), nu, nv), generator=gen, device=dev)
-        groups.append((vol_or, sc, y))
-
-    fwd_rel, fwd_abs, adj_rel, adj_abs, dot_rel = [], [], [], [], []
-    for vol_or, sc, y in groups:
-        ker = slabk.slab_plane_fwd(vol_or, sc, geom)
-        ref = slabk.slab_project_plain(vol_or, sc, geom)
-        fwd_rel.append(float((torch.linalg.norm(ker - ref, dim=(1, 2))
-                              / torch.linalg.norm(ref, dim=(1, 2))).max()))
-        fwd_abs.append(float((ker - ref).abs().max()))
-        check(torch.equal(ker, slabk.slab_plane_fwd(vol_or, sc, geom)),
-              "two K1 applies differ")
-        kadj = slabk.slab_plane_adj(y, sc, geom)
-        check(torch.equal(kadj, slabk.slab_plane_adj(y, sc, geom)),
-              "two K2 applies differ")
-        radj = slabk.slab_backproject_plain(y, sc, geom)
-        adj_rel.append(float(torch.linalg.norm(kadj - radj)
-                             / torch.linalg.norm(radj)))
-        adj_abs.append(float((kadj - radj).abs().max()))
-        lhs = torch.dot(ker.double().reshape(-1), y.double().reshape(-1))
-        rhs = torch.dot(vol_or.double().reshape(-1),
-                        kadj.double().reshape(-1))
-        scale = torch.linalg.norm(ker.double()) * torch.linalg.norm(
-            y.double())
-        dot_rel.append(float(abs(lhs - rhs) / scale))
-        del ker, ref, kadj, radj
-    print(f"K1 vs plain: max per-view rel L2 {max(fwd_rel):.3e} "
-          f"(tol {TOL_FWD}), max abs {max(fwd_abs):.3e}")
-    print(f"K2 vs plain vjp: max rel L2 {max(adj_rel):.3e} (tol {TOL_ADJ}), "
-          f"max abs {max(adj_abs):.3e}; two applies of K1 and of K2 "
+    groups = slab_groups(geom, views, vol, "plane", dev)
+    check(len(groups) == 4, f"expected 4 orientation groups: {len(groups)}")
+    e = pair_errors(groups, geom, "plane")
+    print(f"K1 vs plain: max per-view rel L2 {e['fwd_rel']:.3e} "
+          f"(tol {TOL_FWD}), max abs {e['fwd_abs']:.3e}")
+    print(f"K2 vs plain vjp: max rel L2 {e['adj_rel']:.3e} (tol {TOL_ADJ}), "
+          f"max abs {e['adj_abs']:.3e}; two applies of K1 and of K2 "
           "bit-identical")
     print(f"adjoint identity |<K1x,y>-<x,K2y>|/(|K1x||y|): max "
-          f"{max(dot_rel):.3e} (tol {TOL_DOT})")
+          f"{e['dot']:.3e} (tol {TOL_DOT})")
 
     def fwd(fn):
         return lambda: [fn(vo, sc, geom) for vo, sc, _ in groups]
@@ -272,7 +337,7 @@ def phase_kernels(dev):
           f"({t['bound'][1]}) and the one-thread-per-ray "
           f"{EARLIER_MS['plane_fwd']:.3f} ms")
 
-    op = make_operator(geom, views, device=dev)
+    op = make_operator(geom, views, family="slab_plane", device=dev)
     sino = op.A(vol)
     t_A = cuda_ms(lambda: op.A(vol), 5)
     t_AT = cuda_ms(lambda: op.AT(sino), 5)
@@ -280,10 +345,8 @@ def phase_kernels(dev):
           f"fwd+adjoint {N_PROJ / ((t_A + t_AT) / 1e3):.1f} proj/s "
           f"({N}^3, {N_PROJ} views, slab_plane)")
 
-    check(max(fwd_rel) <= TOL_FWD, f"K1 rel L2 {max(fwd_rel)}")
-    check(max(adj_rel) <= TOL_ADJ, f"K2 rel L2 {max(adj_rel)}")
-    check(max(dot_rel) <= TOL_DOT, f"adjoint identity {max(dot_rel)}")
-    return {"fwd_abs": max(fwd_abs), "adj_abs": max(adj_abs), **t}
+    check_pair(e, "K1", "K2")
+    return {"fwd_abs": e["fwd_abs"], "adj_abs": e["adj_abs"], **t}
 
 
 def phase_main_path(tmp):
@@ -302,14 +365,19 @@ def phase_main_path(tmp):
               "--set", "simulate.max_angle_deg=0", "-o", data])
     torch.cuda.synchronize()
     t_sim = time.perf_counter() - t0
-    runs = {}
-    for name, extra in (("com", ["--pre-align", "com"]), ("true", [])):
+    runs, resid, run_launches = {}, {}, {}
+    for name, extra in (("com", ["--pre-align", "com"]), ("true", []),
+                        ("cc", ["--pre-align", "cc"])):
         out = os.path.join(tmp, f"recon_{name}.npy")
+        before = (slabk.slab_plane_fwd.launches,
+                  slabk.slab_plane_adj.launches)
         t0 = time.perf_counter()
         r = cli.main(["reconstruct", "-i", data, "-o", out, *common,
                       *extra])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        run_launches[name] = (slabk.slab_plane_fwd.launches - before[0],
+                              slabk.slab_plane_adj.launches - before[1])
         res = r["result"]
         x = np.load(out)
         check(x.shape == (N, N, N) and np.isfinite(x).all(),
@@ -321,27 +389,34 @@ def phase_main_path(tmp):
         line = (f"CGLS {name}: rel-L2 @20/40/60 "
                 f"{rel[0]:.4f}/{rel[1]:.4f}/{rel[2]:.4f}, wall {wall:.2f} s")
         if "pre_align_residual" in r:
-            (txm, txx), (tzm, tzx) = (r["pre_align_residual"]["tx"],
-                                      r["pre_align_residual"]["tz"])
-            line += (f"; COM residual tx {txm:.4f}/{txx:.4f} "
+            resid[name] = (txm, txx), (tzm, tzx) = (
+                r["pre_align_residual"]["tx"], r["pre_align_residual"]["tz"])
+            line += (f"; {name.upper()} residual tx {txm:.4f}/{txx:.4f} "
                      f"tz {tzm:.4f}/{tzx:.4f} px (mean/max)")
         print(line)
-        check(rel[0] >= rel[1] >= rel[2], f"{name}: rel-L2 rose {rel}")
+        # with the CC chain's residual misalignment CGLS semi-converges: its
+        # bar is a fall from 20 to 60 iterations
+        check(rel[2] < rel[0] if name == "cc" else
+              rel[0] >= rel[1] >= rel[2], f"{name}: rel-L2 rose {rel}")
     print(f"simulate wall {t_sim:.2f} s")
     launches = {"fwd": slabk.slab_plane_fwd.launches,
                 "adj": slabk.slab_plane_adj.launches}
     print(f"main-path kernel launches: K1 {launches['fwd']}, "
           f"K2 {launches['adj']}")
+    print(f"CC run kernel launches: K1 {run_launches['cc'][0]}, "
+          f"K2 {run_launches['cc'][1]}")
     check(runs["true"][2] <= REL_L2_TRUE_MAX,
           f"true-views rel-L2 {runs['true'][2]} > {REL_L2_TRUE_MAX}")
+    check(runs["cc"][2] <= REL_L2_CC_MAX,
+          f"CC rel-L2 {runs['cc'][2]} > {REL_L2_CC_MAX}")
+    (txm, _), (tzm, _) = resid["cc"]
+    check(txm <= CC_RESID_MAX and tzm <= CC_RESID_MAX,
+          f"CC mean residual tx {txm} tz {tzm} > {CC_RESID_MAX} px")
+    check(min(run_launches["cc"]) > 0,
+          f"the CC run did not launch K1 and K2: {run_launches['cc']}")
     check(launches["fwd"] > 0 and launches["adj"] > 0,
           f"main path did not launch both kernels: {launches}")
     return launches
-
-
-def per_view_rel(ker, ref):
-    return (torch.linalg.norm(ker - ref, dim=(-2, -1))
-            / torch.linalg.norm(ref, dim=(-2, -1)))
 
 
 def phase_arc_kernels(dev):
@@ -355,41 +430,15 @@ def phase_arc_kernels(dev):
         alpha=rng.uniform(-amax, amax, N_ARC),
         beta=rng.uniform(-amax, amax, N_ARC),
         t=rng.uniform(-2, 2, (N_ARC, 3)), device=dev)
-    gstruct, scalars = sp.scalar_groups(geom, views, "arc", device=dev)
-    check(len(gstruct) >= 4, f"expected >= 4 orientation groups: {gstruct}")
     vol = torch.as_tensor(phantom.shepp3d(N), device=dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    nu, nv = geom.det_shape
-    groups = []
-    for (idx, sw, yf, uf), sc in zip(gstruct, scalars):
-        vol_or = sp.orient_volume(vol, geom, sw, yf).contiguous()
-        y = torch.randn((len(idx), nu, nv), generator=gen, device=dev)
-        groups.append((vol_or, sc, y))
-
-    err = {k: [] for k in ("fwd_rel", "fwd_abs", "adj_rel", "adj_abs",
-                           "dot", "jac_abs", "field_abs")}
+    groups = slab_groups(geom, views, vol, "arc", dev)
+    check(len(groups) >= 4, f"expected >= 4 orientation groups: "
+          f"{len(groups)}")
+    e = pair_errors(groups, geom, "arc")
+    err = {k: [] for k in ("jac_abs", "field_abs")}
     jac_rel = torch.zeros(slabk.NJP, dtype=torch.float64)
     t = {"jac_plain": 0.0}
     for vol_or, sc, y in groups:
-        ker = slabk.slab_arc_fwd(vol_or, sc, geom)
-        ref = slabk.slab_project_plain(vol_or, sc, geom, "arc")
-        err["fwd_rel"].append(float(per_view_rel(ker, ref).max()))
-        err["fwd_abs"].append(float((ker - ref).abs().max()))
-        kadj = slabk.slab_arc_adj(y, sc, geom)
-        check(torch.equal(kadj, slabk.slab_arc_adj(y, sc, geom)),
-              "two K4 applies differ")
-        radj = slabk.slab_backproject_plain(y, sc, geom, "arc")
-        err["adj_rel"].append(float(torch.linalg.norm(kadj - radj)
-                                    / torch.linalg.norm(radj)))
-        err["adj_abs"].append(float((kadj - radj).abs().max()))
-        lhs = torch.dot(ker.double().reshape(-1), y.double().reshape(-1))
-        rhs = torch.dot(vol_or.double().reshape(-1),
-                        kadj.double().reshape(-1))
-        err["dot"].append(float(abs(lhs - rhs) / (
-            torch.linalg.norm(ker.double()) * torch.linalg.norm(y.double()))))
-        check(torch.equal(ker, slabk.slab_arc_fwd(vol_or, sc, geom)),
-              "two K3 applies differ")
-        del ker, ref, kadj, radj
         kj = slabk.slab_project_jac(vol_or, sc, geom)
         check(torch.equal(kj, slabk.slab_project_jac(vol_or, sc, geom)),
               "two K5 applies differ")
@@ -406,14 +455,14 @@ def phase_arc_kernels(dev):
         del kj, rj
     fields = dict(zip(slabk.JAC_PASSES, (f"{v:.2e}" for v in jac_rel)))
     div_bad = march_division_mismatches(
-        torch.cat([sc[:, sp.S_EDY] for sc in scalars]), dev)
-    print(f"K3 vs plain: max per-view rel L2 {max(err['fwd_rel']):.3e} "
-          f"(tol {TOL_FWD}), max abs {max(err['fwd_abs']):.3e}")
-    print(f"K4 vs plain vjp: max rel L2 {max(err['adj_rel']):.3e} "
-          f"(tol {TOL_ADJ}), max abs {max(err['adj_abs']):.3e}; two applies "
+        torch.cat([sc[:, sp.S_EDY] for _, sc, _ in groups]), dev)
+    print(f"K3 vs plain: max per-view rel L2 {e['fwd_rel']:.3e} "
+          f"(tol {TOL_FWD}), max abs {e['fwd_abs']:.3e}")
+    print(f"K4 vs plain vjp: max rel L2 {e['adj_rel']:.3e} "
+          f"(tol {TOL_ADJ}), max abs {e['adj_abs']:.3e}; two applies "
           "bit-identical")
     print(f"arc adjoint identity |<K3x,y>-<x,K4y>|/(|K3x||y|): max "
-          f"{max(err['dot']):.3e} (tol {TOL_DOT})")
+          f"{e['dot']:.3e} (tol {TOL_DOT})")
     print(f"K5 vs 12 plain passes: max per-view rel L2 per field {fields} "
           f"(tol {TOL_JAC}), max abs {max(err['jac_abs']):.3e}")
     print("single-field entry (K6): all 11 derivative fields bit-equal to "
@@ -451,13 +500,10 @@ def phase_arc_kernels(dev):
         print(f"{label} per orientation group: {', '.join(per_group)}; "
               f"apply {t[k]:.3f} ms vs bound {bnd[0]:.3f} ms ({bnd[1]}) and "
               f"the one-thread-per-ray {EARLIER_MS[k]:.3f} ms")
-    check(max(err["fwd_rel"]) <= TOL_FWD, f"K3 rel L2 {max(err['fwd_rel'])}")
-    check(max(err["adj_rel"]) <= TOL_ADJ, f"K4 rel L2 {max(err['adj_rel'])}")
-    check(max(err["dot"]) <= TOL_DOT,
-          f"arc adjoint identity {max(err['dot'])}")
+    check_pair(e, "K3", "K4")
     check(float(jac_rel.max()) <= TOL_JAC, f"K5 fields {fields}")
     check(div_bad == 0, f"march division differs on {div_bad} quotients")
-    return {"fwd_abs": max(err["fwd_abs"]), "adj_abs": max(err["adj_abs"]),
+    return {"fwd_abs": e["fwd_abs"], "adj_abs": e["adj_abs"],
             "jac_abs": max(err["jac_abs"]),
             "field_abs": max(err["field_abs"]), **t}
 
@@ -891,6 +937,146 @@ def phase_fast_align(tmp, dev, n=N, n_proj=N_FAST, outers=FAST_OUTERS):
     return launches, wall
 
 
+def phase_config2(tmp, dev, n=128, n_proj=180):
+    """BASELINE config 2 through ``tools/config2`` at its defaults, and the
+    CLI's regularized solvers for 10 iterations on its clean data."""
+    reset_counts()
+    t0 = time.perf_counter()
+    rec = config2.main(["--device", str(dev), "--size", str(n), "--views",
+                        str(n_proj)])
+    wall = time.perf_counter() - t0
+    runs = rec["runs"]
+    for name, r in runs.items():
+        print(f"config 2 {name}: rel-L2 {r['rel_l2_vs_phantom']:.4f}, "
+              f"{r['iters_run']} iterations, wall {r['wall_s']:.2f} s")
+    print(f"config 2 wall: {wall:.2f} s (tools/config2, {n}^3, {n_proj} "
+          "views)")
+    for label in ("clean", "noisy"):
+        sirt_rel = runs[f"sirt_{label}"]["rel_l2_vs_phantom"]
+        fista_rel = runs[f"fista_tv_{label}"]["rel_l2_vs_phantom"]
+        check(sirt_rel <= C2_SIRT_MAX,
+              f"config 2 SIRT {label} rel-L2 {sirt_rel} > {C2_SIRT_MAX}")
+        check(fista_rel <= C2_FISTA_MAX and fista_rel < sirt_rel,
+              f"config 2 FISTA-TV {label} rel-L2 {fista_rel} (bar "
+              f"{C2_FISTA_MAX}, SIRT {sirt_rel})")
+
+    data = os.path.join(tmp, "config2.npz")
+    cli.main(["simulate", "--size", str(n), "--views", str(n_proj),
+              "--set", "simulate.family=slab_plane",
+              "--set", "simulate.max_shift_px=0",
+              "--set", "simulate.max_angle_deg=0", "-o", data,
+              "--device", str(dev)])
+    for method in ("tikhonov", "lasso", "fista_tv"):
+        out = os.path.join(tmp, f"c2_{method}.npy")
+        t0 = time.perf_counter()
+        r = cli.main(["reconstruct", "-i", data, "-o", out,
+                      "--set", "solver.family=slab_plane",
+                      "--set", f"solver.method={method}",
+                      "--set", "solver.niter=10", "--device", str(dev)])
+        torch.cuda.synchronize()
+        res, x = r["result"], np.load(out)
+        k = int(res.n_iter)
+        rms = [float(res.rms_error[0]), float(res.rms_error[k - 1])]
+        print(f"config 2 cli {method}: {k} iterations, rel-L2 "
+              f"{rms[0]:.4f} -> {rms[1]:.4f}, stop {res.stop_reason}, wall "
+              f"{time.perf_counter() - t0:.2f} s")
+        check(x.shape == (n,) * 3 and np.isfinite(x).all(),
+              f"cli {method}: volume shape {x.shape} or non-finite values")
+        check(k >= 2 and rms[1] < rms[0], f"cli {method}: rms {rms}")
+    launches = (slabk.slab_plane_fwd.launches, slabk.slab_plane_adj.launches)
+    # the kernels against their plain versions at config 2's own shapes,
+    # after the counts are read
+    geom, vol_np, views = config2.problem(n, n_proj)
+    groups = slab_groups(geom, views, torch.as_tensor(vol_np, device=dev),
+                         "plane", dev)
+    e = pair_errors(groups, geom, "plane")
+    print(f"config-2 kernel launches: K1 {launches[0]}, K2 {launches[1]}; "
+          f"at its shapes ({n}^3, {n_proj} views, {len(groups)} orientation "
+          f"groups) K1 vs plain max per-view rel L2 {e['fwd_rel']:.3e} (tol "
+          f"{TOL_FWD}), K2 {e['adj_rel']:.3e} (tol {TOL_ADJ}), adjoint "
+          f"identity {e['dot']:.3e} (tol {TOL_DOT}), two applies "
+          "bit-identical")
+    check(min(launches) > 0, f"config 2 did not launch K1 and K2: {launches}")
+    check_pair(e, "K1", "K2")
+
+
+def phase_config1(tmp, dev, n=64, n_proj=90):
+    """BASELINE config 1 and the exact ray family: ``cli simulate`` with
+    its default family, ``tools/config1`` at its defaults (ray and slab),
+    and the ray A/Aᵀ at 64³ × 90 views against float64 on the CPU."""
+    reset_counts()
+    data = os.path.join(tmp, "config1.npz")
+    t0 = time.perf_counter()
+    cli.main(["simulate", "--size", str(n), "--views", str(n_proj), "-o",
+              data, "--device", str(dev)])
+    torch.cuda.synchronize()
+    print(f"config 1 cli simulate (default family: ray, {n}^3, {n_proj} "
+          f"views): {time.perf_counter() - t0:.2f} s")
+    rec = config1.main(["--device", str(dev), "--size", str(n), "--views",
+                        str(n_proj)])
+    for fam, r in rec["families"].items():
+        print(f"config 1 {fam}: gen {r['gen_s']:.3f} s, CGLS "
+              f"{r['cgls_iters_run']} iterations {r['cgls_s']:.2f} s, "
+              f"rel-L2 {r['recon_rel_l2_vs_phantom']:.4f}, final rms "
+              f"{r['final_rms']:.5f}")
+        check(r["recon_rel_l2_vs_phantom"] <= C1_REL_L2_MAX,
+              f"config 1 {fam} rel-L2 {r['recon_rel_l2_vs_phantom']} > "
+              f"{C1_REL_L2_MAX}")
+    launches = (slabk.slab_arc_fwd.launches, slabk.slab_arc_adj.launches)
+    # the kernels against their plain versions at config 1's own shapes
+    # (its jittered views), after the counts are read
+    geom, vol_np, views = config1.problem(n, n_proj)
+    groups = slab_groups(geom, views, torch.as_tensor(vol_np, device=dev),
+                         "arc", dev)
+    e = pair_errors(groups, geom, "arc")
+    print(f"config-1 kernel launches: K3 {launches[0]}, K4 {launches[1]}; "
+          f"at its shapes ({n}^3, {n_proj} views, {len(groups)} orientation "
+          f"groups) K3 vs plain max per-view rel L2 {e['fwd_rel']:.3e} (tol "
+          f"{TOL_FWD}), K4 {e['adj_rel']:.3e} (tol {TOL_ADJ}), adjoint "
+          f"identity {e['dot']:.3e} (tol {TOL_DOT}), two applies "
+          "bit-identical")
+    check(min(launches) > 0, f"config 1 did not launch K3 and K4: {launches}")
+    check_pair(e, "K3", "K4")
+
+    d = io.load_dataset(data)
+    n_proj, nu, nv = d["projections"].shape
+    geom = Geometry(n_proj=n_proj, vox_shape=d["phantom"].shape,
+                    det_shape=(nu, nv))
+    views = io.views_from_dataset(d)
+    op = make_operator(geom, views, device=dev)
+    vol = torch.as_tensor(d["phantom"], device=dev)
+    sino = op.A(vol)
+    stored = torch.as_tensor(d["projections"]).reshape(n_proj, -1)
+    check(op.family == "ray" and float(torch.linalg.norm(sino.cpu() - stored)
+                                       / torch.linalg.norm(stored)) <= 1e-6,
+          "cli simulate's projections differ from the ray operator's A")
+    t0 = time.perf_counter()
+    ref = make_operator(geom, views, dtype=torch.float64, device="cpu").A(
+        torch.as_tensor(d["phantom"], dtype=torch.float64))
+    cpu_s = time.perf_counter() - t0
+    rel = float(per_view_rel(sino.cpu().double().reshape(n_proj, nu, nv),
+                             ref.reshape(n_proj, nu, nv)).max())
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    y = torch.randn((n_proj, nu * nv), generator=gen, device=dev)
+    aty = op.AT(y)
+    repeat = float((op.AT(y) - aty).abs().max())
+    lhs = torch.dot(sino.double().reshape(-1), y.double().reshape(-1))
+    rhs = torch.dot(vol.double().reshape(-1), aty.double().reshape(-1))
+    dot = float(abs(lhs - rhs) / (torch.linalg.norm(sino.double())
+                                  * torch.linalg.norm(y.double())))
+    t_A = cuda_ms(lambda: op.A(vol), 3)
+    t_AT = cuda_ms(lambda: op.AT(y), 3)
+    print(f"ray A (fp32, card) vs float64 CPU: max per-view rel L2 "
+          f"{rel:.3e} (tol {TOL_RAY}; CPU A {cpu_s:.2f} s)")
+    print(f"ray adjoint identity |<Ax,y>-<x,ATy>|/(|Ax||y|): {dot:.3e} "
+          f"(tol {TOL_RAY}); two card AT applies differ by max abs "
+          f"{repeat:.3e} (float atomics)")
+    print(f"ray A {t_A:.3f} ms, AT {t_AT:.3f} ms per apply ({n}^3, "
+          f"{n_proj} views)")
+    check(rel <= TOL_RAY, f"ray A vs float64: {rel}")
+    check(dot <= TOL_RAY, f"ray adjoint identity {dot}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; "
@@ -916,6 +1102,8 @@ def main():
         arc_launches = phase_config4(tmp, dev)
         kr = phase_resample(dev)
         fast_launches, _ = phase_fast_align(tmp, dev)
+        phase_config2(tmp, dev)
+        phase_config1(tmp, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -191,10 +191,10 @@ def test_align_slab_plane_sirt_runs(prob):
 
 
 @pytest.mark.parametrize("kw, match", [
-    (dict(family="ray"), "item 12"),
+    (dict(family="ray"), "item 10"),
     (dict(family="voxel"), "item 15"),
     (dict(refine_method="lm"), "item 14"),
-    (dict(debias_period=1), "item 12"),
+    (dict(debias_period=1), "item 10"),
     (dict(recon_prec="bf16"), "Queue 3"),
 ])
 def test_unported_options_raise(prob, kw, match):

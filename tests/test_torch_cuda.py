@@ -1,5 +1,6 @@
 """The CUDA kernels K1-K5, K7 and K8 against their plain PyTorch versions,
-on the card.
+on the card, and the plain-PyTorch modules (cross-correlation, the
+regularized solvers, the exact ray family) on the card against the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 no JAX, so on the card it runs without the JAX conftest:
@@ -20,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from tomojax_torch.align import cc
 from tomojax_torch.align.refine import gradient_descent_views
 from tomojax_torch.align.slab_refine import refine_views_slab
 from tomojax_torch.core import fast_projector as fastp
@@ -30,7 +32,8 @@ from tomojax_torch.core.operators import make_operator
 from tomojax_torch.kernels import _build
 from tomojax_torch.kernels import resample as rs
 from tomojax_torch.kernels import slab as slabk
-from tomojax_torch.recon import cgls
+from tomojax_torch.recon import cgls, fista_tv, lasso_fista, tikhonov_gd
+from tomojax_torch.recon.fista_tv import estimate_lipschitz
 
 pytestmark = pytest.mark.cuda
 
@@ -136,7 +139,7 @@ def test_cgls_on_card_tracks_cpu(cuda):
     geom, views, vol, _ = _problem(n=32, n_proj=16)
     runs = []
     for dev in ("cpu", cuda):
-        op = make_operator(geom, views, device=dev)
+        op = make_operator(geom, views, family="slab_plane", device=dev)
         b = op.A(torch.as_tensor(vol, device=dev))
         runs.append(cgls(op, b, niter=8, ground_truth=vol))
     cpu, card = runs
@@ -749,3 +752,94 @@ def test_gd_fast_on_card_tracks_cpu(cuda):
     assert rs.resample_transpose.launches > before
     err = (card.theta6.cpu().double() - cpu.theta6).abs().max()
     assert float(err) <= 1e-3, err
+
+
+def test_cc_chain_on_card_tracks_cpu(cuda):
+    """float32 on the card against float32 on the CPU: each offset within
+    one upsampled step (a near-tie of the upsampled correlation may pick a
+    neighbouring grid point)."""
+    u = 20
+    img = torch.as_tensor(phantom.shepp3d(64)[:, 32, :], dtype=torch.float64)
+    rng = np.random.default_rng(0)
+    s = torch.as_tensor(rng.uniform(-3, 3, (12, 2)))
+    stack = cc.fourier_shift(img.expand(12, -1, -1), -s).float()
+    cpu, _ = cc.cross_correlation_chain(stack, upsample_factor=u)
+    card, aligned = cc.cross_correlation_chain(stack.to(cuda),
+                                               upsample_factor=u)
+    assert card.device.type == aligned.device.type == cuda.type
+    assert aligned.shape == stack.shape
+    assert float((card.cpu() - cpu).abs().max()) <= 1.0 / u + 1e-4
+
+
+@pytest.mark.parametrize("solver", ["fista_tv", "tikhonov", "lasso"])
+def test_regularized_solvers_on_card_track_cpu(cuda, solver):
+    geom, views, vol, _ = _problem(n=32, n_proj=16)
+    runs, lips = [], []
+    for dev in ("cpu", cuda):
+        op = make_operator(geom, views, family="slab_plane", device=dev)
+        b = op.A(torch.as_tensor(vol, device=dev))
+        if solver == "fista_tv":
+            # each device estimates its own step, from the same start
+            lips.append(float(estimate_lipschitz(op)))
+            res = fista_tv(op, b, niter=8, hyper=None, beta_tv=0.5)
+        elif solver == "tikhonov":
+            res = tikhonov_gd(op, b, niter=8, reg_param=0.5,
+                              positivity=True)
+        else:
+            res = lasso_fista(op, b, niter=8, reg_param=0.05)
+        runs.append(res)
+    cpu, card = runs
+    if lips:
+        assert abs(lips[1] - lips[0]) <= 1e-4 * lips[0], lips
+    assert card.n_iter == cpu.n_iter and card.stop_reason == cpu.stop_reason
+    rel = float(torch.linalg.norm(card.x.cpu() - cpu.x)
+                / torch.linalg.norm(cpu.x))
+    assert rel <= 1e-4, rel
+
+
+def test_align_to_reprojection_on_card_tracks_cpu(cuda):
+    """Out-of-fold (4 folds), 2 rounds at 32³ × 16 views: the card's t
+    within one upsampled step per round of the CPU's."""
+    n, n_proj, u, rounds = 32, 16, 20, 2
+    geom = Geometry(n_proj=n_proj, vox_shape=(n,) * 3, det_shape=(n, n))
+    rng = np.random.default_rng(1)
+    phi = np.linspace(0, np.pi, n_proj, endpoint=False)
+    t = np.zeros((n_proj, 3))
+    t[:, [0, 2]] = rng.uniform(-1.5, 1.5, (n_proj, 2))
+    meas = make_operator(geom, Views.create(n_proj, phi=phi, t=t),
+                         family="slab_plane", device="cpu").A(
+        torch.as_tensor(phantom.shepp3d(n)))
+    out = []
+    for dev in ("cpu", cuda):
+        views, sh = cc.align_to_reprojection(
+            meas.to(dev), geom, Views.create(n_proj, phi=phi, device=dev),
+            rounds=rounds, recon_iters=10, upsample_factor=u, folds=4)
+        out.append(views.t.cpu())
+    assert float((out[1] - out[0]).abs().max()) <= rounds / u + 1e-4
+
+
+def test_ray_operator_on_card_tracks_cpu_float64(cuda):
+    """The ray family's float32 A and Aᵀ on the card against float64 on the
+    CPU, and its adjoint identity on the card."""
+    geom, views, vol, rng = _problem(n=32, n_proj=8)
+    y = rng.standard_normal((8, geom.n_det))
+    ref = make_operator(geom, views, dtype=torch.float64, device="cpu")
+    op = make_operator(geom, views, device=cuda)
+    assert op.family == "ray" and op.device.type == cuda.type
+    x = torch.as_tensor(vol)
+    ax = op.A(x.to(cuda))
+    aty = op.AT(torch.as_tensor(y, dtype=torch.float32, device=cuda))
+    rx = ref.A(x.double())
+    rty = ref.AT(torch.as_tensor(y))
+    rel_a = (torch.linalg.norm(ax.cpu().double() - rx, dim=1)
+             / torch.linalg.norm(rx, dim=1))
+    assert float(rel_a.max()) <= 1e-5, rel_a
+    assert float(torch.linalg.norm(aty.cpu().double() - rty)
+                 / torch.linalg.norm(rty)) <= 1e-5
+    lhs = torch.dot(ax.double().reshape(-1),
+                    torch.as_tensor(y, device=cuda).reshape(-1))
+    rhs = torch.dot(x.double().to(cuda).reshape(-1),
+                    aty.double().reshape(-1))
+    scale = (torch.linalg.norm(ax.double())
+             * float(np.linalg.norm(y)))
+    assert float(abs(lhs - rhs) / scale) <= 1e-5

@@ -133,7 +133,8 @@ def test_cost_gradient_matches_jax_grad(prob):
     th = torch.as_tensor(theta).requires_grad_(True)
     c = trefine.alignment_costs(torch.as_tensor(prob["vol"]),
                                 torch.as_tensor(meas), prob["tg"], th,
-                                torch.as_tensor(cor), dtype=F64)
+                                torch.as_tensor(cor), dtype=F64,
+                                family="fast")
     (g,) = torch.autograd.grad(c.sum(), th)
     np.testing.assert_allclose(c.detach().numpy(), want_c, rtol=1e-10)
     np.testing.assert_allclose(g.numpy(), want_g, rtol=1e-8,
@@ -141,7 +142,8 @@ def test_cost_gradient_matches_jax_grad(prob):
     one = trefine.alignment_cost(torch.as_tensor(prob["vol"]),
                                  torch.as_tensor(meas[3]), prob["tg"],
                                  torch.as_tensor(theta[3]),
-                                 torch.as_tensor(cor[3]), dtype=F64)
+                                 torch.as_tensor(cor[3]), dtype=F64,
+                                 family="fast")
     assert float(one) == pytest.approx(float(want_c[3]), rel=1e-10)
 
 
@@ -168,14 +170,6 @@ def test_fast_family_needs_square_footprint():
     views = Views.create(2, dtype=F64)
     with pytest.raises(ValueError, match="nx == ny"):
         tfp.project(torch.zeros(8, 10, 8, dtype=F64), geom, views, dtype=F64)
-
-
-def test_alignment_cost_other_families_raise(prob):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        trefine.alignment_cost(torch.as_tensor(prob["vol"]),
-                               torch.zeros(256, dtype=F64), prob["tg"],
-                               torch.zeros(6, dtype=F64),
-                               torch.zeros(3, dtype=F64), family="ray")
 
 
 def test_fast_operator_defaults_to_the_card(prob):

@@ -37,11 +37,14 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
 
 
-@pytest.mark.parametrize("kw", [
+GEOMETRIES = [
     dict(n_proj=7, vox_shape=(16, 16, 12), det_shape=(20, 14)),
     dict(n_proj=3, vox_shape=(9, 9, 9), det_shape=(9, 11),
          vox_pix=(0.5, 0.5, 0.75), det_pix=(0.8, 1.1), step_size=0.5),
-])
+]
+
+
+@pytest.mark.parametrize("kw", GEOMETRIES)
 def test_geometry_grids_match(kw):
     jg, tg = jgeo.Geometry(**kw), tgeo.Geometry(**kw)
     assert dataclasses.asdict(jg) == dataclasses.asdict(tg)
@@ -50,6 +53,28 @@ def test_geometry_grids_match(kw):
         assert getattr(jg, name) == getattr(tg, name), name
     np.testing.assert_allclose(tg.vox_origin_np(), jg.vox_origin_np(),
                                rtol=0, atol=1e-14)
+
+
+@pytest.mark.parametrize("kw", GEOMETRIES)
+@pytest.mark.parametrize("name", ["vox_centers", "source_centers",
+                                  "det_centers", "det_grid", "det_orig"])
+def test_ray_family_grids_match(kw, name):
+    """The ray family's host grids equal tomojax's; the tensor accessors
+    carry them in the dtype and on the device asked for."""
+    jg, tg = jgeo.Geometry(**kw), tgeo.Geometry(**kw)
+    want = np.asarray(getattr(jg, name + "_np")())
+    np.testing.assert_array_equal(np.asarray(getattr(tg, name + "_np")()),
+                                  want)
+    if hasattr(tg, name):
+        t = getattr(tg, name)(dtype=torch.float64, device="cpu")
+        assert t.dtype == torch.float64 and t.device.type == "cpu"
+        np.testing.assert_array_equal(t.numpy(), want)
+        assert getattr(tg, name)().dtype == torch.float32
+
+
+@pytest.mark.parametrize("kw", GEOMETRIES)
+def test_factor_matches(kw):
+    assert tgeo.Geometry(**kw).factor == jgeo.Geometry(**kw).factor
 
 
 @pytest.mark.parametrize("name", ["rot_x", "rot_y", "rot_z", "der_rot_x",
@@ -150,7 +175,9 @@ def test_import_loads_no_jax():
         "tomojax_torch.align, tomojax_torch.utils, "
         "tomojax_torch.kernels.slab, tomojax_torch.kernels._build, "
         "tomojax_torch.core.operators, tomojax_torch.align.pipeline, "
-        "tomojax_torch.align.slab_refine\n"
+        "tomojax_torch.align.slab_refine, tomojax_torch.core.projector, "
+        "tomojax_torch.tools.config1, tomojax_torch.tools.config2, "
+        "tomojax_torch.tools.config3\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tomojax'))\n"
@@ -168,6 +195,10 @@ def test_make_operator_cuda_raises_without_card():
         pytest.skip("a CUDA device is present")
     geom = tgeo.Geometry(n_proj=2, vox_shape=(8, 8, 8), det_shape=(8, 8))
     with pytest.raises(RuntimeError, match="cuda"):
-        make_operator(geom, tgeo.Views.create(2), device="cuda")
+        make_operator(geom, tgeo.Views.create(2), family="slab_plane",
+                      device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
-        make_operator(geom, tgeo.Views.create(2))     # default device
+        make_operator(geom, tgeo.Views.create(2),     # default device
+                      family="slab_plane")
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_operator(geom, tgeo.Views.create(2))     # and family (ray)

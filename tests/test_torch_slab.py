@@ -164,7 +164,7 @@ def test_voxel_mask_matches_tomojax(prob):
     assert top.shape == jop.shape and top.vol_shape == jop.vol_shape
 
 
-@pytest.mark.parametrize("family", ["ray", "voxel"])
+@pytest.mark.parametrize("family", ["voxel"])
 def test_unported_families_raise(prob, family):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmake(prob["tg"], prob["tv"], family=family, device="cpu")

@@ -3,11 +3,13 @@ and leave the modules they instrument as they found them."""
 
 import json
 
+import pytest
 import torch
 
 from tomojax_torch import align as ta
 from tomojax_torch.align import pipeline as tp
-from tomojax_torch.tools import config4_floor, config4_profile, k1_split
+from tomojax_torch.tools import (config1, config2, config3, config4_floor,
+                                 config4_profile, k1_split)
 
 torch.set_num_threads(1)
 
@@ -57,3 +59,52 @@ def test_k1_split_variants_apply_to_the_kernel_source():
         out = k1_split.variant_source(name)
         assert out != src, name
         assert "fwd_kernel" in out
+
+
+BASELINE_RUNS = {
+    # tool, extra arguments, {record section: {entry: keys}}
+    "config1": (config1, ["--cgls-iters", "5"], {"families": {
+        fam: ("gen_s", "gen_proj_per_s", "cgls_s", "cgls_iters_run",
+              "recon_rel_l2_vs_phantom", "final_rms")
+        for fam in ("ray", "slab")}}),
+    "config2": (config2, ["--sirt-iters", "5", "--fista-iters", "3"],
+                {"runs": {name: ("wall_s", "iters_run", "rel_l2_vs_phantom",
+                                 "final_rms")
+                          for name in ("sirt_clean", "sirt_noisy",
+                                       "fista_tv_clean", "fista_tv_noisy")}}),
+    "config3": (config3, ["--cgls-iters", "6", "--cgls-chunk", "2"],
+                {"stages": {
+                    **{m: ("raw", "gauge_corrected", "wall_s")
+                       for m in ("com", "cc_chain")},
+                    **{f"cgls_{m}": ("rel_l2", "wall_s")
+                       for m in ("misaligned", "com", "cc", "true")}}}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BASELINE_RUNS))
+def test_baseline_config_tools_write_the_scripts_keys(name, tmp_path):
+    """BASELINE configs 1-3 run on the CPU at 16³ × 8 views and write the
+    keys of their scripts (scripts/config1_64.py, config2_128.py,
+    config3_256.py)."""
+    tool, extra, want = BASELINE_RUNS[name]
+    out = tmp_path / f"{name}.json"
+    rec = tool.main(["--device", "cpu", "--size", "16", "--views", "8",
+                     "--out", str(out), *extra])
+    assert json.loads(out.read_text()) == json.loads(json.dumps(rec))
+    assert rec["device"] == {"type": "cpu", "name": "cpu"}
+    for section, entries in want.items():
+        assert set(entries) <= set(rec[section])
+        for entry, keys in entries.items():
+            got = rec[section][entry]
+            assert set(keys) <= set(got), (entry, sorted(got))
+    if name == "config3":
+        st = rec["stages"]
+        assert "gen_s" in st and rec["total_wall_s"] > 0
+        for m in ("misaligned", "com", "cc", "true"):
+            assert len(st[f"cgls_{m}"]["rel_l2"]) == 3
+    elif name == "config2":
+        assert rec["gen_s"] > 0 and rec["total_wall_s"] > 0
+        assert rec["runs"]["sirt_clean"]["iters_run"] == 5
+    else:
+        for r in rec["families"].values():
+            assert r["cgls_iters_run"] == 5 and r["recon_rel_l2_vs_phantom"] < 1

@@ -1,9 +1,19 @@
-from tomojax_torch.align.cc import com_align, moment_match
+from tomojax_torch.align.cc import (
+    phase_cross_correlation, cor_flipping, cross_correlation_chain,
+    com_align, moment_match, align_to_reprojection,
+    cross_correlation_filtered, fourier_shift,
+)
 from tomojax_torch.align.pipeline import (AlignState, align_reconstruct,
                                           load_checkpoint, save_checkpoint)
-from tomojax_torch.align.refine import PARAM_SETS, RefineResult
+from tomojax_torch.align.refine import (PARAM_SETS, RefineResult,
+                                        alignment_cost,
+                                        gradient_descent_view)
 from tomojax_torch.align.slab_refine import refine_views_slab
 
-__all__ = ["com_align", "moment_match", "AlignState", "align_reconstruct",
+__all__ = ["phase_cross_correlation", "cor_flipping",
+           "cross_correlation_chain", "com_align", "moment_match",
+           "align_to_reprojection", "cross_correlation_filtered",
+           "fourier_shift", "AlignState", "align_reconstruct",
            "load_checkpoint", "save_checkpoint", "PARAM_SETS",
-           "RefineResult", "refine_views_slab"]
+           "RefineResult", "alignment_cost", "gradient_descent_view",
+           "refine_views_slab"]

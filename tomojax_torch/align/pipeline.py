@@ -130,6 +130,10 @@ def _check_supported(family, recon, refine_method, debias_period,
                      recon_prec):
     if family in NOT_PORTED:
         raise NotImplementedError(NOT_PORTED[family])
+    if family == "ray":
+        raise NotImplementedError(
+            "align_reconstruct on the exact ray family: ROADMAP Queue 1 "
+            "item 10")
     if family not in QUADS and family != "fast":
         raise ValueError(f"unknown projector family: {family!r}")
     if refine_method in REFINE_NOT_PORTED:
@@ -138,8 +142,8 @@ def _check_supported(family, recon, refine_method, debias_period,
         raise ValueError(f"unknown refine_method {refine_method!r}")
     if debias_period:
         raise NotImplementedError(
-            "debias_period needs the exact ray family: ROADMAP Queue 1 "
-            "item 12")
+            "debias_period (the exact-family debias stage): ROADMAP Queue 1 "
+            "item 10")
     if recon_prec != "f32x2":
         raise NotImplementedError(
             f"recon_prec={recon_prec!r}: a reduced-precision tier needs its "
@@ -195,7 +199,7 @@ def align_reconstruct(projections, geom: Geometry, views0: Views, *,
         first-moment matching against the support-masked reprojection
         (gauge projected out).
     :param debias_period: tomojax's exact-family debias stage every this
-        many outers; a nonzero value raises (ROADMAP Queue 1 item 12).
+        many outers; a nonzero value raises (ROADMAP Queue 1 item 10).
     :param debias_chunk: views per call of that stage (tomojax's
         argument, accepted and unused until the stage is ported).
     :param ground_truth: optional volume; the per-outer ``recon_rms`` then

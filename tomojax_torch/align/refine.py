@@ -1,11 +1,12 @@
 """Per-view refinement (counterpart of ``tomojax.align.refine``).
 
-Ported: the parameter-subset masks, the result type, the fast-family
-alignment cost and gradient descent with Armijo (or Wolfe) backtracking
-and the brute 10×-backoff fallback (:func:`gradient_descent_view`, and
-:func:`gradient_descent_views`, its batch over views — tomojax's
-``jax.vmap`` of it). The exact-family cost, Jacobian and LM of that module
-are ROADMAP Queue 1 items 12 and 14.
+Ported: the parameter-subset masks, the result type, the alignment cost
+on the fast and the exact ray family, and fast-family gradient descent
+with Armijo (or Wolfe) backtracking and the brute 10×-backoff fallback
+(:func:`gradient_descent_view`, and :func:`gradient_descent_views`, its
+batch over views — tomojax's ``jax.vmap`` of it). The exact-family
+gradient, finite differences and LM of that module are ROADMAP Queue 1
+item 14.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from tomojax_torch.core import fast_projector as fastp
+from tomojax_torch.core import projector
 from tomojax_torch.core.geometry import Geometry
 from tomojax_torch.recon.linesearch import armijo, brute_backoff, wolfe
 
@@ -41,31 +43,31 @@ class RefineResult(NamedTuple):
     converged: torch.Tensor  # per-view flag
 
 
-def _check_family(family: str):
-    if family != "fast":
-        raise NotImplementedError(
-            f"alignment cost on family {family!r} (tomojax projects it with "
-            "the exact ray family): ROADMAP Queue 1 item 12")
-
-
 def alignment_costs(vol, projections, geom: Geometry, theta, cor, *,
-                    dtype=torch.float32, family: str = "fast"):
-    """½‖P(θ_v)x − p_v‖² of each of V views → (V,), projecting with the
-    fast family (each view deciding its octant at its own θ). θ (V, 6)
-    may require grad: the gradient flows through the affine map, its
-    inverse and the resample kernels."""
-    _check_family(family)
-    E, B = fastp.view_affine(geom, theta[:, 3], theta[:, 4], theta[:, 5],
-                             theta[:, :3], cor, dtype)
-    pred = fastp.forward_views(vol.reshape(geom.vox_shape).to(dtype), geom,
-                               E, B)
+                    dtype=torch.float32, family: str = "ray"):
+    """½‖P(θ_v)x − p_v‖² of each of V views → (V,). ``family="fast"``
+    projects with the fast family (each view deciding its octant at its
+    own θ); any other family, as in tomojax, with the exact ray family
+    (the default, as tomojax's).
+    θ (V, 6) may require grad: the gradient flows through the fast
+    family's affine map, its inverse and the resample kernels, or through
+    the ray family's analytic Jacobian."""
+    if family == "fast":
+        E, B = fastp.view_affine(geom, theta[:, 3], theta[:, 4],
+                                 theta[:, 5], theta[:, :3], cor, dtype)
+        pred = fastp.forward_views(vol.reshape(geom.vox_shape).to(dtype),
+                                   geom, E, B)
+    else:
+        pred = projector.project_views_t(vol.reshape(geom.vox_shape), theta,
+                                         geom, cor, dtype)
     r = pred - projections.reshape(pred.shape).to(pred.dtype)
     return 0.5 * (r * r).sum(-1)
 
 
 def alignment_cost(vol, proj_meas, geom: Geometry, theta6, cor,
-                   dtype=torch.float32, family: str = "fast"):
-    """½‖P(θ)x − p‖² for one view (tomojax's ``alignment_cost``)."""
+                   dtype=torch.float32, family: str = "ray"):
+    """½‖P(θ)x − p‖² for one view (tomojax's ``alignment_cost``, with its
+    default family, the exact ray family)."""
     return alignment_costs(vol, proj_meas[None], geom, theta6[None],
                            torch.as_tensor(cor)[None], dtype=dtype,
                            family=family)[0]
@@ -93,7 +95,10 @@ def gradient_descent_views(vol, projections, geom: Geometry, theta_init,
     :param param_scale: diagonal preconditioner (default (1, 1, 1, 0.01,
         0.01, 0.01): angles have ~100× the gradient of translations).
     """
-    _check_family(family)
+    if family != "fast":
+        raise NotImplementedError(
+            f"gradient descent on family {family!r} (the exact ray family's "
+            "gradient): ROADMAP Queue 1 item 14")
     dev = vol.device
     kw = dict(dtype=dtype, device=dev)
     vol = vol.detach().reshape(geom.vox_shape).to(dtype)
@@ -115,7 +120,7 @@ def gradient_descent_views(vol, projections, geom: Geometry, theta_init,
             return torch.cat([
                 alignment_costs(vol, meas[idx[c:c + ch_f]], geom,
                                 x[c:c + ch_f], cor[idx[c:c + ch_f]],
-                                dtype=dtype)
+                                dtype=dtype, family=family)
                 for c in range(0, len(idx), ch_f)])
 
     def grad(x, idx):
@@ -124,7 +129,8 @@ def gradient_descent_views(vol, projections, geom: Geometry, theta_init,
             for c in range(0, len(idx), ch_g):
                 xs = x[c:c + ch_g].detach().requires_grad_(True)
                 f = alignment_costs(vol, meas[idx[c:c + ch_g]], geom, xs,
-                                    cor[idx[c:c + ch_g]], dtype=dtype)
+                                    cor[idx[c:c + ch_g]], dtype=dtype,
+                                    family=family)
                 out.append(torch.autograd.grad(f.sum(), xs)[0])
         return torch.cat(out) * mask_f
 

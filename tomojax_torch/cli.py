@@ -5,18 +5,20 @@ plus ``--device`` (default ``cuda``; asking for CUDA without a card
 raises). Ported so far:
 
 - ``simulate``    with ``simulate.family`` ``slab`` (arc) or
-  ``slab_plane``;
-- ``reconstruct`` with ``solver.method`` ``sirt`` or ``cgls`` on
-  ``solver.family`` ``slab``, ``slab_plane`` or ``fast``, and
-  ``--pre-align none|com``;
+  ``slab_plane``; every other family projects with the exact ray family,
+  as tomojax's does;
+- ``reconstruct`` with ``solver.method`` ``sirt``, ``cgls``,
+  ``tikhonov``, ``lasso`` or ``fista_tv`` on ``solver.family`` ``ray``,
+  ``slab``, ``slab_plane`` or ``fast``, and ``--pre-align
+  none|com|cc``;
 - ``align`` with ``align.family`` ``slab``, ``slab_plane`` or ``fast`` and
   ``align.refine_method`` ``lm_slab`` or ``gd_fast`` (COM pre-alignment
   with ``align.pre_align_cc=true``).
 
 ``reconstruct --shard`` builds the plain operator on one device, as
-tomojax does; over more than one CUDA device it raises, as do the other
-solvers, families, refiners and pre-aligners: ``NotImplementedError``
-naming their ROADMAP item.
+tomojax does; over more than one CUDA device it raises, as do the voxel
+family, ``align`` on the ray family and the other refiners:
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -26,6 +28,9 @@ import sys
 
 import numpy as np
 import torch
+
+
+SOLVERS = ("sirt", "cgls", "tikhonov", "lasso", "fista_tv")
 
 
 def _add_common(p):
@@ -103,6 +108,7 @@ def _infer_vox_shape(args, d, nu, nv):
 def cmd_simulate(args):
     """Phantom → jittered slab projections → HDF5 (or ``.npz``) dataset."""
     from tomojax_torch.core import phantom as ph
+    from tomojax_torch.core import projector
     from tomojax_torch.core import slab_projector as sp
     from tomojax_torch.core.geometry import Views
     from tomojax_torch.core.operators import QUADS, resolve_device
@@ -110,11 +116,6 @@ def cmd_simulate(args):
 
     cfg = _load_config(args)
     fam = cfg.simulate.family
-    if fam not in QUADS:
-        # tomojax simulates every other family with the exact ray projector
-        raise NotImplementedError(
-            f"simulate.family={fam!r} projects with the exact ray family, "
-            "as tomojax's simulate does: ROADMAP Queue 1 item 12")
     device = resolve_device(args.device)
     geom = cfg.geometry.build()
     rng = np.random.default_rng(cfg.simulate.seed)
@@ -136,8 +137,10 @@ def cmd_simulate(args):
     views = Views.create(n_proj, phi=phi, alpha=alpha, beta=beta, t=xyz,
                          device=device)
     with torch.no_grad():
-        proj = sp.project(torch.as_tensor(vol, device=device), geom, views,
-                          quad=QUADS[fam])
+        x = torch.as_tensor(vol, device=device)
+        # tomojax simulates every other family with the exact ray projector
+        proj = (sp.project(x, geom, views, quad=QUADS[fam]) if fam in QUADS
+                else projector.project(x, geom, views))
     io.save_dataset(args.output, projections=proj.reshape(
         n_proj, *geom.det_shape).cpu().numpy(), phi=phi, alpha=alpha,
         beta=beta, xyz=xyz, phantom=vol)
@@ -148,22 +151,19 @@ def cmd_simulate(args):
 
 def cmd_reconstruct(args):
     """Iterative reconstruction of a dataset; returns a dict with the
-    solver result (``result``) and, with ``--pre-align com``, the
+    solver result (``result``) and, with ``--pre-align com|cc``, the
     per-axis mean/max pre-alignment residuals in px when the dataset
     holds the true shifts (``pre_align_residual``)."""
     from tomojax_torch import recon
-    from tomojax_torch.align import com_align
+    from tomojax_torch.align import com_align, cross_correlation_chain
     from tomojax_torch.core.geometry import Geometry, Views
     from tomojax_torch.core.operators import make_operator, resolve_device
     from tomojax_torch.utils import io
 
-    if args.pre_align == "cc":
-        raise NotImplementedError("--pre-align cc: ROADMAP Queue 1 item 9")
     cfg = _load_config(args)
     m = cfg.solver.method
-    if m not in ("sirt", "cgls"):
-        raise NotImplementedError(
-            f"solver {m!r}: ROADMAP Queue 1 item 13")
+    if m not in SOLVERS:
+        sys.exit(f"unknown solver {m}")
     device = resolve_device(args.device)
     # tomojax angle-shards only over more than one device; on one it
     # builds the plain operator
@@ -185,11 +185,18 @@ def cmd_reconstruct(args):
     b = proj.reshape(n_proj, -1).to(dtype)
 
     out = {}
-    if args.pre_align == "com":
+    if args.pre_align != "none":
         # BASELINE config 3 flow: consistency pre-alignment then recon;
         # shifts only (tilt jitter stays unknown)
-        est = com_align(proj, geom, d["phi"], dtype=torch.float32,
-                        device=device).cpu().numpy()
+        if args.pre_align == "com":
+            est = com_align(proj, geom, d["phi"], dtype=torch.float32,
+                            device=device).cpu().numpy()
+        else:
+            offsets, _ = cross_correlation_chain(proj.to(torch.float32))
+            # chain offsets are cumulative content displacements (u, v) =
+            # (tx, tz); remove the per-axis mean (volume-shift gauge)
+            est = offsets.cpu().numpy()
+            est -= est.mean(axis=0, keepdims=True)
         t0 = np.zeros((n_proj, 3), np.float32)
         t0[:, 0] = est[:, 0]
         t0[:, 2] = est[:, 1]
@@ -206,11 +213,23 @@ def cmd_reconstruct(args):
 
     op = make_operator(geom, views, family=cfg.solver.family, dtype=dtype,
                        device=device)
+    sv = cfg.solver
     if m == "sirt":
-        res = recon.sirt(op, b, niter=cfg.solver.niter,
-                         positivity=cfg.solver.positivity, ground_truth=gt)
+        res = recon.sirt(op, b, niter=sv.niter, positivity=sv.positivity,
+                         ground_truth=gt)
+    elif m == "cgls":
+        res = recon.cgls(op, b, niter=sv.niter, ground_truth=gt)
+    elif m == "tikhonov":
+        res = recon.tikhonov_gd(op, b, niter=sv.niter,
+                                reg_param=sv.reg_param,
+                                positivity=sv.positivity, ground_truth=gt)
+    elif m == "lasso":
+        res = recon.lasso_fista(op, b, niter=sv.niter,
+                                reg_param=sv.reg_param, ground_truth=gt)
     else:
-        res = recon.cgls(op, b, niter=cfg.solver.niter, ground_truth=gt)
+        res = recon.fista_tv(op, b, niter=sv.niter, hyper=sv.hyper,
+                             beta_tv=sv.beta_tv, niter_tv=sv.niter_tv,
+                             ground_truth=gt)
 
     k = int(res.n_iter)
     print(f"{m}: {k} iterations, final rms {float(res.rms_error[k-1]):.5f}")
@@ -326,7 +345,7 @@ def main(argv=None):
     p.add_argument("--pre-align", default="none",
                    choices=["none", "com", "cc"],
                    help="shift pre-alignment before reconstruction "
-                        "(BASELINE config 3: com + cgls)")
+                        "(BASELINE config 3: com or cc + cgls)")
     p.add_argument("--vox-shape", default=None,
                    help="volume shape 'nx,ny,nz' (required for phantom-free "
                         "datasets with non-cubic volumes)")

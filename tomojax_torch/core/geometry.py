@@ -4,8 +4,10 @@ Counterpart of ``tomojax.core.geometry``:
 
 - ``Geometry`` is the same immutable dataclass of static scalars, with the
   same grid conventions (voxel centers on ``linspace(-s/2, s/2, n,
-  endpoint=False) + 0.5`` per axis; ``vox_origin`` the minimum corner).
-  Grids are host numpy in float64.
+  endpoint=False) + 0.5`` per axis; ``vox_origin`` the minimum corner;
+  source plane at ``y = -vox_size_y``, detector plane at ``+vox_size_y``).
+  Grids are host numpy in float64 (``*_np``), or tensors of a given dtype
+  and device from the accessors of the same names.
 - ``Views`` is a dataclass of tensors with leading axis ``n_proj`` (tomojax
   uses a pytree NamedTuple).
 """
@@ -86,8 +88,24 @@ class Geometry:
         """Samples per ray: ``int(ray_length / step_size)``."""
         return int(self.ray_length / self.step_size)
 
+    @property
+    def factor(self) -> tuple:
+        """Voxel→detector downsampling factors for the voxel-driven path."""
+        sx = float(self.vox_shape[0] / self.det_shape[0])
+        sz = float(self.vox_shape[2] / self.det_shape[1])
+        return (sx, 1.0, sz)
+
+    # ---- derived grids: host numpy float64, and tensors by accessor ----
     def _axis_centers(self, n: int, size: float) -> np.ndarray:
         return np.linspace(-size / 2.0, size / 2.0, n, endpoint=False) + 0.5
+
+    def vox_centers_np(self) -> np.ndarray:
+        """(3, n_vox) voxel centers, x-major/z-minor raveling ('ij')."""
+        (nx, ny, nz), (sx, sy, sz) = self.vox_shape, self.vox_size
+        X, Y, Z = np.meshgrid(self._axis_centers(nx, sx),
+                              self._axis_centers(ny, sy),
+                              self._axis_centers(nz, sz), indexing="ij")
+        return np.array([X.ravel(), Y.ravel(), Z.ravel()])
 
     def vox_origin_np(self) -> np.ndarray:
         nx, ny, nz = self.vox_shape
@@ -95,6 +113,48 @@ class Geometry:
         return np.array([self._axis_centers(nx, sx).min(),
                          self._axis_centers(ny, sy).min(),
                          self._axis_centers(nz, sz).min()])
+
+    def det_grid_np(self):
+        """(xd, zd) raveled detector coordinates, 'ij' meshgrid (u-major)."""
+        (nu, nv), (su, sv) = self.det_shape, self.det_size
+        XD, ZD = np.meshgrid(self._axis_centers(nu, su),
+                             self._axis_centers(nv, sv), indexing="ij")
+        return XD.ravel(), ZD.ravel()
+
+    def source_centers_np(self) -> np.ndarray:
+        """(3, n_det) source points: detector grid at y = -vox_size_y."""
+        xd, zd = self.det_grid_np()
+        return np.array([xd, -self.vox_size[1] * np.ones_like(xd), zd])
+
+    def det_centers_np(self) -> np.ndarray:
+        """(3, n_det) detector points: detector grid at y = +vox_size_y."""
+        xd, zd = self.det_grid_np()
+        return np.array([xd, self.vox_size[1] * np.ones_like(xd), zd])
+
+    def det_orig_np(self) -> np.ndarray:
+        """Minimum (x, y, z) of the detector grid, y from the *voxel*
+        grid."""
+        (nu, nv), (su, sv) = self.det_shape, self.det_size
+        return np.array([self._axis_centers(nu, su).min(),
+                         self._axis_centers(self.vox_shape[1],
+                                            self.vox_size[1]).min(),
+                         self._axis_centers(nv, sv).min()])
+
+    def vox_centers(self, dtype=torch.float32, device=None):
+        return torch.as_tensor(self.vox_centers_np(), dtype=dtype,
+                               device=device)
+
+    def vox_origin(self, dtype=torch.float32, device=None):
+        return torch.as_tensor(self.vox_origin_np(), dtype=dtype,
+                               device=device)
+
+    def source_centers(self, dtype=torch.float32, device=None):
+        return torch.as_tensor(self.source_centers_np(), dtype=dtype,
+                               device=device)
+
+    def det_centers(self, dtype=torch.float32, device=None):
+        return torch.as_tensor(self.det_centers_np(), dtype=dtype,
+                               device=device)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,6 +4,9 @@ never see how A is applied.
 
 Ported families:
 
+- ``family="ray"`` (the default, as tomojax's) — the exact ray-driven
+  trilinear march (``core.projector``) with its scatter-add transpose; plain
+  PyTorch on every device.
 - ``family="slab"`` — the slab-marching operator in arc quadrature (the
   exact ray march's samples); on a CUDA device it runs the hand-written
   kernels K3/K4.
@@ -24,11 +27,11 @@ from typing import Callable
 import torch
 
 from tomojax_torch.core import fast_projector as fastp
+from tomojax_torch.core import projector as ray
 from tomojax_torch.core import slab_projector as slabp
 from tomojax_torch.core.geometry import Geometry, Views
 
 NOT_PORTED = {
-    "ray": "exact ray family: ROADMAP Queue 1 item 12",
     "voxel": "voxel family: ROADMAP Queue 1 item 15",
 }
 QUADS = {"slab": "arc", "slab_plane": "plane"}
@@ -75,19 +78,32 @@ class TomoOperator:
                                   dtype=self.dtype, device=self.device))
 
 
-def make_operator(geom: Geometry, views: Views, *,
-                  family: str = "slab_plane", dtype=torch.float32,
-                  voxel_mask=None, device=None) -> TomoOperator:
+def make_operator(geom: Geometry, views: Views, *, family: str = "ray",
+                  dtype=torch.float32, views_chunk: int | None = None,
+                  voxel_mask=None, prec: str | None = None,
+                  device=None) -> TomoOperator:
     """Build the projection operator for a set of views on ``device``.
 
     For the slab families the per-view scalars and orientation groups are
     computed once, here.
 
+    :param views_chunk: views per chunk of the ray family (default: sized
+        as tomojax's). The slab and fast families size their own chunks;
+        their results do not depend on it.
     :param voxel_mask: optional boolean volume; False voxels are excluded
         from the system.
+    :param prec: the slab kernels' precision tier: ``None`` or ``"f32x2"``
+        (plain fp32 here). A reduced-precision tier raises.
     """
+    if prec not in (None, "f32x2"):
+        raise NotImplementedError(
+            f"prec={prec!r}: a reduced-precision tier needs its own "
+            "contract (ROADMAP Queue 3)")
     if family in NOT_PORTED:
         raise NotImplementedError(NOT_PORTED[family])
+    if family == "ray":
+        return _ray_operator(geom, views, dtype, resolve_device(device),
+                             voxel_mask, views_chunk)
     if family == "fast":
         return _fast_operator(geom, views, dtype, resolve_device(device),
                               voxel_mask)
@@ -108,12 +124,39 @@ def _mask(voxel_mask, geom: Geometry, dtype, device):
         geom.vox_shape)
 
 
+def _views_on(views: Views, device) -> Views:
+    return Views(**{f: getattr(views, f).to(device=device)
+                    for f in ("phi", "alpha", "beta", "t", "cor")})
+
+
+def _ray_operator(geom: Geometry, views: Views, dtype, device, voxel_mask,
+                  views_chunk) -> TomoOperator:
+    """The exact ray family's operator: views copied to ``device`` once."""
+    vws = _views_on(views, device)
+    mask = _mask(voxel_mask, geom, dtype, device)
+
+    def A(x):
+        x = x.reshape(geom.vox_shape).to(dtype)
+        if mask is not None:
+            x = x * mask
+        return ray.project(x, geom, vws, dtype=dtype,
+                           views_chunk=views_chunk)
+
+    def AT(y):
+        out = ray.backproject(y.reshape(geom.n_proj, geom.n_det),
+                              geom.vox_shape, geom, vws, dtype=dtype,
+                              views_chunk=views_chunk)
+        return out * mask if mask is not None else out
+
+    return TomoOperator(geom=geom, views=views, A=A, AT=AT, family="ray",
+                        dtype=dtype, device=torch.device(device))
+
+
 def _fast_operator(geom: Geometry, views: Views, dtype, device,
                    voxel_mask) -> TomoOperator:
     """The fast family's operator: views copied to ``device`` once; each
     apply groups them by octant and chunks them by memory."""
-    vws = Views(**{f: getattr(views, f).to(device=device)
-                   for f in ("phi", "alpha", "beta", "t", "cor")})
+    vws = _views_on(views, device)
     mask = _mask(voxel_mask, geom, dtype, device)
 
     def A(x):

@@ -28,8 +28,8 @@ def geometry(fields) -> Geometry:
 
 
 def views(arrays, *, device=None) -> Views:
-    """Views from tomojax Views leaves as numpy arrays (a NamedTuple or a
-    mapping), keeping their dtype."""
+    """Views from the leaves of tomojax's Views as numpy arrays (a
+    NamedTuple or a mapping), keeping their dtype."""
     return Views(**{name: torch.as_tensor(np.array(_field(arrays, name)),
                                           device=device)
                     for name in ("phi", "alpha", "beta", "t", "cor")})

@@ -101,9 +101,33 @@ script exits non-zero:
    (``index_add_``'s float atomics; printed, not bounded) and the time
    per A and Aᵀ.
 
+11. The exact-family alignment path at 64³ × 90 views. 11a: ``cli align``
+   at its defaults (the ray family, SIRT 100, box LM on the exact
+   Jacobian, the moment hook, 10 outers) on phase 10's ``cli simulate``
+   dataset (shepp, seed 0, ±2 px / ±1°); per outer the volume rel-L2,
+   refinement cost, gauge-corrected errors and the wall split into
+   recon, LM and hook; the last outer's gauge-corrected mean |tx|, |tz|
+   at most half the zero start's, the rel-L2 below outer 0's, every θ
+   inside the refinement box; then the LM's time per step at its view
+   chunk (Jacobian apply, cost apply, the LM's own 6×6 solves) and the
+   ray Jacobian in fp32 against float64 on the CPU per (view, field) over
+   30 views: each field's median over the views ≤ 1e-4 relative on the
+   phantom; the medians on the reconstruction and the maxima printed
+   beside those of fp32 on the CPU at the same θ and volume. 11b:
+   ``tools/convergence_study`` on ray data (fast 8, exact 4, CV 2 with 10
+   folds, debias 2 outers, final plane CGLS 120): each stage ends with
+   gauge-corrected mean |tx|, |tz| at or below its start, the debias
+   defect finite and nonzero, K1-K5 launched; then ``frozen_polish`` on
+   its final state (slab 40 LM iterations, ray 10 with the moment match),
+   each leaving the volume bit-equal. 11c: K1/K2 at 64³ × 90 views (the
+   fast stage's final θ), K3/K4 at 64³ × 90 views (the exact stage's
+   final θ) and at one CV complement (81 views), K5 at one CV fold (9
+   views) against their plain versions with phase 3/5's tolerances, two
+   applies bit-identical.
+
 The JSON line's launches count phase 4 for K1/K2 (all three CGLS runs
-and ``simulate``), phase 6 for K3-K6 and phase 8 for K7-K9; phases 9 and
-10 print their own.
+and ``simulate``), phase 6 for K3-K6 and phase 8 for K7-K9; phases 9, 10
+and 11 print their own.
 
 Every kernel's entry in the JSON line carries its time, its plain
 version's, the time of one PyTorch call computing the same function where
@@ -116,6 +140,7 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it the
 """
 
 import ctypes
+import dataclasses
 import json
 import os
 import shutil
@@ -127,17 +152,21 @@ import time
 import numpy as np
 import torch
 
+import tomojax_torch.align as talign
 from tomojax_torch import cli
 from tomojax_torch.align import com_align
+from tomojax_torch.align import pipeline as tpipe
+from tomojax_torch.align import refine as trefine
 from tomojax_torch.core import fast_projector as fastp
 from tomojax_torch.core import phantom
+from tomojax_torch.core import projector as rproj
 from tomojax_torch.core import slab_projector as sp
 from tomojax_torch.core.geometry import Geometry, Views
 from tomojax_torch.core.operators import make_operator
 from tomojax_torch.kernels import _build
 from tomojax_torch.kernels import resample as rs
 from tomojax_torch.kernels import slab as slabk
-from tomojax_torch.tools import config1, config2
+from tomojax_torch.tools import config1, config2, convergence_study
 from tomojax_torch.utils import io
 
 N, N_PROJ, SEED = 256, 180, 0
@@ -172,6 +201,13 @@ COUNTED = (slabk.slab_plane_fwd, slabk.slab_plane_adj, slabk.slab_arc_fwd,
 # one-thread-per-ray designs that the marches replaced (NVIDIA H100 80GB
 # HBM3, 700 W)
 EARLIER_MS = {"fwd": 17.138, "jac": 23.968, "plane_fwd": 10.221}
+EXACT_N, EXACT_VIEWS = 64, 90   # phase 11: 64^3 x 90 views
+EXACT_OUTERS = 10          # cli align's default outer_iters
+TOL_RAY_JAC = 1e-4         # ray Jacobian, fp32 card vs float64 CPU
+JAC_VIEWS = 30             # views of that check (the CPU's float64 march)
+STUDY_ARGS = ["--outers-fast", "8", "--outers-exact", "4",
+              "--outers-debias", "2", "--outers-cv", "2", "--cv-folds",
+              "10", "--final-recon-iters", "120"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS = 67e12          # H100 SXM, published fp32 outside tensor cores
 
@@ -1075,6 +1111,337 @@ def phase_config1(tmp, dev, n=64, n_proj=90):
           f"{n_proj} views)")
     check(rel <= TOL_RAY, f"ray A vs float64: {rel}")
     check(dot <= TOL_RAY, f"ray adjoint identity {dot}")
+    return {"A": t_A, "AT": t_AT}
+
+
+def synced(fn, acc, key):
+    """``fn`` that adds its device-synchronized wall seconds to
+    ``acc[key]``."""
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        acc[key] += time.perf_counter() - t0
+        return out
+    return wrapper
+
+
+def phase_exact_align(tmp, dev, ray_ms, n=EXACT_N, n_proj=EXACT_VIEWS,
+                      outers=EXACT_OUTERS):
+    """11a: ``cli align`` at its defaults (ray family, SIRT 100, box LM on
+    the exact Jacobian, the moment hook) on phase 10's ``cli simulate``
+    dataset, per outer its quality and its wall split; then the LM's time
+    per step, split, at the path's view chunk, and the ray Jacobian on the
+    card against float64 on the CPU."""
+    data = os.path.join(tmp, "config1.npz")
+    if not os.path.exists(data):
+        cli.main(["simulate", "--size", str(n), "--views", str(n_proj),
+                  "-o", data, "--device", str(dev)])
+    out = os.path.join(tmp, "align_exact.npy")
+    d = io.load_dataset(data)
+    split = {"recon": 0.0, "refine": 0.0, "hook": 0.0}
+    rows = []
+    t_last = [0.0]
+    orig = talign.align_reconstruct
+
+    def record(it, views, volume, history):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rows.append({"wall": now - t_last[0], **split})
+        t_last[0] = now
+        for k in split:
+            split[k] = 0.0
+
+    def align_with_split(*args, callback=None, **kwargs):
+        def both(*a):
+            callback(*a)
+            record(*a)
+        return orig(*args, callback=both, **kwargs)
+
+    patches = [(talign, "align_reconstruct", align_with_split),
+               (tpipe, "sirt", synced(tpipe.sirt, split, "recon")),
+               (tpipe, "refine_views",
+                synced(tpipe.refine_views, split, "refine")),
+               (tpipe, "_family_synth",
+                synced(tpipe._family_synth, split, "hook")),
+               (tpipe, "moment_match",
+                synced(tpipe.moment_match, split, "hook"))]
+    saved = [(m, k, getattr(m, k)) for m, k, _ in patches]
+    reset_counts()
+    for m, k, f in patches:
+        setattr(m, k, f)
+    try:
+        torch.cuda.synchronize()
+        t0 = t_last[0] = time.perf_counter()
+        r = cli.main(["align", "-i", data, "-o", out, "--device", str(dev),
+                      "--set", f"align.outer_iters={outers}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for m, k, f in saved:
+            setattr(m, k, f)
+    launched = {fn.__name__: fn.launches for fn in COUNTED if fn.launches}
+    x = np.load(out)
+    check(x.shape == (n,) * 3 and np.isfinite(x).all(),
+          f"exact align: volume shape {x.shape} or non-finite values")
+    hist, thetas = r["state"].history, r["theta_per_outer"]
+    check(len(thetas) == outers == len(hist["recon_rms"]) == len(rows),
+          f"exact align: {len(thetas)} outers recorded")
+    th0 = np.zeros((n_proj, 6))
+    th0[:, 3] = d["phi"]
+    e0 = param_errors(th0, d)
+    print(f"exact align start (zero jitter): gauge-corrected mean/max "
+          f"{fmt_errors(e0)}")
+    errs = []
+    for k, (th, row) in enumerate(zip(thetas, rows)):
+        other = row["wall"] - row["recon"] - row["refine"] - row["hook"]
+        errs.append(param_errors(np.asarray(th, np.float64), d))
+        print(f"exact align outer {k}: vol rel-L2 {hist['recon_rms'][k]:.4f},"
+              f" refine cost {hist['refine_cost'][k]:.6g}, gauge-corrected "
+              f"mean/max {fmt_errors(errs[-1])}; wall {row['wall']:.2f} s = "
+              f"recon {row['recon']:.2f} + LM {row['refine']:.2f} + hook "
+              f"{row['hook']:.3f} + other {other:.3f}")
+    tot = {k: sum(row[k] for row in rows) for k in ("recon", "refine",
+                                                    "hook")}
+    print(f"exact align wall: {wall:.2f} s ({n}^3, {n_proj} views, {outers} "
+          f"outers, ray + lm): recon {tot['recon']:.2f} s, LM "
+          f"{tot['refine']:.2f} s, hook {tot['hook']:.3f} s; slab and "
+          f"resample kernel launches {launched or 0} (the ray family is "
+          "plain PyTorch)")
+
+    # the LM's time per step at the path's chunk (2^23 // n_vox views)
+    geom = Geometry(n_proj=n_proj, vox_shape=(n,) * 3, det_shape=(n, n))
+    ch = max(1, min(n_proj, (1 << 23) // geom.n_vox))
+    vol = torch.as_tensor(x, device=dev)
+    th = torch.as_tensor(np.asarray(thetas[-1]), device=dev)[:ch]
+    cor = torch.zeros((ch, 3), device=dev)
+    meas = torch.as_tensor(d["projections"], device=dev).reshape(
+        n_proj, -1)[:ch]
+    mask_f = trefine._mask(trefine.PARAM_SETS["xzab"], device=dev)
+    lam = torch.full((ch,), 1e-3, device=dev)   # lm_lambda0
+    with torch.no_grad():
+        _, _, res, jac = trefine.alignment_costs_grad(vol, meas, geom, th,
+                                                      cor)
+        step = {"jacobian": cuda_ms(lambda: trefine.alignment_costs_grad(
+                    vol, meas, geom, th, cor), 3),
+                "cost": cuda_ms(lambda: trefine.alignment_costs(
+                    vol, meas, geom, th, cor), 3),
+                "solve": cuda_ms(lambda: trefine._lm_step(
+                    jac, res, lam, mask_f), 5)}
+    per_view = {k: v / ch for k, v in step.items()}
+    print(f"LM step at {ch} views ({n}^3): Jacobian apply "
+          f"{step['jacobian']:.3f} ms, cost apply {step['cost']:.3f} ms, "
+          f"6x6 normal equations and solves {step['solve']:.3f} ms; per view "
+          f"{per_view['jacobian']:.3f} / {per_view['cost']:.3f} / "
+          f"{per_view['solve']:.4f} ms against the ray A "
+          f"{ray_ms['A'] / n_proj:.3f} and AT {ray_ms['AT'] / n_proj:.3f} ms "
+          "per view (phase 10)")
+
+    ray_jacobian_check(geom, d["phantom"], x, np.asarray(thetas[-1]), dev)
+
+    last = errs[-1]
+    check(last["tx"][0] <= 0.5 * e0["tx"][0]
+          and last["tz"][0] <= 0.5 * e0["tz"][0],
+          f"exact align mean tx/tz errors not halved: {last} vs {e0}")
+    check(hist["recon_rms"][-1] < hist["recon_rms"][0],
+          f"exact align vol rel-L2 did not fall: {hist['recon_rms']}")
+    box = np.array([3.0, 0.0, 3.0, 0.0, 0.02, 0.02]) + 1e-6
+    for th in thetas:
+        check(np.all(np.abs(np.asarray(th, np.float64) - th0) <= box),
+              "exact align: theta left the refinement box")
+    return {"wall": wall, **tot, "step": step}
+
+
+def ray_jacobian_check(geom, phantom_np, recon_np, theta, dev):
+    """The ray Jacobian in fp32 on the card, and in fp32 on the CPU,
+    against float64 on the CPU at ``theta``, over ``JAC_VIEWS`` views
+    spread over the scan: the relative L2 error of each (view, field), on
+    the phantom and on the reconstructed volume. On the phantom each
+    field's median over the views on the card must be ≤ ``TOL_RAY_JAC``,
+    so one field wrong in most views fails; on the reconstruction (noisy,
+    so more samples sit near a cell boundary where neighbours differ) the
+    medians are printed, not bounded. The maxima are printed beside the
+    CPU fp32 run's, not bounded: the trilinear weights' gradient jumps at
+    cell boundaries wherever neighbouring voxels differ, so a sample
+    within fp32 rounding of a boundary takes the other cell's slope, and
+    one such sample on an edge of the phantom moves its view's field by
+    up to ~1e-1 (ty, whose sum along the ray nearly cancels, most)."""
+    n_proj = geom.n_proj
+    idx = np.arange(0, n_proj, max(1, n_proj // JAC_VIEWS))[:JAC_VIEWS]
+    th = torch.as_tensor(np.asarray(theta, np.float64))[idx]
+    args = (th[:, 3], th[:, 4], th[:, 5], th[:, :3], torch.zeros(len(idx), 3))
+    names = ("tx", "ty", "tz", "phi", "alpha", "beta")
+
+    def fields(v):
+        return ", ".join(f"{k} {x:.3e}" for k, x in zip(names, v.tolist()))
+
+    for label, vol_np in (("phantom", phantom_np), ("recon", recon_np)):
+        _, jr = rproj.forward_views_jac(
+            torch.as_tensor(vol_np, dtype=torch.float64), geom, *args,
+            dtype=torch.float64)
+        err = {}
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            vol = torch.as_tensor(vol_np, dtype=torch.float32, device=d)
+            _, j32 = rproj.forward_views_jac(vol, geom, *(a.float().to(d)
+                                                          for a in args))
+            err[where] = (torch.linalg.norm(j32.cpu().double() - jr, dim=2)
+                          / torch.linalg.norm(jr, dim=2))   # (views, fields)
+        med = err["card"].median(0).values
+        print(f"ray Jacobian (fp32) vs float64 CPU on the {label} over "
+              f"{len(idx)} views, relative L2 per (view, field): card median "
+              f"per field {fields(med)}"
+              + (f" (tol {TOL_RAY_JAC})" if label == "phantom" else "")
+              + "; max per field "
+              f"card {fields(err['card'].max(0).values)}; CPU fp32 median "
+              f"{fields(err['cpu'].median(0).values)}, max "
+              f"{fields(err['cpu'].max(0).values)}")
+        if label == "phantom":
+            check(bool((med <= TOL_RAY_JAC).all()),
+                  f"ray Jacobian vs float64: median per field {med.tolist()}")
+
+
+def phase_study(dev, n=EXACT_N, n_proj=EXACT_VIEWS):
+    """11b: the convergence study at 64³ × 90 views of ray-family data,
+    then ``frozen_polish`` on its final state (slab 40 LM iterations, ray
+    10 with the moment match); 11c: K1-K5 against their plain versions
+    at this phase's shapes."""
+    # the debias stage's defect ‖P_exact x − P_slab x‖: the pipeline's
+    # _exact_forward of (x, θ), then the slab forward of the same objects
+    exact_fwd, slab_fwd = tpipe._exact_forward, sp.project
+    pending, defect_norms = [], []
+
+    def exact_forward(volume, geom, views, *args):
+        pending[:] = [(volume, views, exact_fwd(volume, geom, views, *args))]
+        return pending[0][2]
+
+    def slab_project(*args, **kwargs):
+        out = slab_fwd(*args, **kwargs)
+        if (pending and pending[0][0] is args[0]
+                and pending[0][1] is args[2]):
+            p = pending.pop()[2]
+            defect_norms.append(float(torch.linalg.norm(
+                p - out.reshape(p.shape))))
+        return out
+
+    reset_counts()
+    tpipe._exact_forward, sp.project = exact_forward, slab_project
+    try:
+        t0 = time.perf_counter()
+        res = convergence_study.study(convergence_study.parse_args([
+            "--device", str(dev), "--size", str(n), "--views", str(n_proj),
+            *STUDY_ARGS]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        tpipe._exact_forward, sp.project = exact_fwd, slab_fwd
+    launches = {"K1": slabk.slab_plane_fwd.launches,
+                "K2": slabk.slab_plane_adj.launches,
+                "K3": slabk.slab_arc_fwd.launches,
+                "K4": slabk.slab_arc_adj.launches,
+                "K5": slabk.slab_project_jac.launches}
+    rec, states = res["record"], res["states"]
+    stages = [s for s in ("fast", "exact", "polish", "cv", "debias")
+              if s in states]
+    prev, t_prev = rec["start"]["gauge_corrected"], 0.0
+    for st in stages:
+        its = [e for e in rec["iters"] if e["stage"] == st]
+        gc = its[-1]["gauge_corrected"]
+        print(f"study {st}: {len(its)} outers, wall "
+              f"{its[-1]['wall_s'] - t_prev:.2f} s, vol rel-L2 "
+              f"{its[0]['vol_rel_l2']:.4f} -> {its[-1]['vol_rel_l2']:.4f}, "
+              "gauge-corrected mean tx/tz/alpha/beta "
+              + "/".join(f"{prev[k]['mean']:.4g}" for k in
+                         ("tx", "tz", "alpha", "beta")) + " -> "
+              + "/".join(f"{gc[k]['mean']:.4g}" for k in
+                         ("tx", "tz", "alpha", "beta")))
+        for k in ("tx", "tz"):
+            check(gc[k]["mean"] <= prev[k]["mean"],
+                  f"study {st}: mean |{k}| rose {prev[k]['mean']} -> "
+                  f"{gc[k]['mean']}")
+        prev, t_prev = gc, its[-1]["wall_s"]
+    fr = rec["final_recon"]
+    print(f"study final recon: {fr['iters']} plane CGLS iterations x "
+          f"{fr['debias_rounds']} defect rounds, rel-L2 per round "
+          + "/".join(f"{v:.4f}" for v in fr["rounds_rel_l2"])
+          + f", wall {fr['wall_s']:.2f} s; study wall {wall:.2f} s")
+    b_norm = float(torch.linalg.norm(torch.as_tensor(res["projections"])))
+    defects = [v / b_norm for v in defect_norms]
+    print(f"study debias defect rel per recompute: {defects}")
+    n_debias = -(-int(rec["config"]["outers_debias"])
+                 // int(rec["config"]["debias_period"]))
+    check(len(defects) == n_debias
+          and all(np.isfinite(v) and v > 0 for v in defects),
+          f"debias defect rel {defects}, expected {n_debias} recomputes")
+    print("phase-11 study kernel launches: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    check(min(launches.values()) > 0,
+          f"the study did not launch K1-K5: {launches}")
+
+    geom, proj = res["geom"], res["projections"]
+    final = states["final"]
+    truth = {"xyz": np.stack([res["truth"]["tx"], np.zeros(n_proj),
+                              res["truth"]["tz"]], 1),
+             "alpha": res["truth"]["alpha"], "beta": res["truth"]["beta"],
+             "phi": res["phi"]}
+    e_in = param_errors(final.views.theta6().cpu().double().numpy(), truth)
+    print(f"frozen_polish input: gauge-corrected mean/max {fmt_errors(e_in)}")
+    for fam, iters in (("slab", 40), ("ray", 10)):
+        before = slabk.slab_project_jac.launches
+        t0 = time.perf_counter()
+        pol = tpipe.frozen_polish(proj, geom, final.views, final.volume,
+                                  family=fam, refine_iters=iters,
+                                  moment=True, device=dev)
+        torch.cuda.synchronize()
+        e = param_errors(pol.views.theta6().cpu().double().numpy(), truth)
+        print(f"frozen_polish {fam} ({iters} LM iterations, moment): wall "
+              f"{time.perf_counter() - t0:.2f} s, gauge-corrected mean/max "
+              f"{fmt_errors(e)}; K5 launches "
+              f"{slabk.slab_project_jac.launches - before}")
+        check(torch.equal(pol.volume, final.volume),
+              f"frozen_polish {fam} changed the volume")
+        check(np.isfinite(pol.views.theta6().cpu().numpy()).all(),
+              f"frozen_polish {fam}: non-finite theta")
+
+    # 11c: the kernels at this phase's own shapes, after the counts are read
+    vol = torch.as_tensor(res["phantom"], device=dev)
+    pl = pair_errors(slab_groups(geom, states["fast"].views, vol, "plane",
+                                 dev), geom, "plane")
+    ex = pair_errors(slab_groups(geom, states["exact"].views, vol, "arc",
+                                 dev), geom, "arc")
+    K = int(rec["config"]["cv_folds"])
+    comp = np.setdiff1d(np.arange(n_proj), np.arange(0, n_proj, K))
+    fold = np.arange(0, n_proj, K)
+    cgeom = dataclasses.replace(geom, n_proj=len(comp))
+    fgeom = dataclasses.replace(geom, n_proj=len(fold))
+    cv_views = states["cv"].views
+    cv = pair_errors(slab_groups(cgeom, cv_views.take(comp), vol, "arc",
+                                 dev), cgeom, "arc")
+    jac_rel, jac_abs = 0.0, 0.0
+    for vol_or, sc, _ in slab_groups(fgeom, cv_views.take(fold), vol, "arc",
+                                     dev):
+        kj = slabk.slab_project_jac(vol_or, sc, fgeom)
+        check(torch.equal(kj, slabk.slab_project_jac(vol_or, sc, fgeom)),
+              "two K5 applies differ")
+        rj = slabk.slab_project_jac_plain(vol_or, sc, fgeom)
+        jac_rel = max(jac_rel, float(per_view_rel(kj, rj).max()))
+        jac_abs = max(jac_abs, float((kj - rj).abs().max()))
+    print(f"phase-11 shapes: K1/K2 at {n}^3 x {n_proj} views (the fast "
+          f"stage's final theta) fwd rel {pl['fwd_rel']:.3e}, adj rel "
+          f"{pl['adj_rel']:.3e}, identity {pl['dot']:.3e}; K3/K4 at {n}^3 x "
+          f"{n_proj} views (the exact "
+          f"stage's final theta) fwd rel {ex['fwd_rel']:.3e}, adj rel "
+          f"{ex['adj_rel']:.3e}, identity {ex['dot']:.3e}; K3/K4 at one CV "
+          f"complement ({len(comp)} views) fwd rel {cv['fwd_rel']:.3e}, adj "
+          f"rel {cv['adj_rel']:.3e}, identity {cv['dot']:.3e}; K5 at one CV "
+          f"fold ({len(fold)} views) max per-view field rel {jac_rel:.3e} "
+          f"(tol {TOL_JAC}), max abs {jac_abs:.3e}; two applies of each "
+          "bit-identical")
+    check_pair(pl, "K1", "K2")
+    check_pair(ex, "K3", "K4")
+    check_pair(cv, "K3", "K4")
+    check(jac_rel <= TOL_JAC, f"K5 at a CV fold: {jac_rel}")
+    return {"wall": wall, "launches": launches}
 
 
 def main():
@@ -1103,7 +1470,9 @@ def main():
         kr = phase_resample(dev)
         fast_launches, _ = phase_fast_align(tmp, dev)
         phase_config2(tmp, dev)
-        phase_config1(tmp, dev)
+        ray_ms = phase_config1(tmp, dev)
+        phase_exact_align(tmp, dev, ray_ms)
+        phase_study(dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -125,10 +125,9 @@ def test_reconstruct_solvers_match_tomojax(dataset, tmp_path, method,
 
 
 @pytest.mark.parametrize("argv, match", [
-    (["align", "-i", "x.h5", "-o", "y.npy"], "ROADMAP"),
     # with more than one card (two seen here) --shard is not ported
-    (["reconstruct", "-i", "x.h5", "-o", "y.npy", "--shard", "--device",
-      "cuda"], "item 18"),
+    pytest.param(["reconstruct", "-i", "x.h5", "-o", "y.npy", "--shard",
+                  "--device", "cuda"], "item 18", id="argv1-item 18"),
 ])
 def test_unported_paths_raise(argv, match, monkeypatch):
     if "--shard" in argv:

@@ -1,6 +1,7 @@
 """The CUDA kernels K1-K5, K7 and K8 against their plain PyTorch versions,
 on the card, and the plain-PyTorch modules (cross-correlation, the
-regularized solvers, the exact ray family) on the card against the CPU.
+regularized solvers, the exact ray family and its LM) and the CV driver on
+the card against the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 no JAX, so on the card it runs without the JAX conftest:
@@ -22,7 +23,8 @@ import pytest
 import torch
 
 from tomojax_torch.align import cc
-from tomojax_torch.align.refine import gradient_descent_views
+from tomojax_torch.align.pipeline import align_reconstruct_cv
+from tomojax_torch.align.refine import gradient_descent_views, refine_views
 from tomojax_torch.align.slab_refine import refine_views_slab
 from tomojax_torch.core import fast_projector as fastp
 from tomojax_torch.core import phantom
@@ -742,7 +744,7 @@ def test_gd_fast_on_card_tracks_cpu(cuda):
     th0 = th.copy()
     th0[:, [0, 2]] += 0.3
     th0[:, [4, 5]] = 0.0
-    kw = dict(max_iter=4)
+    kw = dict(max_iter=4, family="fast")
     cpu = gradient_descent_views(vol, meas, geom, torch.as_tensor(th0),
                                  torch.zeros(6, 3), dtype=torch.float64, **kw)
     before = rs.resample_transpose.launches
@@ -843,3 +845,58 @@ def test_ray_operator_on_card_tracks_cpu_float64(cuda):
     scale = (torch.linalg.norm(ax.double())
              * float(np.linalg.norm(y)))
     assert float(abs(lhs - rhs) / scale) <= 1e-5
+
+
+def _exact_problem(n=32, n_proj=12, seed=0):
+    """Noise-free ray-family data of jittered views over [0.2, π + 0.2),
+    float64, and starts ±0.3 px off with zero tilts."""
+    rng = np.random.default_rng(seed)
+    geom = Geometry(n_proj=n_proj, vox_shape=(n,) * 3, det_shape=(n, n))
+    th = np.zeros((n_proj, 6))
+    th[:, 3] = 0.2 + np.linspace(0, np.pi, n_proj, endpoint=False)
+    th[:, [0, 2]] = rng.uniform(-1, 1, (n_proj, 2))
+    th[:, [4, 5]] = rng.uniform(-0.01, 0.01, (n_proj, 2))
+    vol = torch.as_tensor(phantom.shepp3d(n), dtype=torch.float64)
+    meas = make_operator(geom, Views.from_theta6(torch.as_tensor(th)),
+                         dtype=torch.float64, device="cpu").A(vol)
+    th0 = th.copy()
+    th0[:, [0, 2]] += rng.uniform(-0.3, 0.3, (n_proj, 2))
+    th0[:, [4, 5]] = 0.0
+    return geom, vol, meas, th0
+
+
+def test_exact_lm_on_card_tracks_cpu_float64(cuda):
+    """The exact-family box LM (``refine_method="lm"``) in float32 on the
+    card against float64 on the CPU: translations within 1e-3 px, tilts
+    within 1e-5 rad."""
+    geom, vol, meas, th0 = _exact_problem()
+    views = Views.from_theta6(torch.as_tensor(th0))
+    box = np.array([3.0, 3.0, 3.0, np.inf, 0.02, 0.02])
+    kw = dict(lower=th0 - box, upper=th0 + box, max_iter=12)
+    cpu = refine_views(vol, meas, geom, views, dtype=torch.float64, **kw)
+    card = refine_views(vol.float().to(cuda), meas.float().to(cuda), geom,
+                        views, **kw)
+    assert card.theta6.device.type == "cuda"
+    err = (card.theta6.cpu().double() - cpu.theta6).abs().max(0).values
+    assert float(err[[0, 2]].max()) <= 1e-3, err
+    assert float(err[[4, 5]].max()) <= 1e-5, err
+
+
+def test_align_cv_outer_on_card_tracks_cpu(cuda):
+    """One outer of ``align_reconstruct_cv`` (K = 3, arc CGLS on K3/K4,
+    slab LM on K5, the moment hook) in float32 on the card against
+    float64 on the CPU: θ within 1e-3 (px and rad), the volume within 1e-4
+    relative."""
+    geom, vol, meas, th0 = _exact_problem(n_proj=12)
+    views = Views.from_theta6(torch.as_tensor(th0))
+    kw = dict(outer_iters=1, recon_iters=8, refine_iters=4, folds=3)
+    cpu = align_reconstruct_cv(meas, geom, views, dtype=torch.float64,
+                               device="cpu", **kw)
+    before = slabk.slab_project_jac.launches
+    card = align_reconstruct_cv(meas.float().to(cuda), geom, views, **kw)
+    assert slabk.slab_project_jac.launches > before
+    err = (card.views.theta6().cpu().double() - cpu.views.theta6()).abs()
+    assert float(err.max()) <= 1e-3, err.max(0)
+    rel = (torch.linalg.norm(card.volume.cpu().double() - cpu.volume)
+           / torch.linalg.norm(cpu.volume))
+    assert float(rel) <= 1e-4, rel

@@ -143,7 +143,8 @@ def test_gradient_descent_views_matches_tomojax_vmap(gd_prob, monkeypatch):
     got = trefine.gradient_descent_views(
         torch.as_tensor(p["vol"]), torch.as_tensor(p["meas"]), p["tg"],
         torch.as_tensor(p["th0"]), torch.as_tensor(p["cor"]),
-        mask=trefine.PARAM_SETS["xzab"], max_iter=3, dtype=F64)
+        mask=trefine.PARAM_SETS["xzab"], max_iter=3, family="fast",
+        dtype=F64)
     ref = p["ref"]
     assert sorted(brute) == [False, True]
     np.testing.assert_allclose(got.theta6.numpy(), ref.theta6, rtol=0,
@@ -159,7 +160,7 @@ def test_gradient_descent_view_is_one_view_of_the_batch(gd_prob):
     one = trefine.gradient_descent_view(
         torch.as_tensor(p["vol"]), torch.as_tensor(p["meas"][k]), p["tg"],
         torch.as_tensor(p["th0"][k]), torch.as_tensor(p["cor"][k]),
-        max_iter=3, dtype=F64)
+        max_iter=3, family="fast", dtype=F64)
     np.testing.assert_allclose(one.theta6.numpy(), p["ref"].theta6[k],
                                rtol=0, atol=1e-8)
     assert int(one.n_iter) == int(p["ref"].n_iter[k])

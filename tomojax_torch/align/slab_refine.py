@@ -25,7 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tomojax_torch.align.refine import PARAM_SETS, RefineResult
+from tomojax_torch.align.refine import (PARAM_SETS, RefineResult, _box,
+                                        _mask)
 from tomojax_torch.core import slab_projector as sp
 from tomojax_torch.core.geometry import Geometry, Views
 from tomojax_torch.kernels import slab as slabk
@@ -108,13 +109,8 @@ def refine_views_slab(vol, projections, geom: Geometry, views: Views, *,
     theta_all = views.theta6().to(**kw)
     cor_all = views.cor.to(**kw)
 
-    def box(bound, fill):
-        if bound is None:
-            return torch.full((n, 6), fill, **kw)
-        return torch.as_tensor(bound).to(**kw).broadcast_to((n, 6))
-
-    lo, hi = box(lower, -np.inf), box(upper, np.inf)
-    mask_f = torch.as_tensor(np.asarray(mask, np.float64), **kw)
+    lo, hi = _box(lower, -np.inf, n, **kw), _box(upper, np.inf, n, **kw)
+    mask_f = _mask(mask, **kw)
     if groups is None:
         groups = [g for g in sp._orient_groups(views.numpy(), geom)]
     vol = vol.reshape(geom.vox_shape).to(**kw)

@@ -11,14 +11,14 @@ raises). Ported so far:
   ``tikhonov``, ``lasso`` or ``fista_tv`` on ``solver.family`` ``ray``,
   ``slab``, ``slab_plane`` or ``fast``, and ``--pre-align
   none|com|cc``;
-- ``align`` with ``align.family`` ``slab``, ``slab_plane`` or ``fast`` and
-  ``align.refine_method`` ``lm_slab`` or ``gd_fast`` (COM pre-alignment
-  with ``align.pre_align_cc=true``).
+- ``align`` with ``align.family`` ``ray`` (the default), ``slab``,
+  ``slab_plane`` or ``fast``, ``align.refine_method`` ``lm`` (the
+  default), ``lm_slab`` or ``gd_fast`` and ``align.debias_period`` (COM
+  pre-alignment with ``align.pre_align_cc=true``).
 
 ``reconstruct --shard`` builds the plain operator on one device, as
-tomojax does; over more than one CUDA device it raises, as do the voxel
-family, ``align`` on the ray family and the other refiners:
-``NotImplementedError`` naming their ROADMAP item.
+tomojax does; over more than one CUDA device it raises, as does the voxel
+family: ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -254,8 +254,7 @@ def cmd_align(args):
 
     cfg = _load_config(args)
     a = cfg.align
-    _check_supported(a.family, a.recon, a.refine_method, a.debias_period,
-                     a.recon_prec)
+    _check_supported(a.family, a.recon, a.refine_method, a.recon_prec)
     device = resolve_device(args.device)
     d = io.load_dataset(args.input)
     n_proj, nu, nv = d["projections"].shape

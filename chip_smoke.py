@@ -125,9 +125,40 @@ script exits non-zero:
    views) against their plain versions with phase 3/5's tolerances, two
    applies bit-identical.
 
-The JSON line's launches count phase 4 for K1/K2 (all three CGLS runs
-and ``simulate``), phase 6 for K3-K6 and phase 8 for K7-K9; phases 9, 10
-and 11 print their own.
+12. BASELINE config 5 at 512³ × 1024 views × 512² detector
+   (``tomojax_torch/tools/config5.py``; the phantom made once on the
+   host and timed). 12a: ``--prealign cc`` + 10 CGLS iterations on
+   slab_plane, every timing of the record beside the card's name and
+   power limit, K1/K2's launches; rel-L2 at iteration 10 ≤ 0.25 (the JAX
+   record 0.2383), CGLS's conv falling at every iteration, the CC
+   residual's gauge-corrected mean |tx| ≤ 0.35 px and |tz| ≤ 0.15 px (the
+   record 0.278 / 0.103), K1 and K2 launched. 12b: K1/K2 at 512³ against
+   their plain versions (one view per chunk at this size) on 32 of the
+   views, covering every orientation group, with phase 3's tolerances
+   and two applies bit-identical; their time per 1024-view apply beside
+   ``utils/roofline``'s bound. 12c: ``--mode mesh`` in a world of one over
+   NCCL at 512³ × 16 views: the angle-sharded slab_plane operator
+   bit-equal to the unsharded one, the volume-sharded slab operator
+   (plane and arc, halo 32) within 1e-5 of it, forward and adjoint;
+   the plane operator's distance at halos 8 and 32 on the white-noise
+   volume and on the phantom printed (fp32 rounding or a frame offset).
+   12d: the voxel family at 128³ × 90 views, fp32 on the card against
+   float64 on the CPU: A per-view and Aᵀ relative L2 ≤ 1e-5, the adjoint
+   identity ≤ 1e-5, the Jacobian's median per field over 10 views ≤ 1e-4
+   against fp32 on the CPU at the same θ (against float64 printed, card
+   and CPU: fp32's pixel-edge flips put both ~1e-3 off; ty, zero in this
+   family, printed); two forwards' difference
+   (float atomics) and the times printed; ``native`` (g++) forward and
+   adjoint against the ray family in float64 on the card ≤ 1e-12 over 4
+   views. 12e: ``utils.profiling.trace`` around one CGLS iteration at
+   512³: the device busy share and the top kernels' shares of device
+   time, K2's first; K1 and K2 must show device time.
+
+The JSON line's launches count phases 4 and 12a for K1/K2 (all three CGLS
+runs and ``simulate``, and config 5), phase 6 for K3-K6 and phase 8 for
+K7-K9; phases 9, 10, 11 and 12c print their own. Bounds come from
+``tomojax_torch/utils/roofline.py``, timers from
+``tomojax_torch/utils/profiling.py``.
 
 Every kernel's entry in the JSON line carries its time, its plain
 version's, the time of one PyTorch call computing the same function where
@@ -144,16 +175,17 @@ import dataclasses
 import json
 import os
 import shutil
-import subprocess
+import socket
 import sys
 import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import tomojax_torch.align as talign
-from tomojax_torch import cli
+from tomojax_torch import cli, native
 from tomojax_torch.align import com_align
 from tomojax_torch.align import pipeline as tpipe
 from tomojax_torch.align import refine as trefine
@@ -161,13 +193,17 @@ from tomojax_torch.core import fast_projector as fastp
 from tomojax_torch.core import phantom
 from tomojax_torch.core import projector as rproj
 from tomojax_torch.core import slab_projector as sp
+from tomojax_torch.core import voxel_projector as vox
 from tomojax_torch.core.geometry import Geometry, Views
 from tomojax_torch.core.operators import make_operator
 from tomojax_torch.kernels import _build
 from tomojax_torch.kernels import resample as rs
 from tomojax_torch.kernels import slab as slabk
-from tomojax_torch.tools import config1, config2, convergence_study
-from tomojax_torch.utils import io
+from tomojax_torch.recon.cgls import cgls_init, cgls_steps
+from tomojax_torch.tools import config1, config2, config5, convergence_study
+from tomojax_torch.tools._baseline import smi_line
+from tomojax_torch.utils import io, profiling, roofline
+from tomojax_torch.utils.profiling import cuda_ms, event_timed
 
 N, N_PROJ, SEED = 256, 180, 0
 N_ARC = 90                 # config 4: 90 views
@@ -205,11 +241,22 @@ EXACT_N, EXACT_VIEWS = 64, 90   # phase 11: 64^3 x 90 views
 EXACT_OUTERS = 10          # cli align's default outer_iters
 TOL_RAY_JAC = 1e-4         # ray Jacobian, fp32 card vs float64 CPU
 JAC_VIEWS = 30             # views of that check (the CPU's float64 march)
+C5_N, C5_VIEWS, C5_NITER = 512, 1024, 10   # phase 12: BASELINE config 5
+C5_REL_L2_MAX = 0.25       # at iteration 10 (JAX record 0.2383)
+C5_TX_MAX, C5_TZ_MAX = 0.35, 0.15   # px, CC residual, gauge-corrected
+#                            mean (JAX record 0.278 / 0.103)
+C5_CHECK_VIEWS = 32        # views of 12b's checks against the plain path
+MESH_VIEWS = config5.MESH_VIEWS
+TOL_MESH = 1e-5            # volume-sharded vs unsharded, fwd and adjoint
+VOX_N, VOX_VIEWS = 128, 90  # 12d: the voxel family
+VOX_JAC_VIEWS = 10
+TOL_VOX = 1e-5             # per-view rel L2 vs float64, adjoint identity
+TOL_VOX_JAC = 1e-4         # median per field, card vs CPU fp32
+NATIVE_VIEWS = 4
+TOL_NATIVE = 1e-12         # native vs the ray family, float64
 STUDY_ARGS = ["--outers-fast", "8", "--outers-exact", "4",
               "--outers-debias", "2", "--outers-cv", "2", "--cv-folds",
               "10", "--final-recon-iters", "120"]
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
-F32_FLOPS = 67e12          # H100 SXM, published fp32 outside tensor cores
 
 
 def check(ok, msg):
@@ -217,52 +264,11 @@ def check(ok, msg):
         raise RuntimeError(f"check failed: {msg}")
 
 
-def smi_line() -> str:
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    return res.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps):
-    """Mean device time of ``fn`` in ms over ``reps`` runs, after one
-    warm-up run (CUDA events)."""
-    fn()
-    torch.cuda.synchronize()
-    return timed(fn, reps)[1]
-
-
-def timed(fn, reps=1):
-    """``(last output, mean ms)`` of ``reps`` runs of ``fn`` (CUDA
-    events, no warm-up)."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        out = fn()
-    end.record()
-    end.synchronize()
-    return out, start.elapsed_time(end) / reps
-
-
-def bound(nbytes, flops):
-    """``(ms, "bytes" or "operations")``: the least time for moving
-    ``nbytes`` and doing ``flops`` at the card's published peaks."""
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / F32_FLOPS * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
-
-
-def slab_bound(groups, taps, fields=1):
-    """Bound of a slab kernel over an apply's orientation groups: it reads
-    each oriented volume, the scalars and writes (or reads) ``fields``
-    detector images per view; it does a multiply-add per tap of each
-    sample (one sample per slab per ray) for each field."""
-    nbytes = flops = 0
-    for vol_or, sc, y in groups:
-        nbytes += 4 * (vol_or.numel() + sc.numel() + fields * y.numel())
-        flops += 2 * taps * fields * y.numel() * vol_or.shape[1]
-    return bound(nbytes, flops)
+def groups_bound(geom, groups, quad, fields=1):
+    """``roofline.slab_bound`` of one apply over the orientation groups
+    ``(vol_or, scalars, y)`` of ``slab_groups``."""
+    return roofline.slab_bound(geom, quad, sum(sc.shape[0] for _, sc, _ in
+                                               groups), fields, len(groups))
 
 
 def reset_counts():
@@ -363,7 +369,7 @@ def phase_kernels(dev):
           f"{N_PROJ}-view apply ({N}^3)")
     print(f"K2 {t['adj']:.3f} ms vs plain {t['adj_plain']:.3f} ms per "
           f"{N_PROJ}-view apply ({N}^3)")
-    t["bound"] = slab_bound(groups, taps=4)
+    t["bound"] = groups_bound(geom, groups, "plane")
     for label, fn, arg in (("K1", slabk.slab_plane_fwd, 0),
                            ("K2", slabk.slab_plane_adj, 2)):
         per_group = [f"{cuda_ms(lambda: fn(g[arg], g[1], geom), 5):.3f} ms "
@@ -478,7 +484,8 @@ def phase_arc_kernels(dev):
         kj = slabk.slab_project_jac(vol_or, sc, geom)
         check(torch.equal(kj, slabk.slab_project_jac(vol_or, sc, geom)),
               "two K5 applies differ")
-        rj, ms = timed(lambda: slabk.slab_project_jac_plain(vol_or, sc, geom))
+        rj, ms = event_timed(
+            lambda: slabk.slab_project_jac_plain(vol_or, sc, geom))
         t["jac_plain"] += ms
         jac_rel = torch.maximum(jac_rel, per_view_rel(kj, rj).max(dim=0)
                                 .values.double().cpu())
@@ -522,8 +529,8 @@ def phase_arc_kernels(dev):
         "field": cuda_ms(fwd(slabk.slab_project, "arc", "x"), 3),
         "field_plain": cuda_ms(fwd(slabk.slab_project_plain, "arc", "x"), 1),
     })
-    t["bound"] = slab_bound(groups, taps=8)
-    t["bound_jac"] = slab_bound(groups, taps=8, fields=slabk.NJP)
+    t["bound"] = groups_bound(geom, groups, "arc")
+    t["bound_jac"] = groups_bound(geom, groups, "arc", fields=slabk.NJP)
     for k, label in (("fwd", "K3"), ("adj", "K4"), ("jac", "K5"),
                      ("field", "K6 entry (px)")):
         print(f"{label} {t[k]:.3f} ms vs plain {t[k + '_plain']:.3f} ms per "
@@ -853,8 +860,8 @@ def phase_resample(dev):
     print(f"grid_sample vs K7's plain version: max rel L2 "
           f"{max(err['lib_fwd']):.3e}; its input gradient vs K8's: "
           f"{max(err['lib_adj']):.3e} (tol {TOL_LIBRARY})")
-    t["bound_fwd"] = bound(*work["fwd"])
-    t["bound_adj"] = bound(*work["adj"])
+    t["bound_fwd"] = roofline.bound(*work["fwd"])
+    t["bound_adj"] = roofline.bound(*work["adj"])
     for k, label in (("fwd", "K7"), ("adj", "K8")):
         b_ms, b_by = t["bound_" + k]
         print(f"{label} {t[k]:.3f} ms vs plain {t[k + '_plain']:.3f} ms vs "
@@ -864,7 +871,7 @@ def phase_resample(dev):
     for pas, what in ((3, "a3 stored (V, nx, nv, nj)"),
                       (2, "a2 stored (V, nx, ny, nv)"),
                       (1, "views summed into the volume")):
-        b_ms, b_by = bound(*work[f"p{pas}"])
+        b_ms, b_by = roofline.bound(*work[f"p{pas}"])
         print(f"K8 pass {pas} ({what}): {t[f'adj_p{pas}']:.3f} ms vs "
               f"library {t[f'adj_lib_p{pas}']:.3f} ms; bound {b_ms:.3f} ms "
               f"({b_by}: {work[f'p{pas}'][0] / 1e9:.2f} GB)")
@@ -1444,6 +1451,284 @@ def phase_study(dev, n=EXACT_N, n_proj=EXACT_VIEWS):
     return {"wall": wall, "launches": launches}
 
 
+def free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def phase_config5(tmp, dev):
+    """Phase 12: BASELINE config 5 at 512³ × 1024 views (12a), K1/K2 at
+    its shapes (12b), the sharded operators in a world of one over NCCL
+    (12c), the voxel family and ``native`` (12d) and a trace of one CGLS
+    iteration (12e)."""
+    t0 = time.perf_counter()
+    vol_np = phantom.shepp3d(C5_N)
+    print(f"12: the {C5_N}^3 phantom on the host: "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # ---- 12a: tools/config5, CC pre-alignment + CGLS -----------------
+    reset_counts()
+    t0 = time.perf_counter()
+    rec = config5.main(["--prealign", "cc", "--niter", str(C5_NITER),
+                        "--out", os.path.join(tmp, "config5.json")],
+                       volume=vol_np)
+    wall = time.perf_counter() - t0
+    launches = {"fwd": slabk.slab_plane_fwd.launches,
+                "adj": slabk.slab_plane_adj.launches}
+    conv = rec["cgls_conv"]
+    print(f"12a config 5 ({C5_N}^3, {C5_VIEWS} views, CC + CGLS "
+          f"{C5_NITER}) on {rec['device']['smi']}: datagen "
+          f"{rec['t_datagen_s']:.3f} s ({rec['datagen_proj_per_s']:.1f} "
+          f"proj/s), CC {rec['t_prealign_s']:.3f} s, CGLS "
+          f"{rec['t_cgls_s']:.3f} s ({rec['cgls_iters_run']} iterations, "
+          f"{rec['cgls_proj_per_s']:.1f} proj/s fwd+adj), wall to the "
+          f"aligned recon {rec['wall_to_aligned_recon_s']:.3f} s; "
+          f"tools/config5 in all {wall:.2f} s")
+    print(f"12a quality: rel-L2 {rec['vol_rel_l2']:.4f} (bar "
+          f"{C5_REL_L2_MAX}; JAX record 0.2383), CC gauge-corrected mean "
+          f"|tx| {rec['prealign_tx_gc_mean']:.4f} px, |tz| "
+          f"{rec['prealign_tz_gc_mean']:.4f} px (bars {C5_TX_MAX} / "
+          f"{C5_TZ_MAX}; record 0.278 / 0.103); conv "
+          + ", ".join(f"{c:.5g}" for c in conv))
+    print(f"12a launches: K1 {launches['fwd']}, K2 {launches['adj']}")
+    check(rec["cgls_iters_run"] == C5_NITER,
+          f"config 5 CGLS ran {rec['cgls_iters_run']} iterations")
+    check(rec["vol_rel_l2"] <= C5_REL_L2_MAX,
+          f"config 5 rel-L2 {rec['vol_rel_l2']}")
+    check(all(b < a for a, b in zip(conv, conv[1:])),
+          f"config 5 CGLS conv not falling: {conv}")
+    check(rec["prealign_tx_gc_mean"] <= C5_TX_MAX
+          and rec["prealign_tz_gc_mean"] <= C5_TZ_MAX,
+          "config 5 CC residual")
+    check(min(launches.values()) > 0, f"config 5 launches {launches}")
+
+    # ---- 12b: K1/K2 at 512^3 -----------------------------------------
+    geom, phi, t, _ = config5.problem(C5_N, C5_VIEWS)
+    views = Views.create(C5_VIEWS, phi=phi, t=t, device=dev)
+    vol = torch.as_tensor(vol_np, device=dev)
+    groups = slab_groups(geom, views, vol, "plane", dev)
+    sub = np.arange(0, C5_VIEWS, C5_VIEWS // C5_CHECK_VIEWS)
+    sub_groups = slab_groups(geom, views.take(sub), vol, "plane", dev)
+    check(len(sub_groups) == len(groups),
+          f"{len(sub)} views cover {len(sub_groups)} of {len(groups)} "
+          "orientation groups")
+    e = pair_errors(sub_groups, geom, "plane")
+    t_k1 = cuda_ms(lambda: [slabk.slab_plane_fwd(vo, sc, geom)
+                            for vo, sc, _ in groups], 3)
+    t_k2 = cuda_ms(lambda: [slabk.slab_plane_adj(y, sc, geom)
+                            for _, sc, y in groups], 3)
+    bnd = groups_bound(geom, groups, "plane")
+    print(f"12b K1/K2 at {C5_N}^3 on {len(sub)} of the views "
+          f"({len(sub_groups)} orientation groups): K1 max per-view rel L2 "
+          f"{e['fwd_rel']:.3e} (tol {TOL_FWD}), K2 {e['adj_rel']:.3e} (tol "
+          f"{TOL_ADJ}), adjoint identity {e['dot']:.3e} (tol {TOL_DOT}), "
+          "two applies bit-identical")
+    print(f"12b per {C5_VIEWS}-view apply ({len(groups)} groups): K1 "
+          f"{t_k1:.3f} ms, K2 {t_k2:.3f} ms; bound {bnd[0]:.3f} ms "
+          f"({bnd[1]}), K1 {t_k1 / bnd[0]:.1f}x, K2 {t_k2 / bnd[0]:.1f}x")
+    check_pair(e, "K1", "K2")
+    del groups, sub_groups
+
+    # ---- 12c: mesh mode, a world of one over NCCL ---------------------
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0,
+                            device_id=torch.device("cuda", dev.index or 0))
+    reset_counts()
+    try:
+        backend = dist.get_backend()
+        mrec = config5.main(["--mode", "mesh"])
+    finally:
+        dist.destroy_process_group()
+    mesh_launches = {fn.__name__: fn.launches for fn in COUNTED[:4]}
+    rels = {k: mrec[k] for k in mrec
+            if k.startswith("vol_") and k.endswith("_rel")}
+    print(f"12c mesh mode ({backend}, world {mrec['world']}, {C5_N}^3, "
+          f"{MESH_VIEWS} views): angle-sharded slab_plane bit-equal to the "
+          f"unsharded operator: A {mrec['angle_sharded_fwd_equal']}, AT "
+          f"{mrec['angle_sharded_adj_equal']}; volume-sharded (halo 32) "
+          "rel: " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
+          + f" (tol {TOL_MESH}; JAX record 1.9e-7 fwd, 7.2e-6 / 8.1e-6 "
+          "adj); times " + ", ".join(
+              f"{k[:-2]} {mrec[k]:.3f}" for k in mrec if k.endswith("_s"))
+          + f" s; launches {mesh_launches}")
+    check(backend == "nccl" and mrec["world"] == 1, "12c world")
+    check(mrec["angle_sharded_fwd_equal"] and mrec["angle_sharded_adj_equal"],
+          "angle-sharded slab_plane differs from the unsharded operator")
+    check(max(rels.values()) <= TOL_MESH, f"12c: {rels}")
+    mesh_frame_readings(vol_np, dev)
+
+    # ---- 12d: the voxel family and native -----------------------------
+    phase_voxel(dev)
+
+    # ---- 12e: a trace of one CGLS iteration at 512^3 ------------------
+    op = make_operator(geom, views, family="slab_plane", device=dev)
+    b = op.A(vol)
+    state = cgls_init(op, b)
+    state, _, _ = cgls_steps(op, b, state, nsteps=1, niter=3)
+    torch.cuda.synchronize()
+    with profiling.trace(os.path.join(tmp, "trace")) as prof:
+        t0 = time.perf_counter()
+        cgls_steps(op, b, state, nsteps=1, niter=3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kt = profiling.kernel_times(prof)
+    total = sum(kt.values())
+    k2 = sum(v for k, v in kt.items() if "adj_kernel" in k)
+    k1 = sum(v for k, v in kt.items() if "fwd_kernel" in k)
+    check(k1 > 0 and k2 > 0, "12e: the trace holds no K1/K2 device time")
+    def short(name):
+        name = name.replace("(anonymous namespace)::", "")
+        return name.replace("void ", "").split("(")[0][:48]
+
+    top = ", ".join(f"{short(k)} {v / total:.1%}"
+                    for k, v in list(kt.items())[:5])
+    print(f"12e one CGLS iteration at {C5_N}^3 x {C5_VIEWS} views "
+          f"(torch.profiler): wall {wall * 1e3:.1f} ms, device busy "
+          f"{total / 1e6 / wall:.1%}; K2 {k2 / total:.1%} of device time, "
+          f"K1 {k1 / total:.1%}; top kernels: {top}")
+    return launches
+
+
+def mesh_frame_readings(vol_np, dev):
+    """12c: what sets the volume-sharded plane operator's distance from the
+    unsharded one in a world of one, printed: A and Aᵀ (of A x) at halos 8
+    and 32 on mesh mode's white-noise volume and on the phantom. The block's
+    z frame is the volume's moved by the halo; fp32 rounding of z there
+    keeps its size from halo 8 to 32 and is smaller on a smooth volume,
+    where an error in the frame's offset would grow with the halo."""
+    from tomojax_torch.dist import make_mesh, make_volume_sharded_slab_operator
+    geom, phi, t, rng = config5.problem(C5_N, MESH_VIEWS)
+    views = Views.create(MESH_VIEWS, phi=phi, t=t)
+    vols = {"noise": rng.standard_normal((C5_N,) * 3).astype(np.float32),
+            "phantom": vol_np}
+    plain = make_operator(geom, views, family="slab_plane", device=dev)
+    out = []
+    with torch.no_grad():
+        for name, x in vols.items():
+            x = torch.as_tensor(x, device=dev)
+            y = plain.A(x)
+            b = plain.AT(y)
+            for halo in (8, 32):
+                op = make_volume_sharded_slab_operator(
+                    geom, views, make_mesh(), quad="plane", halo=halo,
+                    device=dev)
+                out.append(f"{name} halo {halo}: A {rel_l2(op.A(x), y):.3e},"
+                           f" AT {rel_l2(op.AT(y), b):.3e}")
+    print("12c volume-sharded plane vs unsharded, rel L2 (printed, not "
+          "bounded): " + "; ".join(out))
+
+
+def phase_voxel(dev):
+    """12d: the voxel family at 128³ × 90 views on the card against
+    float64 on the CPU, and ``native`` against the ray family."""
+    n, n_proj = VOX_N, VOX_VIEWS
+    rng = np.random.default_rng(SEED)
+    geom = Geometry(n_proj=n_proj, vox_shape=(n,) * 3, det_shape=(n, n))
+    kw = dict(phi=np.linspace(0.0, np.pi, n_proj, endpoint=False),
+              alpha=rng.uniform(-0.01, 0.01, n_proj),
+              beta=rng.uniform(-0.01, 0.01, n_proj),
+              t=np.stack([rng.uniform(-2, 2, n_proj), np.zeros(n_proj),
+                          rng.uniform(-2, 2, n_proj)], -1))
+    v32 = Views.create(n_proj, **kw)
+    v64 = Views.create(n_proj, **kw, dtype=torch.float64)
+    vol_np = phantom.shepp3d(n)
+    vol = torch.as_tensor(vol_np, device=dev)
+    vol64 = torch.as_tensor(vol_np, dtype=torch.float64)
+    op = make_operator(geom, v32, family="voxel", device=dev)
+    ref = make_operator(geom, v64, family="voxel", dtype=torch.float64,
+                        device="cpu")
+    sino = op.A(vol)
+    repeat = float((op.A(vol) - sino).abs().max())
+    t0 = time.perf_counter()
+    sino64 = ref.A(vol64)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    y = torch.randn((n_proj, geom.n_det), generator=gen, device=dev)
+    aty64 = ref.AT(y.cpu().double())
+    cpu_s = time.perf_counter() - t0
+    aty = op.AT(y)
+    rel_a = float(per_view_rel(sino.cpu().double().reshape(n_proj, n, n),
+                               sino64.reshape(n_proj, n, n)).max())
+    rel_at = float(torch.linalg.norm(aty.cpu().double() - aty64)
+                   / torch.linalg.norm(aty64))
+    lhs = torch.dot(sino.double().reshape(-1), y.double().reshape(-1))
+    rhs = torch.dot(vol.double().reshape(-1), aty.double().reshape(-1))
+    dot = float(abs(lhs - rhs) / (torch.linalg.norm(sino.double())
+                                  * torch.linalg.norm(y.double())))
+    t_A = cuda_ms(lambda: op.A(vol), 3)
+    t_AT = cuda_ms(lambda: op.AT(y), 3)
+    print(f"12d voxel family ({n}^3, {n_proj} views), fp32 card vs float64 "
+          f"CPU: A max per-view rel L2 {rel_a:.3e}, AT rel L2 {rel_at:.3e} "
+          f"(tol {TOL_VOX}; CPU {cpu_s:.2f} s); adjoint identity {dot:.3e} "
+          f"(tol {TOL_VOX}); two card A applies differ by max abs "
+          f"{repeat:.3e} (float atomics); A {t_A:.3f} ms, AT {t_AT:.3f} ms "
+          "per apply")
+    check(rel_a <= TOL_VOX and rel_at <= TOL_VOX,
+          f"voxel A/AT vs float64: {rel_a}, {rel_at}")
+    check(dot <= TOL_VOX, f"voxel adjoint identity {dot}")
+
+    # the Jacobian: fp32 on the card and on the CPU against float64. The
+    # splat's weight gradient jumps where a voxel centre crosses a pixel
+    # edge, and fp32 puts the centres within its rounding of an edge on
+    # the other side: fp32 itself sits ~1e-3 from float64 on the phantom,
+    # so the card is held to the CPU's fp32 at the same θ
+    idx = np.arange(0, n_proj, n_proj // VOX_JAC_VIEWS)[:VOX_JAC_VIEWS]
+    f64 = [getattr(v64, f)[idx] for f in ("phi", "alpha", "beta", "t",
+                                            "cor")]
+    _, j64 = vox.forward_views_jac(vol64, geom, *f64, dtype=torch.float64)
+    _, j32 = vox.forward_views_jac(vol, geom, *(a.float().to(dev)
+                                                for a in f64))
+    _, jcpu = vox.forward_views_jac(vol.cpu(), geom,
+                                    *(a.float() for a in f64))
+    j32 = j32.cpu().double()
+
+    def rel(a, b):                     # per (view, field); ty is 0/0
+        return torch.linalg.norm(a - b, dim=2) / torch.linalg.norm(b, dim=2)
+
+    names = ("tx", "ty", "tz", "phi", "alpha", "beta")
+
+    def fields(v):
+        return ", ".join(f"{k} {x:.3e}" for k, x in zip(names, v.tolist()))
+
+    card_cpu = rel(j32, jcpu.double()).median(0).values
+    print(f"12d voxel Jacobian over {len(idx)} views, relative L2 per (view, "
+          f"field), median per field: card fp32 vs CPU fp32 "
+          f"{fields(card_cpu)} (tol {TOL_VOX_JAC}); card fp32 vs float64 "
+          f"{fields(rel(j32, j64).median(0).values)}; CPU fp32 vs float64 "
+          f"{fields(rel(jcpu.double(), j64).median(0).values)}")
+    # ty: the voxel family drops each voxel along y, so its ty column is
+    # zero (0/0 here)
+    check(bool((card_cpu[[0, 2, 3, 4, 5]] <= TOL_VOX_JAC).all()),
+          f"voxel Jacobian card vs CPU fp32: {card_cpu.tolist()}")
+
+    t0 = time.perf_counter()
+    check(native.is_available(), "native: g++ could not build tomonative")
+    build_s = time.perf_counter() - t0
+    g1 = Geometry(n_proj=1, vox_shape=(n,) * 3, det_shape=(n, n))
+    vol64_dev = vol64.to(dev)
+    worst = 0.0
+    for i in idx[:NATIVE_VIEWS]:
+        args = [getattr(v64, f)[i] for f in ("phi", "alpha", "beta", "t",
+                                                "cor")]
+        a_nat = native.forward_view(vol_np, g1, *(a.numpy() for a in args))
+        a_ray = rproj.forward_view(vol64_dev, g1, *(a.to(dev) for a in args),
+                                   dtype=torch.float64).cpu().numpy()
+        yv = y[i].double().cpu().numpy()
+        b_nat = native.backproject_view(yv, g1, *(a.numpy() for a in args))
+        b_ray = rproj.backproject_view(torch.as_tensor(yv, device=dev),
+                                       g1.vox_shape, g1,
+                                       *(a.to(dev) for a in args),
+                                       dtype=torch.float64).cpu().numpy()
+        worst = max(worst,
+                    np.linalg.norm(a_nat - a_ray) / np.linalg.norm(a_ray),
+                    np.linalg.norm(b_nat - b_ray) / np.linalg.norm(b_ray))
+    print(f"12d native (g++ build {build_s:.2f} s) forward and adjoint vs the "
+          f"ray family in float64 on the card over {NATIVE_VIEWS} views: max "
+          f"rel L2 {worst:.3e} (tol {TOL_NATIVE})")
+    check(worst <= TOL_NATIVE, f"native vs ray family: {worst}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1454,6 +1739,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"device: {name}; nvidia-smi: {smi}")
+    for key in ("TOMOJAX_PEAK_FLOPS", "TOMOJAX_PEAK_BW"):
+        os.environ.pop(key, None)      # the bounds use the H100's peaks
+    flops, bw = roofline.device_peaks()
+    print(f"bounds at {flops / 1e12:g} TFLOP/s fp32, {bw / 1e12:g} TB/s")
     print("tf32: matmul.allow_tf32 = False, cudnn.allow_tf32 = False")
 
     t0 = time.perf_counter()
@@ -1473,6 +1762,7 @@ def main():
         ray_ms = phase_config1(tmp, dev)
         phase_exact_align(tmp, dev, ray_ms)
         phase_study(dev)
+        c5_launches = phase_config5(tmp, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1485,11 +1775,13 @@ def main():
     kernels = [
         {"name": "slab_plane_fwd", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "tomojax/kernels/slab.py:293",
-         "launches": launches["fwd"], "max_abs_err": k["fwd_abs"],
+         "launches": launches["fwd"] + c5_launches["fwd"],
+         "max_abs_err": k["fwd_abs"],
          **timing(k["fwd"], k["fwd_plain"], k["bound"])},
         {"name": "slab_plane_adj", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "tomojax/kernels/slab.py:605",
-         "launches": launches["adj"], "max_abs_err": k["adj_abs"],
+         "launches": launches["adj"] + c5_launches["adj"],
+         "max_abs_err": k["adj_abs"],
          **timing(k["adj"], k["adj_plain"], k["bound"])},
         {"name": "slab_arc_fwd", "route": "cuda", "source": ARC_SOURCE,
          "replaces": "tomojax/kernels/slab.py:293",

@@ -27,6 +27,7 @@ from tomojax.align import pipeline as jpipe
 from tomojax.align.pipeline import align_reconstruct as jalign
 from tomojax.core import geometry as jgeo
 from tomojax.core import phantom as jph
+from tomojax.core import projector as jproj
 from tomojax.core import slab_projector as jsp
 
 from tomojax_torch import cli as tcli
@@ -191,12 +192,43 @@ def test_align_slab_plane_sirt_runs(prob):
 
 
 @pytest.mark.parametrize("kw, match", [
-    pytest.param(dict(family="voxel"), "item 15", id="kw1-item 15"),
     pytest.param(dict(recon_prec="bf16"), "Queue 3", id="kw4-Queue 3"),
 ])
 def test_unported_options_raise(prob, kw, match):
     with pytest.raises(NotImplementedError, match=match):
         _align(prob, **kw)
+
+
+def test_align_voxel_family_matches_tomojax():
+    """``align_reconstruct(family="voxel")``, 2 outers at 16³ (CGLS on the
+    voxel family, box LM on the exact Jacobian, the moment hook on the
+    voxel reprojection): θ and the volume to 1e-8, as tomojax's."""
+    n, n_proj = 16, 12
+    rng = np.random.default_rng(3)
+    jg = jgeo.Geometry(n_proj=n_proj, vox_shape=(n,) * 3, det_shape=(n, n))
+    phi = 0.2 + np.linspace(0, np.pi, n_proj, endpoint=False)
+    t = np.zeros((n_proj, 3))
+    t[:, [0, 2]] = rng.uniform(-1, 1, (n_proj, 2))
+    vol = jph.shepp3d(n).astype(np.float64)
+    true = jgeo.Views.create(n_proj, phi=phi, t=t, dtype=jnp.float64)
+    meas = np.asarray(jproj.project(jnp.asarray(vol), jg, true,
+                                    dtype=jnp.float64))
+    init = jgeo.Views.create(n_proj, phi=phi, dtype=jnp.float64)
+    kw = dict(outer_iters=2, recon_iters=6, refine_iters=3, family="voxel",
+              param_set="xz")
+    ref = jpipe.align_reconstruct(jnp.asarray(meas), jg, init,
+                                  dtype=jnp.float64, **kw)
+    got = tpipe.align_reconstruct(
+        torch.as_tensor(meas), interop.geometry(dataclasses.asdict(jg)),
+        interop.views(jax.tree.map(np.asarray, init)), dtype=F64,
+        device="cpu", **kw)
+    np.testing.assert_allclose(got.views.theta6().numpy(),
+                               np.asarray(ref.views.theta6()), rtol=0,
+                               atol=1e-8)
+    np.testing.assert_allclose(got.volume.numpy(), np.asarray(ref.volume),
+                               rtol=0, atol=1e-8)
+    np.testing.assert_allclose(got.history["refine_cost"],
+                               ref.history["refine_cost"], rtol=1e-8)
 
 
 def test_com_align_device(prob):

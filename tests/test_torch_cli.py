@@ -15,6 +15,7 @@ import torch
 from tomojax import cli as jcli
 from tomojax.utils import io as jio
 
+from tests import _torch_dist_ranks as ranks
 from tomojax_torch import cli as tcli
 
 # These tests run small ops, where torch's intra-op threads only contend
@@ -124,19 +125,21 @@ def test_reconstruct_solvers_match_tomojax(dataset, tmp_path, method,
     assert np.linalg.norm(got - ref) / np.linalg.norm(ref) < 1e-4
 
 
-@pytest.mark.parametrize("argv, match", [
-    # with more than one card (two seen here) --shard is not ported
-    pytest.param(["reconstruct", "-i", "x.h5", "-o", "y.npy", "--shard",
-                  "--device", "cuda"], "item 18", id="argv1-item 18"),
-])
-def test_unported_paths_raise(argv, match, monkeypatch):
-    if "--shard" in argv:
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    else:
-        argv = [*argv, "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=match):
-        tcli.main(argv)
+def test_reconstruct_shard_in_a_two_rank_world(dataset, tmp_path):
+    """With more than one rank, ``--shard`` angle-shards the ray family
+    over the process group, as tomojax's does over its devices (its
+    sharded operator is the ray family whatever ``solver.family`` says):
+    in a 2-rank gloo world rank 0 writes the volume, equal to the
+    unsharded ray-family run up to float32 summation order."""
+    args = ["reconstruct", "-i", str(dataset), *RECON, "--device", "cpu"]
+    shard, plain = tmp_path / "shard.npy", tmp_path / "plain.npy"
+    ranks.spawn(ranks.main_rank, 2, tmp_path, "tomojax_torch.cli",
+                [*args, "--shard", "-o", str(shard)])
+    out = tcli.main([*args, "--set", "solver.family=ray", "-o", str(plain)])
+    got, ref = np.load(shard), np.load(plain)
+    assert got.shape == ref.shape == (32, 32, 32)
+    assert out["result"].n_iter == 8
+    assert np.linalg.norm(got - ref) / np.linalg.norm(ref) < 1e-5
 
 
 def test_reconstruct_shard_on_one_device_is_unsharded(dataset, tmp_path):

@@ -900,3 +900,83 @@ def test_align_cv_outer_on_card_tracks_cpu(cuda):
     rel = (torch.linalg.norm(card.volume.cpu().double() - cpu.volume)
            / torch.linalg.norm(cpu.volume))
     assert float(rel) <= 1e-4, rel
+
+
+def test_voxel_operator_on_card_tracks_cpu_float64(cuda):
+    """The voxel family's float32 A and Aᵀ on the card (the splat's
+    ``index_add_`` in float atomics) against float64 on the CPU, and its
+    adjoint identity on the card."""
+    geom, views, vol, rng = _problem(n=32, n_proj=8)
+    y = rng.standard_normal((8, geom.n_det))
+    ref = make_operator(geom, views, family="voxel", dtype=torch.float64,
+                        device="cpu")
+    op = make_operator(geom, views, family="voxel", device=cuda)
+    x = torch.as_tensor(vol)
+    ax = op.A(x.to(cuda))
+    aty = op.AT(torch.as_tensor(y, dtype=torch.float32, device=cuda))
+    rx = ref.A(x.double())
+    rty = ref.AT(torch.as_tensor(y))
+    rel_a = (torch.linalg.norm(ax.cpu().double() - rx, dim=1)
+             / torch.linalg.norm(rx, dim=1))
+    assert float(rel_a.max()) <= 1e-5, rel_a
+    assert float(torch.linalg.norm(aty.cpu().double() - rty)
+                 / torch.linalg.norm(rty)) <= 1e-5
+    lhs = torch.dot(ax.double().reshape(-1),
+                    torch.as_tensor(y, device=cuda).reshape(-1))
+    rhs = torch.dot(x.double().to(cuda).reshape(-1),
+                    aty.double().reshape(-1))
+    scale = torch.linalg.norm(ax.double()) * float(np.linalg.norm(y))
+    assert float(abs(lhs - rhs) / scale) <= 1e-5
+
+
+@pytest.fixture
+def nccl_world_of_one(cuda, tmp_path):
+    """A process group of one rank over NCCL (one card cannot hold two
+    NCCL ranks; the multi-rank paths are held over gloo on the CPU)."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    yield dist
+    dist.destroy_process_group()
+
+
+def test_sharded_operators_in_a_nccl_world_of_one(nccl_world_of_one):
+    """Over NCCL in a world of one: the angle-sharded slab_plane and ray
+    operators equal the unsharded ones to the bit; the volume-sharded slab
+    (plane and arc) and voxel operators agree within 1e-5."""
+    from tomojax_torch.dist import (make_mesh, make_sharded_operator,
+                                    make_volume_sharded_operator,
+                                    make_volume_sharded_slab_operator)
+    cuda = torch.device("cuda")
+    geom, views, vol, rng = _problem(n=32, n_proj=8)
+    geom = Geometry(n_proj=8, vox_shape=(32,) * 3, det_shape=(32, 32))
+    x = torch.as_tensor(vol, device=cuda)
+    y = torch.as_tensor(rng.standard_normal((8, geom.n_det)),
+                        dtype=torch.float32, device=cuda)
+    mesh = make_mesh()
+    assert mesh.size == 1 and mesh.initialized
+
+    def rel(a, b):
+        return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+    for fam in ("slab_plane", "ray"):
+        op = make_operator(geom, views, family=fam, device=cuda)
+        ops = make_sharded_operator(geom, views, mesh, family=fam,
+                                    device=cuda)
+        assert torch.equal(ops.A(x), op.A(x))
+        if fam == "slab_plane":   # the ray Aᵀ adds with float atomics
+            assert torch.equal(ops.AT(y), op.AT(y))
+        else:
+            assert rel(ops.AT(y), op.AT(y)) <= 1e-5
+    for quad, fam in (("plane", "slab_plane"), ("arc", "slab")):
+        op = make_operator(geom, views, family=fam, device=cuda)
+        ops = make_volume_sharded_slab_operator(geom, views, mesh, quad=quad,
+                                                halo=16, device=cuda)
+        assert rel(ops.A(x), op.A(x)) <= 1e-5
+        assert rel(ops.AT(y), op.AT(y)) <= 1e-5
+    op = make_operator(geom, views, family="voxel", device=cuda)
+    ops = make_volume_sharded_operator(geom, views, mesh, device=cuda)
+    assert rel(ops.A(x), op.A(x)) <= 1e-5
+    assert rel(ops.AT(y), op.AT(y)) <= 1e-5

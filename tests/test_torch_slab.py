@@ -165,6 +165,15 @@ def test_voxel_mask_matches_tomojax(prob):
 
 
 @pytest.mark.parametrize("family", ["voxel"])
-def test_unported_families_raise(prob, family):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmake(prob["tg"], prob["tv"], family=family, device="cpu")
+def test_formerly_unported_families_match_tomojax(prob, family):
+    """The voxel family (it raised before it was ported) on this
+    file's problem: A and Aᵀ as tomojax's."""
+    jop = jmake(prob["jg"], prob["jv"], family=family, dtype=jnp.float64)
+    top = tmake(prob["tg"], prob["tv"], family=family, dtype=F64,
+                device="cpu")
+    assert top.family == family
+    x, y = prob["vol"], prob["y"]
+    assert _rel(top.A(torch.as_tensor(x)).numpy(),
+                jop.A(jnp.asarray(x))) < 1e-10
+    assert _rel(top.AT(torch.as_tensor(y)).numpy(),
+                jop.AT(jnp.asarray(y))) < 1e-10

@@ -5,7 +5,7 @@
 
 1. reconstruct (CGLS or SIRT, warm-started from the previous outer) with
    the current per-view rigid estimates, on the exact ray family, the
-   slab families or the fast family, then
+   slab families, the fast family or the voxel family, then
 2. refine every view's masked 6-DoF parameters against the measured
    projections: box Levenberg–Marquardt on the ray family's exact
    Jacobian (``refine_method="lm"``, tomojax's default), the batched slab
@@ -47,7 +47,7 @@ from tomojax_torch.align.slab_refine import refine_views_slab
 from tomojax_torch.core import projector
 from tomojax_torch.core import slab_projector as sp
 from tomojax_torch.core.geometry import Geometry, Views
-from tomojax_torch.core.operators import (NOT_PORTED, QUADS, make_operator,
+from tomojax_torch.core.operators import (QUADS, make_operator,
                                           operator_from_scalars,
                                           resolve_device)
 from tomojax_torch.recon.cgls import cgls, cgls_init, cgls_steps
@@ -94,8 +94,8 @@ def _family_synth(volume, geom: Geometry, views: Views, family: str,
     """One forward apply of ``family`` at the current (volume, θ) — the
     moment hook's reprojection, ``(n_proj, n_det)``: the slab families
     with fresh orientation groups, the ray family in chunks of ``chunk``
-    views (:func:`_exact_forward`), the fast family through its
-    operator."""
+    views (:func:`_exact_forward`), the fast and voxel families through
+    their operators."""
     if family in QUADS:
         return sp.project(volume, geom, views, quad=quad, dtype=dtype)
     if family == "ray":
@@ -176,9 +176,7 @@ def _default_bounds(dtype=torch.float32, device=None):
 
 
 def _check_supported(family, recon, refine_method, recon_prec):
-    if family in NOT_PORTED:
-        raise NotImplementedError(NOT_PORTED[family])
-    if family not in QUADS and family not in ("ray", "fast"):
+    if family not in QUADS and family not in ("ray", "fast", "voxel"):
         raise ValueError(f"unknown projector family: {family!r}")
     if refine_method not in ("lm", "lm_slab", "gd_fast"):
         raise ValueError(f"unknown refine_method {refine_method!r}")
@@ -251,9 +249,9 @@ def align_reconstruct(projections, geom: Geometry, views0: Views, *,
     """Run the alternating alignment + reconstruction loop.
 
     Arguments and defaults are tomojax's: ``family`` "ray" (exact),
-    "slab" (arc), "slab_plane" or "fast"; ``refine_method`` "lm", "lm_slab"
-    or "gd_fast". The voxel family and a reduced-precision ``recon_prec``
-    raise ``NotImplementedError`` naming their ROADMAP entry.
+    "slab" (arc), "slab_plane", "fast" or "voxel"; ``refine_method`` "lm",
+    "lm_slab" or "gd_fast". A reduced-precision ``recon_prec`` raises
+    ``NotImplementedError`` naming its ROADMAP entry.
 
     :param projections: measured sinogram ``(n_proj, n_det)`` or
         ``(n_proj, nu, nv)``.
@@ -405,7 +403,7 @@ def align_reconstruct(projections, geom: Geometry, views0: Views, *,
             defect_done = it
             rel = torch.linalg.norm(d) / torch.linalg.norm(projections)
             hb(f"outer {it}: debias defect rel={float(rel):.2e}")
-        if family in ("fast", "ray"):
+        if family not in QUADS:
             op = make_operator(geom, views, family=family, **kw)
         else:
             # ---- reconstruction on frozen octant groups ----------------

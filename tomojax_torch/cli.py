@@ -2,23 +2,25 @@
 
 The same subcommands, flags and ``--set`` overrides as ``tomojax.cli``,
 plus ``--device`` (default ``cuda``; asking for CUDA without a card
-raises). Ported so far:
+raises):
 
 - ``simulate``    with ``simulate.family`` ``slab`` (arc) or
-  ``slab_plane``; every other family projects with the exact ray family,
-  as tomojax's does;
+  ``slab_plane``; every other family (``voxel`` too) projects with the
+  exact ray family, as tomojax's does;
 - ``reconstruct`` with ``solver.method`` ``sirt``, ``cgls``,
   ``tikhonov``, ``lasso`` or ``fista_tv`` on ``solver.family`` ``ray``,
-  ``slab``, ``slab_plane`` or ``fast``, and ``--pre-align
+  ``slab``, ``slab_plane``, ``fast`` or ``voxel``, and ``--pre-align
   none|com|cc``;
 - ``align`` with ``align.family`` ``ray`` (the default), ``slab``,
-  ``slab_plane`` or ``fast``, ``align.refine_method`` ``lm`` (the
+  ``slab_plane``, ``fast`` or ``voxel``, ``align.refine_method`` ``lm`` (the
   default), ``lm_slab`` or ``gd_fast`` and ``align.debias_period`` (COM
   pre-alignment with ``align.pre_align_cc=true``).
 
-``reconstruct --shard`` builds the plain operator on one device, as
-tomojax does; over more than one CUDA device it raises, as does the voxel
-family: ``NotImplementedError`` naming their ROADMAP item.
+``reconstruct --shard`` angle-shards the ray family over the process
+group when it has more than one rank (``torchrun --nproc-per-node N -m
+tomojax_torch.cli reconstruct --shard ...``: NCCL between cards, gloo
+between CPU processes; rank 0 writes the output), as tomojax does over
+its devices; with one rank it builds the plain operator.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 SOLVERS = ("sirt", "cgls", "tikhonov", "lasso", "fista_tv")
@@ -158,6 +161,8 @@ def cmd_reconstruct(args):
     from tomojax_torch.align import com_align, cross_correlation_chain
     from tomojax_torch.core.geometry import Geometry, Views
     from tomojax_torch.core.operators import make_operator, resolve_device
+    from tomojax_torch.dist import (init_from_env, make_mesh,
+                                    make_sharded_operator)
     from tomojax_torch.utils import io
 
     cfg = _load_config(args)
@@ -167,10 +172,8 @@ def cmd_reconstruct(args):
     device = resolve_device(args.device)
     # tomojax angle-shards only over more than one device; on one it
     # builds the plain operator
-    if (args.shard and device.type == "cuda"
-            and torch.cuda.device_count() > 1):
-        raise NotImplementedError(
-            "--shard over more than one device: ROADMAP Queue 1 item 18")
+    sharded = args.shard and init_from_env(device) and (
+        dist.get_world_size() > 1)
     dtype = getattr(torch, cfg.solver.dtype)
     d = io.load_dataset(args.input)
     n_proj, nu, nv = d["projections"].shape
@@ -211,8 +214,14 @@ def cmd_reconstruct(args):
                   f"tx {ex.mean():.3f}/{ex.max():.3f} px "
                   f"tz {ez.mean():.3f}/{ez.max():.3f} px (mean/max)")
 
-    op = make_operator(geom, views, family=cfg.solver.family, dtype=dtype,
-                       device=device)
+    if sharded:
+        mesh = make_mesh()
+        op = make_sharded_operator(geom, views, mesh, dtype=dtype,
+                                   device=device)
+        print(f"angle-sharded over {mesh.shape}")
+    else:
+        op = make_operator(geom, views, family=cfg.solver.family,
+                           dtype=dtype, device=device)
     sv = cfg.solver
     if m == "sirt":
         res = recon.sirt(op, b, niter=sv.niter, positivity=sv.positivity,
@@ -233,8 +242,9 @@ def cmd_reconstruct(args):
 
     k = int(res.n_iter)
     print(f"{m}: {k} iterations, final rms {float(res.rms_error[k-1]):.5f}")
-    io.save_volume(args.output, res.x)
-    print(f"wrote {args.output}")
+    if not sharded or dist.get_rank() == 0:
+        io.save_volume(args.output, res.x)
+        print(f"wrote {args.output}")
     out["result"] = res
     return out
 
@@ -339,8 +349,8 @@ def main(argv=None):
     p.add_argument("--input", "-i", required=True)
     p.add_argument("--output", "-o", required=True)
     p.add_argument("--shard", action="store_true",
-                   help="angle-shard over all devices (one device: "
-                        "unsharded, as tomojax; more: not ported)")
+                   help="angle-shard over the process group's ranks "
+                        "(torchrun; one rank: unsharded, as tomojax)")
     p.add_argument("--pre-align", default="none",
                    choices=["none", "com", "cc"],
                    help="shift pre-alignment before reconstruction "

@@ -259,7 +259,7 @@ def backproject(sino, geom: Geometry, views: Views, *, dtype=torch.float32):
     The sum runs over the views in order within a chunk and over the
     chunks in :func:`_octant_chunks` order."""
     _require_square(geom)
-    sino = sino.reshape(geom.n_proj, geom.n_det).to(dtype)
+    sino = sino.reshape(views.n_proj, geom.n_det).to(dtype)
     E, B = _affine(geom, views, dtype, sino.device)
     chunk = views_per_chunk(geom, itemsize=sino.element_size())
     acc = torch.zeros(geom.vox_shape, dtype=dtype, device=sino.device)

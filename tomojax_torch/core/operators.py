@@ -14,6 +14,8 @@ Ported families:
   runs K1/K2.
 - ``family="fast"`` — the multi-pass resampling family
   (``core.fast_projector``); on a CUDA device A runs K7 and Aᵀ K8.
+- ``family="voxel"`` — the voxel-driven bilinear splat with its gather
+  transpose (``core.voxel_projector``); plain PyTorch on every device.
 
 ``voxel_mask`` reproduces the masked system matrix: masked voxels
 contribute nothing to A and receive nothing from Aᵀ.
@@ -29,11 +31,9 @@ import torch
 from tomojax_torch.core import fast_projector as fastp
 from tomojax_torch.core import projector as ray
 from tomojax_torch.core import slab_projector as slabp
+from tomojax_torch.core import voxel_projector as vox
 from tomojax_torch.core.geometry import Geometry, Views
 
-NOT_PORTED = {
-    "voxel": "voxel family: ROADMAP Queue 1 item 15",
-}
 QUADS = {"slab": "arc", "slab_plane": "plane"}
 
 
@@ -87,9 +87,9 @@ def make_operator(geom: Geometry, views: Views, *, family: str = "ray",
     For the slab families the per-view scalars and orientation groups are
     computed once, here.
 
-    :param views_chunk: views per chunk of the ray family (default: sized
-        as tomojax's). The slab and fast families size their own chunks;
-        their results do not depend on it.
+    :param views_chunk: views per chunk of the ray and voxel families
+        (default: sized as tomojax's). The slab and fast families size
+        their own chunks; their results do not depend on it.
     :param voxel_mask: optional boolean volume; False voxels are excluded
         from the system.
     :param prec: the slab kernels' precision tier: ``None`` or ``"f32x2"``
@@ -99,14 +99,26 @@ def make_operator(geom: Geometry, views: Views, *, family: str = "ray",
         raise NotImplementedError(
             f"prec={prec!r}: a reduced-precision tier needs its own "
             "contract (ROADMAP Queue 3)")
-    if family in NOT_PORTED:
-        raise NotImplementedError(NOT_PORTED[family])
     if family == "ray":
-        return _ray_operator(geom, views, dtype, resolve_device(device),
-                             voxel_mask, views_chunk)
+        return _views_operator(
+            geom, views, family, dtype, device, voxel_mask,
+            lambda x, vws: ray.project(x, geom, vws, dtype=dtype,
+                                       views_chunk=views_chunk),
+            lambda y, vws: ray.backproject(y, geom.vox_shape, geom, vws,
+                                           dtype=dtype,
+                                           views_chunk=views_chunk))
+    if family == "voxel":
+        return _views_operator(
+            geom, views, family, dtype, device, voxel_mask,
+            lambda x, vws: vox.project(x, geom, vws, dtype=dtype,
+                                       views_chunk=views_chunk),
+            lambda y, vws: vox.backproject(y, geom, vws, dtype=dtype,
+                                           views_chunk=views_chunk))
     if family == "fast":
-        return _fast_operator(geom, views, dtype, resolve_device(device),
-                              voxel_mask)
+        return _views_operator(
+            geom, views, family, dtype, device, voxel_mask,
+            lambda x, vws: fastp.project(x, geom, vws, dtype=dtype),
+            lambda y, vws: fastp.backproject(y, geom, vws, dtype=dtype))
     if family not in QUADS:
         raise ValueError(f"unknown projector family: {family!r}")
     device = resolve_device(device)
@@ -129,9 +141,13 @@ def _views_on(views: Views, device) -> Views:
                     for f in ("phi", "alpha", "beta", "t", "cor")})
 
 
-def _ray_operator(geom: Geometry, views: Views, dtype, device, voxel_mask,
-                  views_chunk) -> TomoOperator:
-    """The exact ray family's operator: views copied to ``device`` once."""
+def _views_operator(geom: Geometry, views: Views, family: str, dtype,
+                    device, voxel_mask, project, backproject
+                    ) -> TomoOperator:
+    """The operator of a family applied from the views (ray, voxel, fast):
+    ``project(x, views)`` and ``backproject(y, views)``, the views copied
+    to the device once."""
+    device = resolve_device(device)
     vws = _views_on(views, device)
     mask = _mask(voxel_mask, geom, dtype, device)
 
@@ -139,38 +155,13 @@ def _ray_operator(geom: Geometry, views: Views, dtype, device, voxel_mask,
         x = x.reshape(geom.vox_shape).to(dtype)
         if mask is not None:
             x = x * mask
-        return ray.project(x, geom, vws, dtype=dtype,
-                           views_chunk=views_chunk)
+        return project(x, vws)
 
     def AT(y):
-        out = ray.backproject(y.reshape(geom.n_proj, geom.n_det),
-                              geom.vox_shape, geom, vws, dtype=dtype,
-                              views_chunk=views_chunk)
+        out = backproject(y.reshape(geom.n_proj, geom.n_det), vws)
         return out * mask if mask is not None else out
 
-    return TomoOperator(geom=geom, views=views, A=A, AT=AT, family="ray",
-                        dtype=dtype, device=torch.device(device))
-
-
-def _fast_operator(geom: Geometry, views: Views, dtype, device,
-                   voxel_mask) -> TomoOperator:
-    """The fast family's operator: views copied to ``device`` once; each
-    apply groups them by octant and chunks them by memory."""
-    vws = _views_on(views, device)
-    mask = _mask(voxel_mask, geom, dtype, device)
-
-    def A(x):
-        x = x.reshape(geom.vox_shape).to(dtype)
-        if mask is not None:
-            x = x * mask
-        return fastp.project(x, geom, vws, dtype=dtype)
-
-    def AT(y):
-        out = fastp.backproject(y.reshape(geom.n_proj, geom.n_det), geom,
-                                vws, dtype=dtype)
-        return out * mask if mask is not None else out
-
-    return TomoOperator(geom=geom, views=views, A=A, AT=AT, family="fast",
+    return TomoOperator(geom=geom, views=views, A=A, AT=AT, family=family,
                         dtype=dtype, device=torch.device(device))
 
 

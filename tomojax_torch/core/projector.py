@@ -69,17 +69,19 @@ class _RaySetup(NamedTuple):
 
 
 def _ray_setup(geom: Geometry, phi, alpha, beta, t, cor, dtype,
-               with_jacobian: bool) -> _RaySetup:
+               with_jacobian: bool, rays: slice = slice(None)) -> _RaySetup:
     """Setup of V views: ``phi``, ``alpha``, ``beta`` (V,), ``t``, ``cor``
-    (V, 3), on their device."""
+    (V, 3), on their device; ``rays`` a contiguous block of the detector's
+    rays (all by default; the detector-sharded operator of
+    ``tomojax_torch.dist`` takes one block per rank)."""
     kw = dict(dtype=dtype, device=phi.device)
     phi, alpha, beta, t, cor = (torch.as_tensor(a).to(**kw)
                                 for a in (phi, alpha, beta, t, cor))
     # cor shift: x component added to untransformed source & detector
     shift = torch.zeros((cor.shape[0], 3, 1), **kw)
     shift[:, 0, 0] = cor[:, 0]
-    src = geom.source_centers(**kw)[None] + shift
-    det = geom.det_centers(**kw)[None] + shift
+    src = geom.source_centers(**kw)[None, :, rays] + shift
+    det = geom.det_centers(**kw)[None, :, rays] + shift
     origin = geom.vox_origin(**kw)
 
     r_p, r_a, r_b = rot_z(phi), rot_x(alpha), rot_y(beta)
@@ -175,13 +177,14 @@ def _as_views(phi, alpha, beta, t, cor):
 
 
 def forward_views(vol, geom: Geometry, phi, alpha, beta, t, cor, *,
-                  dtype=torch.float32):
-    """Forward-project V views at once → ``(V, n_det)``; angles (V,),
-    ``t`` and ``cor`` (V, 3), all on ``vol``'s device."""
+                  dtype=torch.float32, rays: slice = slice(None)):
+    """Forward-project V views at once → ``(V, n_det)`` (or the block
+    ``rays`` of the detector); angles (V,), ``t`` and ``cor`` (V, 3), all
+    on ``vol``'s device."""
     phi, alpha, beta, t, cor = _as_views(phi, alpha, beta, t, cor)
-    setup = _ray_setup(geom, phi, alpha, beta, t, cor, dtype, False)
+    setup = _ray_setup(geom, phi, alpha, beta, t, cor, dtype, False, rays)
     vol_flat = vol.reshape(-1).to(dtype)
-    acc = torch.zeros(setup.p0.shape[0], geom.n_det, dtype=dtype,
+    acc = torch.zeros(setup.p0.shape[0], setup.p0.shape[2], dtype=dtype,
                       device=vol.device)
     for _, p in _step_blocks(setup, geom, dtype):
         idx, w, _, _ = _corner_indices_weights(p, geom.vox_shape)
@@ -190,12 +193,13 @@ def forward_views(vol, geom: Geometry, phi, alpha, beta, t, cor, *,
 
 
 def backproject_views(det_img, vol_shape, geom: Geometry, phi, alpha, beta,
-                      t, cor, *, dtype=torch.float32, out=None):
+                      t, cor, *, dtype=torch.float32, out=None,
+                      rays: slice = slice(None)):
     """Adjoint of :func:`forward_views`, summed over the V views: ``Σ_v
-    P(θ_v)ᵀ y_v`` → ``vol_shape`` (added into the flat ``out`` if
-    given)."""
+    P(θ_v)ᵀ y_v`` → ``vol_shape`` (added into the flat ``out`` if given;
+    ``det_img`` holds the block ``rays`` of each view)."""
     phi, alpha, beta, t, cor = _as_views(phi, alpha, beta, t, cor)
-    setup = _ray_setup(geom, phi, alpha, beta, t, cor, dtype, False)
+    setup = _ray_setup(geom, phi, alpha, beta, t, cor, dtype, False, rays)
     y = det_img.reshape(setup.p0.shape[0], -1).to(dtype)
     n_vox = vol_shape[0] * vol_shape[1] * vol_shape[2]
     if out is None:
@@ -344,22 +348,25 @@ def _view_fields(views: Views, sl, device):
 
 
 def project(vol, geom: Geometry, views: Views, *, dtype=torch.float32,
-            views_chunk: int | None = None):
-    """Multi-view forward projection → sinogram ``(n_proj, n_det)``, in
-    chunks of views (auto-sized as tomojax's; ``views_chunk`` overrides)."""
+            views_chunk: int | None = None, rays: slice = slice(None)):
+    """Multi-view forward projection → sinogram ``(n_proj, n_det)`` (or
+    the block ``rays`` of each view), in chunks of views (auto-sized as
+    tomojax's; ``views_chunk`` overrides)."""
     n = views.n_proj
     chunk = (_divisor_chunk(n, views_chunk) if views_chunk
              else _auto_forward_chunk(geom))
     return torch.cat([forward_views(vol, geom,
                                     *_view_fields(views, sl, vol.device),
-                                    dtype=dtype)
+                                    dtype=dtype, rays=rays)
                       for sl in _chunks(n, chunk)])
 
 
 def backproject(sino, vol_shape, geom: Geometry, views: Views, *,
-                dtype=torch.float32, views_chunk: int | None = None):
+                dtype=torch.float32, views_chunk: int | None = None,
+                rays: slice = slice(None)):
     """Multi-view adjoint ``Aᵀ y`` → volume ``vol_shape``; each chunk of
-    views adds into the one volume."""
+    views adds into the one volume (``sino`` may hold the block ``rays``
+    of each view)."""
     n = views.n_proj
     chunk = (_divisor_chunk(n, views_chunk) if views_chunk
              else _auto_adjoint_chunk(geom))
@@ -369,7 +376,7 @@ def backproject(sino, vol_shape, geom: Geometry, views: Views, *,
     for sl in _chunks(n, chunk):
         backproject_views(sino[sl], vol_shape, geom,
                           *_view_fields(views, sl, sino.device), dtype=dtype,
-                          out=out)
+                          out=out, rays=rays)
     return out.reshape(vol_shape)
 
 

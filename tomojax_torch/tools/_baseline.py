@@ -1,10 +1,10 @@
-"""Helpers shared by the BASELINE config drivers (``config1``-``config3``)."""
+"""Helpers shared by the BASELINE config scripts (``config1``-``config5``)."""
 
 from __future__ import annotations
 
 import json
 import os
-import time
+import subprocess
 
 import numpy as np
 import torch
@@ -12,29 +12,29 @@ import torch
 from tomojax_torch.core.operators import resolve_device
 
 
+def smi_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return res.stdout.strip().splitlines()[0]
+
+
 def device_record(device) -> dict:
-    """The device a run used: its type and, on a card, its name."""
+    """The device a run used: its type and, on a card, its name and
+    ``nvidia-smi``'s name and power limit."""
     dev = resolve_device(device)
-    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-            else "cpu")
-    return {"type": dev.type, "name": name}
-
-
-def timed(fn, device):
-    """``(fn(), wall seconds)``, synchronizing the card before reading the
-    clock."""
-    dev = resolve_device(device)
-    t0 = time.perf_counter()
-    out = fn()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    return out, time.perf_counter() - t0
+    if dev.type != "cuda":
+        return {"type": dev.type, "name": "cpu"}
+    return {"type": dev.type, "name": torch.cuda.get_device_name(dev),
+            "smi": smi_line()}
 
 
 def rel_l2(x, ref) -> float:
     """‖x − ref‖ / ‖ref‖ in float64 on the host."""
-    x = np.asarray(torch.as_tensor(x).detach().cpu(), np.float64).ravel()
-    ref = np.asarray(ref, np.float64).ravel()
+    x, ref = (np.asarray(torch.as_tensor(a).detach().cpu(), np.float64)
+              .ravel() for a in (x, ref))
     return float(np.linalg.norm(x - ref) / np.linalg.norm(ref))
 
 

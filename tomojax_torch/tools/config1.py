@@ -23,7 +23,8 @@ from tomojax_torch.core import phantom
 from tomojax_torch.core.geometry import Geometry, Views
 from tomojax_torch.core.operators import make_operator
 from tomojax_torch.recon.cgls import cgls
-from tomojax_torch.tools._baseline import device_record, rel_l2, timed, write
+from tomojax_torch.tools._baseline import device_record, rel_l2, write
+from tomojax_torch.utils.profiling import timed
 
 
 def problem(n=64, n_proj=90, jitter_px=2.0, jitter_deg=1.0, seed=0):
@@ -65,10 +66,11 @@ def main(argv=None) -> dict:
         for fam in args.families:
             op = make_operator(geom, views, family=fam, device=args.device)
             vol = torch.as_tensor(vol_np, device=op.device)
-            proj, gen_s = timed(lambda: op.A(vol), op.device)
+            proj, gen_s = timed(lambda: op.A(vol), reps=1,
+                                warmup=0)
             res, cgls_s = timed(lambda: cgls(op, proj,
                                              niter=args.cgls_iters),
-                                op.device)
+                                reps=1, warmup=0)
             k = int(res.n_iter)
             r = {"gen_s": gen_s, "gen_proj_per_s": n_proj / gen_s,
                  "cgls_s": cgls_s, "cgls_iters_run": k,

@@ -27,7 +27,8 @@ from tomojax_torch.core.geometry import Geometry, Views
 from tomojax_torch.core.operators import make_operator
 from tomojax_torch.recon.fista_tv import fista_tv
 from tomojax_torch.recon.sirt import sirt
-from tomojax_torch.tools._baseline import device_record, rel_l2, timed, write
+from tomojax_torch.tools._baseline import device_record, rel_l2, write
+from tomojax_torch.utils.profiling import timed
 
 
 def problem(n=128, n_proj=180):
@@ -63,7 +64,7 @@ def main(argv=None) -> dict:
     with torch.no_grad():
         proj, rec["gen_s"] = timed(
             lambda: op.A(torch.as_tensor(vol_np, device=op.device)),
-            op.device)
+            reps=1, warmup=0)
         rng = np.random.default_rng(args.seed)
         p = proj.cpu().numpy()
         scale = float(np.abs(p).mean())
@@ -72,7 +73,7 @@ def main(argv=None) -> dict:
                  ).astype(np.float32), device=op.device)
 
         def run(name, fn):
-            res, wall = timed(fn, op.device)
+            res, wall = timed(fn, reps=1, warmup=0)
             k = int(res.n_iter)
             rec["runs"][name] = r = {
                 "wall_s": wall, "iters_run": k,

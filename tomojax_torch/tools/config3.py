@@ -30,7 +30,8 @@ from tomojax_torch.core import slab_projector as sp
 from tomojax_torch.core.geometry import Geometry, Views
 from tomojax_torch.core.operators import make_operator, resolve_device
 from tomojax_torch.recon.cgls import cgls
-from tomojax_torch.tools._baseline import device_record, rel_l2, timed, write
+from tomojax_torch.tools._baseline import device_record, rel_l2, write
+from tomojax_torch.utils.profiling import timed
 
 
 def err_table(est_tx, est_tz, tx, tz, phi, relative=False) -> dict:
@@ -84,16 +85,17 @@ def main(argv=None) -> dict:
     with torch.no_grad():
         proj, st["gen_s"] = timed(lambda: sp.project(
             vol, geom, Views.create(n_proj, phi=phi, t=t_true, device=dev),
-            quad=args.quad), dev)
+            quad=args.quad), reps=1, warmup=0)
         print(f"[gen] slab-{args.quad} {n}^3, {n_proj} views: "
               f"{st['gen_s']:.2f} s", flush=True)
 
         est, com_s = timed(lambda: com_align(proj, geom, phi).cpu().numpy(),
-                           dev)
+                           reps=1, warmup=0)
         st["com"] = {**err_table(est[:, 0], est[:, 1], tx, tz, phi),
                      "wall_s": com_s}
         offsets, cc_s = timed(lambda: cross_correlation_chain(
-            proj.reshape(n_proj, n, n))[0].cpu().numpy(), dev)
+            proj.reshape(n_proj, n, n))[0].cpu().numpy(),
+            reps=1, warmup=0)
         st["cc_chain"] = {**err_table(offsets[:, 0], offsets[:, 1], tx, tz,
                                       phi, relative=True), "wall_s": cc_s}
         for name in ("com", "cc_chain"):

@@ -1,0 +1,91 @@
+"""Roofline model of the slab kernels K1-K5 (counterpart of
+``tomojax.utils.roofline``).
+
+tomojax counts its Pallas dataflow: MXU passes of one-hot selection
+matmuls and VMEM re-streams, which mean nothing on Hopper. Here a kernel's
+bound is the least time the card could take for the same work, whatever
+implements it: the larger of
+
+- the bytes the function must move (each oriented volume, the scalars and
+  the detector images, each read or written once) over the HBM rate, and
+- the operations it must do (a multiply-add per tap of each sample, one
+  sample per slab per ray, for each field) over the fp32 rate.
+
+Peaks default to the NVIDIA H100 SXM's published figures (3.35 TB/s HBM,
+67 TFLOP/s fp32 outside the tensor cores) and can be overridden with
+``TOMOJAX_PEAK_FLOPS`` / ``TOMOJAX_PEAK_BW`` (units: FLOP/s, B/s).
+"""
+
+from __future__ import annotations
+
+import os
+
+from tomojax_torch.core.geometry import Geometry
+from tomojax_torch.core.slab_projector import NS
+
+H100_F32_FLOPS = 67e12
+H100_HBM_BYTES_PER_S = 3.35e12
+# taps per sample: the plane lerp reads 2 x 2, the arc blend 2 x (2 x 2)
+TAPS = {"plane": 4, "arc": 8}
+
+
+def device_peaks():
+    """``(fp32 FLOP/s, HBM bytes/s)``: the environment's overrides, else
+    the H100 SXM's published peaks."""
+    env_f = os.environ.get("TOMOJAX_PEAK_FLOPS")
+    env_b = os.environ.get("TOMOJAX_PEAK_BW")
+    if env_f and env_b:
+        return float(env_f), float(env_b)
+    return H100_F32_FLOPS, H100_HBM_BYTES_PER_S
+
+
+def bound(nbytes: float, flops: float):
+    """``(ms, "bytes" or "operations")``: the least time for moving
+    ``nbytes`` and doing ``flops`` at the peaks."""
+    peak_f, peak_b = device_peaks()
+    tb = nbytes / peak_b * 1e3
+    tf = flops / peak_f * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def slab_apply_model(geom: Geometry, quad: str, n_views: int | None = None,
+                     fields: int = 1, n_groups: int = 1) -> dict:
+    """Bytes and operations of one slab kernel apply (K1-K4, or K5 with
+    ``fields=12``) over ``n_views`` views (default ``geom.n_proj``) in
+    ``n_groups`` orientation groups: each group reads its oriented volume
+    once; every view reads its scalars and writes (or reads) ``fields``
+    detector images."""
+    V = geom.n_proj if n_views is None else n_views
+    n_det = geom.n_det
+    nbytes = 4.0 * (n_groups * geom.n_vox + V * NS + fields * V * n_det)
+    flops = 2.0 * TAPS[quad] * fields * V * n_det * geom.vox_shape[1]
+    return {"bytes": nbytes, "flops": flops, "views": V, "groups": n_groups,
+            "fields": fields}
+
+
+def slab_bound(geom: Geometry, quad: str, n_views: int | None = None,
+               fields: int = 1, n_groups: int = 1):
+    """:func:`bound` of :func:`slab_apply_model`."""
+    m = slab_apply_model(geom, quad, n_views, fields, n_groups)
+    return bound(m["bytes"], m["flops"])
+
+
+def roofline(geom: Geometry, quad: str, t_fwd_s: float, t_adj_s: float,
+             n_views: int | None = None, n_groups: int = 1) -> dict:
+    """Measured forward and adjoint times as shares of their bounds.
+
+    :returns: per direction the bytes, operations, achieved GB/s and
+        GFLOP/s, their shares of the peaks, the bound's time and what
+        bounds it, and ``pct_sol`` = bound time / measured time."""
+    peak_f, peak_b = device_peaks()
+    m = slab_apply_model(geom, quad, n_views, 1, n_groups)
+    out = {"model": m, "peaks": {"flops": peak_f, "bytes": peak_b}}
+    for d, t in (("fwd", t_fwd_s), ("adj", t_adj_s)):
+        sol_ms, by = bound(m["bytes"], m["flops"])
+        out[d] = {"time_s": t, "gbytes_per_s": m["bytes"] / t / 1e9,
+                  "gflops": m["flops"] / t / 1e9,
+                  "pct_hbm": m["bytes"] / t / peak_b,
+                  "pct_flops": m["flops"] / t / peak_f,
+                  "sol_time_s": sol_ms / 1e3, "bound": by,
+                  "pct_sol": sol_ms / 1e3 / t}
+    return out

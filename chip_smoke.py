@@ -153,10 +153,19 @@ script exits non-zero:
    views. 12e: ``utils.profiling.trace`` around one CGLS iteration at
    512³: the device busy share and the top kernels' shares of device
    time, K2's first; K1 and K2 must show device time.
+13. tomojax's default slab calls at 256³ × 90 views over the full circle
+   (phase 5's problem): ``slab_projector.project`` and ``backproject``
+   with no ``quad`` must launch K3 and K4 once per orientation group and
+   no other kernel (counts set to 0 just before, read just after), equal
+   the explicit ``quad="arc"`` calls bit for bit and lie within phase 5's
+   tolerances of the plain arc path; ``views_chunk=16`` leaves the
+   forward bit-equal and the adjoint within 5e-4; the slab
+   ``forward_view`` of one view per group (four) within 5e-4 of
+   ``project``'s rows (bit-equal ones counted).
 
 The JSON line's launches count phases 4 and 12a for K1/K2 (all three CGLS
 runs and ``simulate``, and config 5), phase 6 for K3-K6 and phase 8 for
-K7-K9; phases 9, 10, 11 and 12c print their own. Bounds come from
+K7-K9; phases 9, 10, 11, 12c and 13 print their own. Bounds come from
 ``tomojax_torch/utils/roofline.py``, timers from
 ``tomojax_torch/utils/profiling.py``.
 
@@ -267,8 +276,9 @@ def check(ok, msg):
 def groups_bound(geom, groups, quad, fields=1):
     """``roofline.slab_bound`` of one apply over the orientation groups
     ``(vol_or, scalars, y)`` of ``slab_groups``."""
-    return roofline.slab_bound(geom, quad, sum(sc.shape[0] for _, sc, _ in
-                                               groups), fields, len(groups))
+    return roofline.slab_bound(
+        geom, quad, n_views=sum(sc.shape[0] for _, sc, _ in groups),
+        fields=fields, n_groups=len(groups))
 
 
 def reset_counts():
@@ -1729,6 +1739,101 @@ def phase_voxel(dev):
     check(worst <= TOL_NATIVE, f"native vs ray family: {worst}")
 
 
+def _plain_arc(vol, y, geom, gstruct, scalars):
+    """The arc operator's plain versions over the orientation groups:
+    ``(forward (V, nu, nv), adjoint vox_shape)``, flips as the operator's."""
+    nu, nv = geom.det_shape
+    fwd = vol.new_zeros((geom.n_proj, nu, nv))
+    adj = torch.zeros_like(vol)
+    y = y.reshape(-1, nu, nv)
+    for (idx, sw, yf, uf), sc in zip(gstruct, scalars):
+        rows = torch.as_tensor(idx, device=vol.device)
+        vol_or = sp.orient_volume(vol, geom, sw, yf).contiguous()
+        p = slabk.slab_project_plain(vol_or, sc, geom, "arc")
+        fwd[rows] = p.flip(1) if uf else p
+        g = y[rows].flip(1) if uf else y[rows]
+        adj += sp.unorient_volume(
+            slabk.slab_backproject_plain(g.contiguous(), sc, geom, "arc"),
+            sw, yf)
+    return fwd, adj
+
+
+def phase_default_calls(dev):
+    """Phase 13: tomojax's default slab calls on the card — ``project``
+    and ``backproject`` with no ``quad`` (the arc quadrature, as
+    tomojax's), ``views_chunk`` and the slab ``forward_view`` — at 256³ ×
+    90 views over the full circle (phase 5's problem)."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    geom = Geometry(n_proj=N_ARC, vox_shape=(N,) * 3, det_shape=(N, N))
+    amax = np.deg2rad(0.5)
+    views = Views.create(
+        N_ARC, phi=0.3 + np.linspace(0, 2 * np.pi, N_ARC, endpoint=False),
+        alpha=rng.uniform(-amax, amax, N_ARC),
+        beta=rng.uniform(-amax, amax, N_ARC),
+        t=rng.uniform(-2, 2, (N_ARC, 3)), device=dev)
+    vol = torch.as_tensor(phantom.shepp3d(N), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    y = torch.randn((N_ARC, geom.n_det), generator=gen, device=dev)
+    gstruct, scalars = sp.scalar_groups(geom, views, device=dev)
+    n_groups = len(gstruct)
+
+    reset_counts()
+    fwd, fwd_ms = event_timed(lambda: sp.project(vol, geom, views))
+    adj, adj_ms = event_timed(lambda: sp.backproject(y, geom, views))
+    counts = {fn.__name__: fn.launches for fn in COUNTED}
+    print(f"13: default project / backproject at {N}^3 x {N_ARC} views "
+          f"({n_groups} orientation groups): {fwd_ms:.3f} / {adj_ms:.3f} "
+          f"ms (first calls, scalars on the host included); launches "
+          f"{json.dumps(counts)}")
+    check(counts["slab_arc_fwd"] == n_groups
+          and counts["slab_arc_adj"] == n_groups,
+          f"default calls: K3/K4 launches {counts} != {n_groups} groups")
+    check(all(v == 0 for k, v in counts.items()
+              if k not in ("slab_arc_fwd", "slab_arc_adj")),
+          f"default calls launched another kernel: {counts}")
+
+    same_fwd = torch.equal(fwd, sp.project(vol, geom, views, quad="arc"))
+    same_adj = torch.equal(adj, sp.backproject(y, geom, views, quad="arc"))
+    print(f"13: default == quad='arc': forward {same_fwd}, adjoint "
+          f"{same_adj} (bit-equal)")
+    check(same_fwd and same_adj, "the default call is not the arc call")
+
+    pf, pa = _plain_arc(vol, y, geom, gstruct, scalars)
+    f_rel = float(per_view_rel(fwd.reshape(pf.shape), pf).max())
+    a_rel = float(torch.linalg.norm(adj - pa) / torch.linalg.norm(pa))
+    print(f"13: default calls vs the plain arc path: forward max per-view "
+          f"rel L2 {f_rel:.3e} (tol {TOL_FWD}), adjoint rel L2 "
+          f"{a_rel:.3e} (tol {TOL_ADJ})")
+    check(f_rel <= TOL_FWD, f"default forward vs plain {f_rel}")
+    check(a_rel <= TOL_ADJ, f"default adjoint vs plain {a_rel}")
+    del pf, pa
+
+    fwd16 = sp.project(vol, geom, views, views_chunk=16)
+    adj16 = sp.backproject(y, geom, views, views_chunk=16)
+    c_rel = float(torch.linalg.norm(adj16 - adj) / torch.linalg.norm(adj))
+    same16 = torch.equal(fwd16, fwd)
+    print(f"13: views_chunk=16: forward bit-equal {same16}, adjoint rel L2 "
+          f"{c_rel:.3e} (tol {TOL_ADJ})")
+    check(same16, "views_chunk changed the forward")
+    check(c_rel <= TOL_ADJ, f"views_chunk adjoint {c_rel}")
+
+    worst, equal = 0.0, 0
+    picks = [gstruct[g][0][0] for g in range(min(4, n_groups))]
+    for i in picks:
+        v = views.view(i)
+        row = sp.forward_view(vol, geom, v.phi, v.alpha, v.beta, v.t, v.cor)
+        ref = fwd[i]
+        worst = max(worst, float(torch.linalg.norm(row - ref)
+                                 / torch.linalg.norm(ref)))
+        equal += int(torch.equal(row, ref))
+    print(f"13: forward_view on views {picks} (one per group) vs project's "
+          f"rows: max rel L2 {worst:.3e} (tol {TOL_FWD}), {equal} of "
+          f"{len(picks)} bit-equal")
+    check(worst <= TOL_FWD, f"forward_view vs project {worst}")
+    print(f"13: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1763,6 +1868,7 @@ def main():
         phase_exact_align(tmp, dev, ray_ms)
         phase_study(dev)
         c5_launches = phase_config5(tmp, dev)
+        phase_default_calls(dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -79,6 +79,13 @@ def dist_rank(rank, world, store, out_dir):
         key = f"vol_{quad}_h{halo}"
         out[f"{key}_A"], out[f"{key}_AT"] = op.A(x), op.AT(y)
         out[f"{key}_dot"] = _dot(op, x, y)
+    # the 2 x 2 grid with the ranks laid out in another order
+    mp = make_mesh(2, 2, devices=(3, 1, 0, 2))
+    op = make_sharded_operator(geom, views, mp, **kw)
+    out["perm_ray2x2_A"], out["perm_ray2x2_AT"] = op.A(x), op.AT(y)
+    op = make_volume_sharded_slab_operator(geom, views, mp, quad="arc",
+                                           halo=6, **kw)
+    out["perm_vol_arc_h6_A"], out["perm_vol_arc_h6_AT"] = op.A(x), op.AT(y)
     op = make_volume_sharded_operator(geom, views, m22, **kw)
     out["voxel_A"], out["voxel_AT"] = op.A(x), op.AT(y)
     out["voxel_dot"] = _dot(op, x, y)

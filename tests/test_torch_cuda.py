@@ -114,14 +114,14 @@ def test_adjoint_identity(cuda):
 def test_autograd_backward_is_k2(cuda):
     geom, views, vol, rng = _problem(n=32, n_proj=8)
     x = torch.as_tensor(vol, device=cuda).requires_grad_(True)
-    gstruct, scalars = sp.scalar_groups(geom, views, device=cuda)
-    y = sp.project_scalars(x, geom, gstruct, scalars)
+    gstruct, scalars = sp.scalar_groups(geom, views, "plane", device=cuda)
+    y = sp.project_scalars(x, geom, gstruct, scalars, "plane")
     g = torch.as_tensor(rng.standard_normal(y.shape), dtype=torch.float32,
                         device=cuda)
     before = slabk.slab_plane_adj.launches
     (gx,) = torch.autograd.grad(y, x, g)
     assert slabk.slab_plane_adj.launches == before + len(gstruct)
-    ref = sp.backproject_scalars(g, geom, gstruct, scalars)
+    ref = sp.backproject_scalars(g, geom, gstruct, scalars, "plane")
     # the same K2 outputs, summed over the groups in autograd's order
     assert torch.allclose(gx, ref, rtol=1e-6, atol=1e-6)
 

@@ -131,6 +131,16 @@ def test_angle_sharded_operator(results, prob, name, family):
     assert _rel(res[f"{name}_AT"], op.AT(prob["yt"])) <= TOL_EQ
 
 
+@pytest.mark.parametrize("key", ["ray2x2", "vol_arc_h6"])
+def test_mesh_in_another_rank_order(results, key):
+    """``make_mesh(2, 2, devices=(3, 1, 0, 2))`` lays the ranks out in that
+    order: the ray family over views × rays and the volume-sharded arc
+    operator (halo 6) give the rank-order mesh's A and Aᵀ."""
+    res = results[0]
+    for d in ("A", "AT"):
+        assert _rel(res[f"perm_{key}_{d}"], res[f"{key}_{d}"]) <= TOL_EQ
+
+
 def test_ray_sharding_matches_tomojax_mesh(results, jax_mesh):
     """The ray family over views × detector rays (2 × 2 ranks) against
     tomojax's 4 × 2 mesh."""

@@ -173,7 +173,7 @@ def test_param_jacobian_matches_autograd():
 
     def fields(t6, c):
         E, B = tsp._oriented_affine_theta(geom, t6, c, False, True, True)
-        p = tsp.slab_params_t(E, B)
+        p = tsp.slab_params(E, B)._asdict()
         return torch.stack([p[k] for k in tsp.PARAM_FIELDS])
 
     for i in range(3):

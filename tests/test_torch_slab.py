@@ -75,7 +75,7 @@ def test_scalar_groups_match(prob):
     for a, b in zip(tsp.orient_flags(tv, tg), jsp.orient_flags(jv, jg)):
         np.testing.assert_array_equal(a, b)
     # a frozen structure gives the same scalars
-    _, tsc2 = tsp.group_scalars_for(tg, tv, tgs, dtype=F64)
+    _, tsc2 = tsp.group_scalars_for(tg, tv, tgs, "plane", dtype=F64)
     _, jsc2 = jsp.group_scalars_for(jg, jv, jgs, "plane", jnp.float64)
     for a, b in zip(tsc2, jsc2):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-14,
@@ -98,7 +98,7 @@ def test_forward_matches_tomojax(prob):
     ref = jsp.project(jnp.asarray(prob["vol"]), prob["jg"], prob["jv"],
                       dtype=jnp.float64, quad="plane")
     got = tsp.project(torch.as_tensor(prob["vol"]), prob["tg"], prob["tv"],
-                      dtype=F64)
+                      dtype=F64, quad="plane")
     assert got.shape == ref.shape
     assert _rel(got.numpy(), ref) < 1e-10
 
@@ -107,15 +107,15 @@ def test_adjoint_matches_tomojax(prob):
     ref = jsp.backproject(jnp.asarray(prob["y"]), prob["jg"], prob["jv"],
                           dtype=jnp.float64, quad="plane")
     got = tsp.backproject(torch.as_tensor(prob["y"]), prob["tg"],
-                          prob["tv"], dtype=F64)
+                          prob["tv"], dtype=F64, quad="plane")
     assert _rel(got.numpy(), ref) < 1e-10
 
 
 def test_adjoint_dot_product(prob):
     tg, tv = prob["tg"], prob["tv"]
     x, y = torch.as_tensor(prob["vol"]), torch.as_tensor(prob["y"])
-    ax = tsp.project(x, tg, tv, dtype=F64)
-    aty = tsp.backproject(y, tg, tv, dtype=F64)
+    ax = tsp.project(x, tg, tv, dtype=F64, quad="plane")
+    aty = tsp.backproject(y, tg, tv, dtype=F64, quad="plane")
     lhs, rhs = float(torch.dot(ax.reshape(-1), y.reshape(-1))), float(
         torch.dot(x.reshape(-1), aty.reshape(-1)))
     assert abs(lhs - rhs) < 1e-10 * max(abs(lhs), 1.0)
@@ -125,15 +125,17 @@ def test_autograd_backward_equals_backproject(prob):
     tg, tv = prob["tg"], prob["tv"]
     x = torch.as_tensor(prob["vol"]).requires_grad_(True)
     y = torch.as_tensor(prob["y"])
-    (gx,) = torch.autograd.grad(tsp.project(x, tg, tv, dtype=F64), x, y)
-    ref = tsp.backproject(y, tg, tv, dtype=F64)
+    (gx,) = torch.autograd.grad(tsp.project(x, tg, tv, dtype=F64,
+                                            quad="plane"), x, y)
+    ref = tsp.backproject(y, tg, tv, dtype=F64, quad="plane")
     assert _rel(gx.numpy(), ref.numpy()) < 1e-13
 
 
 def test_cpu_wrappers_take_plain_version(prob):
     tg, tv = prob["tg"], prob["tv"]
     one = {k: v[:1] for k, v in tv.numpy().items()}
-    ((_, sw, yf, _),), (sc,) = tsp.scalar_groups(tg, one, dtype=F64)
+    ((_, sw, yf, _),), (sc,) = tsp.scalar_groups(tg, one, "plane",
+                                                 dtype=F64)
     vol_or = tsp.orient_volume(torch.as_tensor(prob["vol"]), tg, sw, yf)
     counts = (slabk.slab_plane_fwd.launches, slabk.slab_plane_adj.launches)
     np.testing.assert_array_equal(

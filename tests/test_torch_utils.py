@@ -83,10 +83,12 @@ def test_slab_apply_model_matches_the_smokes_count(quad, n_views, sizes,
     geom = Geometry(n_proj=n_views, vox_shape=(256,) * 3,
                     det_shape=(256, 256))
     groups = [((256,) * 3, v, (256, 256)) for v in sizes]
-    m = roofline.slab_apply_model(geom, quad, n_views, fields, len(sizes))
+    m = roofline.slab_apply_model(geom, quad, n_views=n_views,
+                                  fields=fields, n_groups=len(sizes))
     assert (m["bytes"], m["flops"]) == _inline_count(
         groups, roofline.TAPS[quad], fields)
-    bnd = roofline.slab_bound(geom, quad, n_views, fields, len(sizes))
+    bnd = roofline.slab_bound(geom, quad, n_views=n_views, fields=fields,
+                              n_groups=len(sizes))
     assert f"{bnd[0]:.3f}" == ms and bnd[1] == "operations"
     assert bnd == roofline.bound(m["bytes"], m["flops"])
 
@@ -98,12 +100,13 @@ def test_groups_bound_of_the_smoke():
     groups = [(torch.zeros(8, 8, 8), torch.zeros(v, sp.NS),
                torch.zeros(v, 8, 8)) for v in (5, 7)]
     assert chip_smoke.groups_bound(geom, groups, "arc", 12) == (
-        roofline.slab_bound(geom, "arc", 12, 12, 2))
+        roofline.slab_bound(geom, "arc", n_views=12, fields=12, n_groups=2))
 
 
 def test_roofline_shares(monkeypatch):
     geom = Geometry(n_proj=180, vox_shape=(256,) * 3, det_shape=(256, 256))
-    r = roofline.roofline(geom, "plane", 6.3e-3, 19.4e-3, n_groups=4)
+    r = roofline.roofline(geom, "plane", "f32x2", 6.3e-3, 19.4e-3,
+                          n_groups=4)
     assert r["fwd"]["bound"] == "operations"
     assert r["fwd"]["pct_sol"] == pytest.approx(0.3606e-3 / 6.3e-3,
                                                 rel=1e-3)

@@ -300,7 +300,7 @@ def align_to_reprojection(projections, geom, views, *, rounds: int = 2,
     return views, shifts
 
 
-def com_align(projections, geom, phi, *, dtype=torch.float32, device=None):
+def com_align(projections, geom, phi, dtype=torch.float32, *, device=None):
     """Per-view (tx, tz) from the sinogram center-of-mass (Helgason–Ludwig
     first-moment) consistency condition.
 

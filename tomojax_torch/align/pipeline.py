@@ -50,6 +50,7 @@ from tomojax_torch.core.geometry import Geometry, Views
 from tomojax_torch.core.operators import (QUADS, make_operator,
                                           operator_from_scalars,
                                           resolve_device)
+from tomojax_torch.kernels.slab import resolve_prec
 from tomojax_torch.recon.cgls import cgls, cgls_init, cgls_steps
 from tomojax_torch.recon.sirt import sirt
 
@@ -180,10 +181,7 @@ def _check_supported(family, recon, refine_method, recon_prec):
         raise ValueError(f"unknown projector family: {family!r}")
     if refine_method not in ("lm", "lm_slab", "gd_fast"):
         raise ValueError(f"unknown refine_method {refine_method!r}")
-    if recon_prec != "f32x2":
-        raise NotImplementedError(
-            f"recon_prec={recon_prec!r}: a reduced-precision tier needs its "
-            "own contract (ROADMAP Queue 3)")
+    resolve_prec(recon_prec, name="recon_prec")
     if recon not in ("sirt", "cgls"):
         raise ValueError(f"unknown recon {recon!r}")
 
@@ -502,7 +500,8 @@ def align_reconstruct(projections, geom: Geometry, views0: Views, *,
             # the slab families reuse the solver's frozen octant groups
             res = (sp.group_scalars_for(geom, views, gstruct, quad, **kw)
                    if family in QUADS else None)
-            synth = (sp.project_scalars(volume * mom_mask, geom, *res, quad)
+            synth = (sp.project_scalars(volume * mom_mask, geom, *res, quad,
+                                        dtype)
                      if res is not None else
                      _family_synth(volume * mom_mask, geom, views, family,
                                    quad, dtype, debias_chunk))

@@ -353,10 +353,16 @@ def gradient_descent_views(vol, projections, geom: Geometry, theta_init,
 
 
 def gradient_descent_view(vol, proj_meas, geom: Geometry, theta6_init, cor,
-                          **kw) -> RefineResult:
+                          *, mask=None, max_iter: int = 100,
+                          eps: float = 1e-6, step_search: str = "armijo",
+                          family: str = "ray", param_scale=None,
+                          dtype=torch.float32) -> RefineResult:
     """Gradient descent of one view (tomojax's ``gradient_descent_view``);
     keywords as :func:`gradient_descent_views`."""
     r = gradient_descent_views(vol, torch.as_tensor(proj_meas)[None], geom,
                                torch.as_tensor(theta6_init)[None],
-                               torch.as_tensor(cor)[None], **kw)
+                               torch.as_tensor(cor)[None], mask=mask,
+                               max_iter=max_iter, eps=eps,
+                               step_search=step_search, family=family,
+                               param_scale=param_scale, dtype=dtype)
     return RefineResult(*(a[0] for a in r))

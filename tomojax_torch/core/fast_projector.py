@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from tomojax_torch.core.geometry import Geometry, Views
-from tomojax_torch.core.rotations import rot_x, rot_y, rot_z
+from tomojax_torch.core.rotations import ray_rotation, rot_x, rot_y, rot_z
 from tomojax_torch.kernels.resample import (resample_rows,
                                             resample_rows_transpose)
 
@@ -93,6 +93,15 @@ def marching_x(E) -> np.ndarray:
     (swap x/y), iff ``|ED_x| > |ED_y|`` at the view's affine map ``E`` (V,
     3, 3), in E's own dtype (tomojax's in-graph ``swapped=None``)."""
     return (E[:, 0, 2].abs() > E[:, 1, 2].abs()).cpu().numpy()
+
+
+def swap_flags(views: Views) -> np.ndarray:
+    """Each view's octant decision on the host (tomojax's ``swap_flags``):
+    :func:`marching_x` at the view's affine map for unit pixels and step,
+    in float64. True → march along x (swap x/y)."""
+    R = ray_rotation(*(getattr(views, f).detach().cpu().to(torch.float64)
+                       for f in ("phi", "alpha", "beta")))
+    return marching_x(R[..., [0, 2, 1]])
 
 
 def _octant_chunks(E, chunk: int):
@@ -236,14 +245,23 @@ def _affine(geom: Geometry, views: Views, dtype, device):
     return E.to(device), B.to(device)
 
 
-def project(vol, geom: Geometry, views: Views, *, dtype=torch.float32):
+def _chunk(geom: Geometry, views_chunk: int | None, itemsize: int) -> int:
+    """Views per chunk: the memory-sized :func:`views_per_chunk`, at most
+    ``views_chunk``."""
+    chunk = views_per_chunk(geom, itemsize=itemsize)
+    return min(chunk, max(1, int(views_chunk))) if views_chunk else chunk
+
+
+def project(vol, geom: Geometry, views: Views, *, dtype=torch.float32,
+            views_chunk: int | None = None):
     """Multi-view fast forward → ``(n_proj, n_det)``. Views are grouped by
-    marching octant (:func:`marching_x`) and chunked by memory; requires
-    nx == ny."""
+    marching octant (:func:`marching_x`) and chunked by memory, in chunks
+    of at most ``views_chunk`` views (the result does not depend on it);
+    requires nx == ny."""
     _require_square(geom)
     vol = vol.reshape(geom.vox_shape).to(dtype)
     E, B = _affine(geom, views, dtype, vol.device)
-    chunk = views_per_chunk(geom, itemsize=vol.element_size())
+    chunk = _chunk(geom, views_chunk, vol.element_size())
     out = torch.zeros((views.n_proj, geom.n_det), dtype=dtype,
                       device=vol.device)
     for sel, sw in _octant_chunks(E, chunk):
@@ -252,16 +270,18 @@ def project(vol, geom: Geometry, views: Views, *, dtype=torch.float32):
     return out
 
 
-def backproject(sino, geom: Geometry, views: Views, *, dtype=torch.float32):
-    """Exact adjoint of :func:`project` → ``vox_shape``: per chunk, the K8
-    chain of :func:`_backproject_marching_y`, which adds the chunk into
-    the volume (through its x/y-transposed view for x-marching chunks).
-    The sum runs over the views in order within a chunk and over the
-    chunks in :func:`_octant_chunks` order."""
+def backproject(sino, geom: Geometry, views: Views, *, dtype=torch.float32,
+                views_chunk: int | None = None):
+    """Exact adjoint of :func:`project` → ``vox_shape``: per chunk (at most
+    ``views_chunk`` views), the K8 chain of
+    :func:`_backproject_marching_y`, which adds the chunk into the volume
+    (through its x/y-transposed view for x-marching chunks). The sum runs
+    over the views in order within a chunk and over the chunks in
+    :func:`_octant_chunks` order."""
     _require_square(geom)
     sino = sino.reshape(views.n_proj, geom.n_det).to(dtype)
     E, B = _affine(geom, views, dtype, sino.device)
-    chunk = views_per_chunk(geom, itemsize=sino.element_size())
+    chunk = _chunk(geom, views_chunk, sino.element_size())
     acc = torch.zeros(geom.vox_shape, dtype=dtype, device=sino.device)
     for sel, sw in _octant_chunks(E, chunk):
         vol_o, E_o, B_o = _oriented(acc, E[sel], B[sel], sw)

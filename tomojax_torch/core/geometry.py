@@ -173,7 +173,7 @@ class Views:
 
     @classmethod
     def create(cls, n_proj, phi=None, alpha=None, beta=None, t=None,
-               cor=None, *, dtype=torch.float32, device=None) -> "Views":
+               cor=None, dtype=torch.float32, *, device=None) -> "Views":
         """Views with defaults as ``tomojax.core.geometry.Views.create``:
         phi over ``[0, π]`` (endpoint included), zero jitter. Array-likes
         are cast to ``dtype`` (float32 by default, as tomojax)."""
@@ -198,6 +198,12 @@ class Views:
     @property
     def n_proj(self) -> int:
         return self.phi.shape[0]
+
+    def view(self, i) -> "Views":
+        """The view ``i`` as a ``Views`` whose fields are that view's
+        (``phi`` 0-d, ``t`` (3,) for an integer ``i``), as tomojax's."""
+        return Views(**{f.name: getattr(self, f.name)[i]
+                        for f in dataclasses.fields(self)})
 
     def numpy(self) -> dict:
         """Host float64 copies of the fields (for the host-side scalars)."""

@@ -33,6 +33,7 @@ from tomojax_torch.core import projector as ray
 from tomojax_torch.core import slab_projector as slabp
 from tomojax_torch.core import voxel_projector as vox
 from tomojax_torch.core.geometry import Geometry, Views
+from tomojax_torch.kernels.slab import resolve_prec
 
 QUADS = {"slab": "arc", "slab_plane": "plane"}
 
@@ -92,13 +93,11 @@ def make_operator(geom: Geometry, views: Views, *, family: str = "ray",
         their own chunks; their results do not depend on it.
     :param voxel_mask: optional boolean volume; False voxels are excluded
         from the system.
-    :param prec: the slab kernels' precision tier: ``None`` or ``"f32x2"``
-        (plain fp32 here). A reduced-precision tier raises.
+    :param prec: the slab kernels' precision tier
+        (:func:`~tomojax_torch.kernels.slab.resolve_prec`: ``"f32x2"`` is
+        plain fp32 here; a reduced-precision tier raises).
     """
-    if prec not in (None, "f32x2"):
-        raise NotImplementedError(
-            f"prec={prec!r}: a reduced-precision tier needs its own "
-            "contract (ROADMAP Queue 3)")
+    resolve_prec(prec)
     if family == "ray":
         return _views_operator(
             geom, views, family, dtype, device, voxel_mask,
@@ -178,12 +177,12 @@ def operator_from_scalars(geom: Geometry, gstruct, scalars, *, family: str,
         x = x.reshape(geom.vox_shape).to(dtype)
         if mask is not None:
             x = x * mask
-        return slabp.project_scalars(x, geom, gstruct, scalars, quad)
+        return slabp.project_scalars(x, geom, gstruct, scalars, quad, dtype)
 
     def AT(y):
         out = slabp.backproject_scalars(
-            y.reshape(geom.n_proj, geom.n_det).to(dtype), geom, gstruct,
-            scalars, quad)
+            y.reshape(geom.n_proj, geom.n_det), geom, gstruct, scalars, quad,
+            dtype)
         return out * mask if mask is not None else out
 
     return TomoOperator(geom=geom, views=views, A=A, AT=AT, family=family,

@@ -249,23 +249,43 @@ def forward_views_jac(vol, geom: Geometry, phi, alpha, beta, t, cor, *,
 # ----------------------------------------------------------------------
 # Single-view entry points (tomojax's signatures)
 # ----------------------------------------------------------------------
+#
+# ``unroll`` is tomojax's ``lax.scan`` unroll of the march: accepted, and
+# without effect here (the march runs in blocks of steps).
+
+
+def _ray_block(geom: Geometry, ray_offset, ray_count) -> slice:
+    """The detector rays ``[ray_offset, ray_offset + ray_count)`` (all with
+    ``ray_count`` None), the offset clamped into the detector as
+    ``lax.dynamic_slice`` clamps tomojax's."""
+    if ray_count is None:
+        return slice(None)
+    off = min(max(int(ray_offset or 0), 0), geom.n_det - ray_count)
+    return slice(off, off + ray_count)
 
 
 def forward_view(vol, geom: Geometry, phi, alpha, beta, t, cor, *,
-                 dtype=torch.float32):
-    """Forward-project one view: ``P(θ) · vol`` → ``(n_det,)``."""
-    return forward_views(vol, geom, phi, alpha, beta, t, cor, dtype=dtype)[0]
+                 dtype=torch.float32, unroll: int = 1, ray_offset=None,
+                 ray_count: int | None = None):
+    """Forward-project one view: ``P(θ) · vol`` → ``(n_det,)``, or
+    ``(ray_count,)`` for the block of rays from ``ray_offset``."""
+    return forward_views(vol, geom, phi, alpha, beta, t, cor, dtype=dtype,
+                         rays=_ray_block(geom, ray_offset, ray_count))[0]
 
 
 def backproject_view(det_img, vol_shape, geom: Geometry, phi, alpha, beta, t,
-                     cor, *, dtype=torch.float32):
-    """Adjoint of :func:`forward_view` for one view: ``P(θ)ᵀ · y``."""
+                     cor, *, dtype=torch.float32, unroll: int = 1,
+                     ray_offset=None, ray_count: int | None = None):
+    """Adjoint of :func:`forward_view` for one view: ``P(θ)ᵀ · y``
+    (``det_img`` holds the block of rays that ``ray_offset`` and
+    ``ray_count`` give)."""
     return backproject_views(det_img, vol_shape, geom, phi, alpha, beta, t,
-                             cor, dtype=dtype)
+                             cor, dtype=dtype,
+                             rays=_ray_block(geom, ray_offset, ray_count))
 
 
 def forward_view_jac(vol, geom: Geometry, phi, alpha, beta, t, cor, *,
-                     dtype=torch.float32):
+                     dtype=torch.float32, unroll: int = 1):
     """Fused projection + analytic 6-DoF Jacobian for one view →
     ``(det_img (n_det,), jac (6, n_det))``."""
     det, jac = forward_views_jac(vol, geom, phi, alpha, beta, t, cor,
@@ -348,10 +368,11 @@ def _view_fields(views: Views, sl, device):
 
 
 def project(vol, geom: Geometry, views: Views, *, dtype=torch.float32,
-            views_chunk: int | None = None, rays: slice = slice(None)):
+            views_chunk: int | None = None, unroll: int = 1,
+            rays: slice = slice(None)):
     """Multi-view forward projection → sinogram ``(n_proj, n_det)`` (or
     the block ``rays`` of each view), in chunks of views (auto-sized as
-    tomojax's; ``views_chunk`` overrides)."""
+    tomojax's; ``views_chunk`` overrides). ``unroll`` does nothing."""
     n = views.n_proj
     chunk = (_divisor_chunk(n, views_chunk) if views_chunk
              else _auto_forward_chunk(geom))
@@ -363,10 +384,10 @@ def project(vol, geom: Geometry, views: Views, *, dtype=torch.float32,
 
 def backproject(sino, vol_shape, geom: Geometry, views: Views, *,
                 dtype=torch.float32, views_chunk: int | None = None,
-                rays: slice = slice(None)):
+                unroll: int = 1, rays: slice = slice(None)):
     """Multi-view adjoint ``Aᵀ y`` → volume ``vol_shape``; each chunk of
     views adds into the one volume (``sino`` may hold the block ``rays``
-    of each view)."""
+    of each view). ``unroll`` does nothing."""
     n = views.n_proj
     chunk = (_divisor_chunk(n, views_chunk) if views_chunk
              else _auto_adjoint_chunk(geom))

@@ -39,6 +39,8 @@ refinement on its own θ.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -50,10 +52,6 @@ NS = 21
 (S_EDY, S_EDX, S_EDZ, S_RX, S_RZ, S_EUX, S_EVX, S_EVZ, S_CXB, S_CZB,
  S_GZX, S_B1, S_EUY, S_EVY, S_INV_EDY, S_WAX, S_WAV, S_SCALE, S_INV_EUX,
  S_EUYIEUX, S_ZAV) = range(NS)
-
-# Names of tomojax's SlabParams fields, in its order.
-PARAM_FIELDS = ("edy", "edx", "edz", "rx", "rz", "eux", "evx", "euz", "evz",
-                "cxb", "czb", "gzx", "b1", "euy", "evy")
 
 # The 12 Jacobian building blocks, in the order the fused Jacobian kernel
 # emits them: (name, deriv, jweight, rweight) of forward_oriented.
@@ -121,12 +119,16 @@ def _np_oriented_E(geom: Geometry, views):
     return Eo, swap, yflip, uflip
 
 
-def orient_flags(views, geom: Geometry):
+def orient_flags(views, geom: Geometry | None = None):
     """Per-view orientation flags ``(swap, yflip, uflip)`` (numpy bools).
 
     Swap iff ``|ED_x| > |ED_y|``; y-flip makes the march direction +y of
     the oriented volume; u-flip makes the in-plane x per detector-u slope
-    positive (an exact detector-row permutation)."""
+    positive (an exact detector-row permutation). Without ``geom`` the
+    flags are those of unit pixels and step, as tomojax's."""
+    if geom is None:
+        geom = Geometry(n_proj=len(_views_np(views)["phi"]),
+                        vox_shape=(8, 8, 8), det_shape=(8, 8))
     _, swap, yflip, uflip = _np_oriented_E(geom, views)
     return swap, yflip, uflip
 
@@ -180,9 +182,14 @@ def _theta_cor(vw: dict):
     return torch.as_tensor(theta), torch.as_tensor(vw["cor"])
 
 
-def scalar_groups(geom: Geometry, views, quad: str = "plane", *,
-                  dtype=torch.float32, device=None):
+def scalar_groups(geom: Geometry, views, quad: str = "arc",
+                  dtype=torch.float32, strict_bounds: bool = False, *,
+                  device=None):
     """Host-side split of views into orientation groups.
+
+    ``strict_bounds`` is accepted for tomojax's calls and does nothing:
+    it chooses what tomojax does past its TPU kernel's band budget, and
+    the Hopper kernels have no band budget.
 
     :returns: ``(gstruct, scalars)``: ``gstruct`` is a tuple of per-group
         ``(view_indices, swap, yflip, uflip)`` and ``scalars`` a matching
@@ -199,8 +206,8 @@ def scalar_groups(geom: Geometry, views, quad: str = "plane", *,
     return tuple(gstruct), tuple(scalars)
 
 
-def group_scalars_for(geom: Geometry, views, gstruct, quad: str = "plane",
-                      *, dtype=torch.float32, device=None):
+def group_scalars_for(geom: Geometry, views, gstruct, quad: str = "arc",
+                      dtype=torch.float32, *, device=None):
     """Recompute the scalars for a FIXED group structure. Returns ``None``
     when a view leaves its group's valid frame (``edy > 0``, ``eux > 0``);
     the caller then regroups with :func:`scalar_groups`."""
@@ -223,10 +230,12 @@ def group_scalars_for(geom: Geometry, views, gstruct, quad: str = "plane",
 
 
 def orient_affine(E, B, ny_oriented: int, swap: bool, yflip: bool,
-                  uflip: bool = False, nu: int = 0):
+                  dtype=None, uflip: bool = False, nu: int = 0):
     """Transform the (u, v, j) → volume affine map (batched ``E (..., 3,
-    3)``, ``B (..., 3)``) into the oriented frame. ``uflip`` reverses the
-    detector-u index (u → nu−1−u)."""
+    3)``, ``B (..., 3)``) into the oriented frame, in ``dtype`` (None: E's
+    own). ``uflip`` reverses the detector-u index (u → nu−1−u)."""
+    if dtype is not None:
+        E, B = torch.as_tensor(E, dtype=dtype), torch.as_tensor(B, dtype=dtype)
     if swap:
         perm = torch.as_tensor(_PERM_SWAP, dtype=E.dtype, device=E.device)
         E = perm @ E
@@ -248,11 +257,41 @@ def _oriented_affine_theta(geom: Geometry, theta6, cor, swap: bool,
     E, B = view_affine(geom, theta6[..., 3], theta6[..., 4], theta6[..., 5],
                        theta6[..., :3], cor)
     ny_o = geom.vox_shape[0] if swap else geom.vox_shape[1]
-    return orient_affine(E, B, ny_o, swap, yflip, uflip, geom.det_shape[0])
+    return orient_affine(E, B, ny_o, swap, yflip, None, uflip,
+                         geom.det_shape[0])
 
 
-def slab_params_t(E, B) -> dict:
-    """tomojax's ``slab_params`` on batched tensors → dict of fields."""
+class SlabParams(NamedTuple):
+    """Per-view scalars of the oriented slab decomposition (tomojax's
+    fields, in its order), each a tensor with the views' batch shape."""
+
+    edy: torch.Tensor     # y-advance per march step (> 0 oriented)
+    edx: torch.Tensor     # x-advance per march step
+    edz: torch.Tensor     # z-advance per march step
+    rx: torch.Tensor      # EDx / EDy
+    rz: torch.Tensor      # EDz / EDy
+    eux: torch.Tensor     # in-plane x per detector-u (EUx − rx·EUy)
+    evx: torch.Tensor     # in-plane x per detector-v
+    euz: torch.Tensor     # in-plane z per detector-u
+    evz: torch.Tensor     # in-plane z per detector-v
+    cxb: torch.Tensor     # in-plane x offset (add rx·s per slab)
+    czb: torch.Tensor     # in-plane z offset (add rz·s per slab)
+    gzx: torch.Tensor     # dz/dx along constant (v, slab): EUz/EUx
+    b1: torch.Tensor      # B[1] (for the march-index map)
+    euy: torch.Tensor     # EU[1]
+    evy: torch.Tensor     # EV[1]
+
+
+#: The fields of :class:`SlabParams`, in order.
+PARAM_FIELDS = SlabParams._fields
+
+
+def slab_params(E, B, dtype=None) -> SlabParams:
+    """The :class:`SlabParams` of oriented affine maps ``E (..., 3, 3)``,
+    ``B (..., 3)`` (batched over leading dimensions), in ``dtype`` (None:
+    E's own)."""
+    if dtype is not None:
+        E, B = torch.as_tensor(E, dtype=dtype), torch.as_tensor(B, dtype=dtype)
     EU, EV, ED = E[..., :, 0], E[..., :, 1], E[..., :, 2]
     edy = ED[..., 1]
     rx = ED[..., 0] / edy
@@ -261,11 +300,11 @@ def slab_params_t(E, B) -> dict:
     evx = EV[..., 0] - rx * EV[..., 1]
     euz = EU[..., 2] - rz * EU[..., 1]
     evz = EV[..., 2] - rz * EV[..., 1]
-    return dict(edy=edy, edx=ED[..., 0], edz=ED[..., 2], rx=rx, rz=rz,
-                eux=eux, evx=evx, euz=euz, evz=evz,
-                cxb=B[..., 0] - rx * B[..., 1],
-                czb=B[..., 2] - rz * B[..., 1],
-                gzx=euz / eux, b1=B[..., 1], euy=EU[..., 1], evy=EV[..., 1])
+    return SlabParams(
+        edy=edy, edx=ED[..., 0], edz=ED[..., 2], rx=rx, rz=rz,
+        eux=eux, evx=evx, euz=euz, evz=evz,
+        cxb=B[..., 0] - rx * B[..., 1], czb=B[..., 2] - rz * B[..., 1],
+        gzx=euz / eux, b1=B[..., 1], euy=EU[..., 1], evy=EV[..., 1])
 
 
 def slab_scalars_t(geom: Geometry, theta6, cor, swap: bool, yflip: bool,
@@ -274,22 +313,30 @@ def slab_scalars_t(geom: Geometry, theta6, cor, swap: bool, yflip: bool,
     ``theta6 (..., 6)`` (the counterpart of tomojax's ``slab_scalars_jnp``,
     batched over leading dimensions); ``cor`` is ``(..., 3)``."""
     E, B = _oriented_affine_theta(geom, theta6, cor, swap, yflip, uflip)
-    p = slab_params_t(E, B)
-    inv_edy = 1.0 / p["edy"]
-    inv_eux = 1.0 / p["eux"]
-    euy_ieux = p["euy"] * inv_eux
+    p = slab_params(E, B)
+    inv_edy = 1.0 / p.edy
+    inv_eux = 1.0 / p.eux
+    euy_ieux = p.euy * inv_eux
     cols = {
-        S_EDY: p["edy"], S_EDX: p["edx"], S_EDZ: p["edz"], S_RX: p["rx"],
-        S_RZ: p["rz"], S_EUX: p["eux"], S_EVX: p["evx"], S_EVZ: p["evz"],
-        S_CXB: p["cxb"], S_CZB: p["czb"], S_GZX: p["gzx"], S_B1: p["b1"],
-        S_EUY: p["euy"], S_EVY: p["evy"], S_INV_EDY: inv_edy,
-        S_WAX: -euy_ieux * inv_edy,
-        S_WAV: (euy_ieux * p["evx"] - p["evy"]) * inv_edy,
+        S_EDY: p.edy, S_EDX: p.edx, S_EDZ: p.edz, S_RX: p.rx, S_RZ: p.rz,
+        S_EUX: p.eux, S_EVX: p.evx, S_EVZ: p.evz, S_CXB: p.cxb,
+        S_CZB: p.czb, S_GZX: p.gzx, S_B1: p.b1, S_EUY: p.euy, S_EVY: p.evy,
+        S_INV_EDY: inv_edy, S_WAX: -euy_ieux * inv_edy,
+        S_WAV: (euy_ieux * p.evx - p.evy) * inv_edy,
         S_SCALE: inv_edy if quad == "plane" else torch.ones_like(inv_edy),
         S_INV_EUX: inv_eux, S_EUYIEUX: euy_ieux,
-        S_ZAV: p["evz"] - p["gzx"] * p["evx"],
+        S_ZAV: p.evz - p.gzx * p.evx,
     }
     return torch.stack([cols[i] for i in range(NS)], dim=-1)
+
+
+def slab_scalars_np(geom: Geometry, views, swap: bool, yflip: bool,
+                    uflip: bool, quad: str) -> np.ndarray:
+    """``(V, NS)`` kernel scalars of host views in float64 numpy
+    (tomojax's signature): :func:`slab_scalars_t` at the views' θ."""
+    theta, cor = _theta_cor(_views_np(views))
+    return slab_scalars_t(geom, theta, cor, swap, yflip, uflip,
+                          quad).numpy()
 
 
 def param_jacobian(geom: Geometry, theta6, cor, swap: bool, yflip: bool,
@@ -301,8 +348,7 @@ def param_jacobian(geom: Geometry, theta6, cor, swap: bool, yflip: bool,
 
     def fields(th):
         E, B = _oriented_affine_theta(geom, th, cor, swap, yflip, uflip)
-        p = slab_params_t(E, B)
-        return torch.stack([p[k] for k in PARAM_FIELDS], dim=-1)
+        return torch.stack(slab_params(E, B), dim=-1)
 
     eye = torch.eye(6, dtype=theta6.dtype, device=theta6.device)
     tangents = eye[:, None, :].expand(6, *theta6.shape)
@@ -515,6 +561,45 @@ def jac_passes_oriented(vol_or, scalars, geom: Geometry):
                         for _, dv, jw, rw in JAC_PASSES], dim=1)
 
 
+def _theta_one(phi, alpha, beta, t, cor):
+    """One view's ``(θ (1, 6), cor (1, 3))`` as float64 CPU tensors, from
+    numbers, arrays or tensors on any device."""
+    def host(a):
+        if torch.is_tensor(a):
+            a = a.detach().cpu()
+        return torch.as_tensor(np.asarray(a, np.float64)).reshape(-1)
+
+    th = torch.cat([host(t), host(phi), host(alpha), host(beta)])[None]
+    return th, host(cor).reshape(1, 3)
+
+
+def forward_view(vol, geom: Geometry, phi, alpha, beta, t, cor, *,
+                 dtype=torch.float32, quad: str = "arc",
+                 swap: bool | None = None, yflip: bool | None = None):
+    """Slab forward projection of one view → ``(n_det,)`` u-major, on
+    ``vol``'s device: K1 (plane) or K3 (arc) for a CUDA tensor, their
+    plain version on the CPU.
+
+    ``swap``/``yflip`` are the orientation flags (:func:`orient_flags`);
+    None computes them on the host from the given parameters. The u-flip
+    that the kernels need follows from the oriented scalars."""
+    _check_quad(quad)
+    from tomojax_torch.kernels import slab as slabk
+    vol = torch.as_tensor(vol).reshape(geom.vox_shape).to(dtype)
+    th, cor = _theta_one(phi, alpha, beta, t, cor)
+    if swap is None or yflip is None:
+        sw, yf, _ = orient_flags(Views.from_theta6(th), geom)
+        swap, yflip = bool(sw[0]), bool(yf[0])
+    sc = slab_scalars_t(geom, th, cor, swap, yflip, False, quad)
+    uflip = bool(sc[0, S_EUX] < 0.0)
+    if uflip:
+        sc = slab_scalars_t(geom, th, cor, swap, yflip, True, quad)
+    vol_or = orient_volume(vol, geom, swap, yflip).contiguous()
+    out = slabk.slab_project(vol_or, sc.to(dtype=dtype, device=vol.device),
+                             geom, quad)[0]
+    return (out.flip(0) if uflip else out).reshape(-1)
+
+
 # ----------------------------------------------------------------------
 # Analytic 6-DoF Jacobian (slab analogue of the reference's fused
 # projection + gradient, ray_wt_grad.f90:95-223)
@@ -615,12 +700,8 @@ def forward_view_jac(vol, geom: Geometry, phi, alpha, beta, t, cor, *,
     kernel). ``swap``/``yflip`` default to the flags of the given
     parameters."""
     vol = torch.as_tensor(vol).reshape(geom.vox_shape).to(dtype)
-    th = torch.as_tensor(np.concatenate([
-        np.asarray(t, np.float64).reshape(3),
-        [float(phi), float(alpha), float(beta)]]), dtype=dtype,
-        device=vol.device)[None]
-    cor = torch.as_tensor(np.array(cor, np.float64), dtype=dtype,
-                          device=vol.device).reshape(1, 3)
+    th, cor = (a.to(dtype=dtype, device=vol.device)
+               for a in _theta_one(phi, alpha, beta, t, cor))
     if swap is None or yflip is None:
         sw, yf, _ = orient_flags(Views.from_theta6(th.cpu()), geom)
         swap, yflip = bool(sw[0]), bool(yf[0])
@@ -644,61 +725,88 @@ def _check_square(geom: Geometry):
                          f"footprint); got {geom.vox_shape}")
 
 
+def _row_chunks(n: int, views_chunk: int | None):
+    """Row slices of at most ``views_chunk`` rows (all rows if None)."""
+    c = n if not views_chunk else max(1, int(views_chunk))
+    return [slice(i, i + c) for i in range(0, n, c)]
+
+
 def project_scalars(vol, geom: Geometry, gstruct, scalars,
-                    quad: str = "plane"):
-    """Multi-view forward → ``(n_proj, n_det)``; each group goes through
-    :class:`~tomojax_torch.kernels.slab.SlabPlane` (K1 forward, K2
-    backward) or :class:`~tomojax_torch.kernels.slab.SlabArc` (K3, K4)."""
+                    quad: str = "arc", dtype=torch.float32,
+                    views_chunk: int | None = None,
+                    prec: str | None = None):
+    """Multi-view forward → ``(n_proj, n_det)`` in ``dtype``; each group
+    goes through :class:`~tomojax_torch.kernels.slab.SlabPlane` (K1
+    forward, K2 backward) or :class:`~tomojax_torch.kernels.slab.SlabArc`
+    (K3, K4), in calls of at most ``views_chunk`` views (the result does
+    not depend on it). ``prec`` is checked by
+    :func:`~tomojax_torch.kernels.slab.resolve_prec`."""
     from tomojax_torch.kernels import slab as slabk
     _check_square(geom)
     _check_quad(quad)
+    slabk.resolve_prec(prec)
     fn = slabk.SlabPlane if quad == "plane" else slabk.SlabArc
     n = sum(len(g[0]) for g in gstruct)
     nu, nv = geom.det_shape
-    vol = vol.reshape(geom.vox_shape)
+    vol = vol.reshape(geom.vox_shape).to(dtype)
     out = vol.new_zeros((n, nu, nv))
     for (idx, sw, yf, uf), sc in zip(gstruct, scalars):
         vol_or = orient_volume(vol, geom, sw, yf).contiguous()
-        sino = fn.apply(vol_or, sc, geom)
-        if uf:
-            sino = sino.flip(1)
-        out[torch.as_tensor(idx, device=out.device)] = sino
+        rows = torch.as_tensor(idx, device=out.device)
+        for part in _row_chunks(len(idx), views_chunk):
+            sino = fn.apply(vol_or, sc[part], geom)
+            if uf:
+                sino = sino.flip(1)
+            out[rows[part]] = sino
     return out.reshape(n, geom.n_det)
 
 
 def backproject_scalars(sino, geom: Geometry, gstruct, scalars,
-                        quad: str = "plane"):
-    """Exact adjoint of :func:`project_scalars` → volume ``vox_shape``;
-    each group goes through K2 (plane) or K4 (arc)."""
+                        quad: str = "arc", dtype=torch.float32,
+                        views_chunk: int | None = None,
+                        prec: str | None = None):
+    """Exact adjoint of :func:`project_scalars` → volume ``vox_shape`` in
+    ``dtype``; each group goes through K2 (plane) or K4 (arc), in calls of
+    at most ``views_chunk`` views."""
     from tomojax_torch.kernels import slab as slabk
     _check_square(geom)
+    slabk.resolve_prec(prec)
     nu, nv = geom.det_shape
-    sino = sino.reshape(-1, nu, nv)
+    sino = sino.reshape(-1, nu, nv).to(dtype)
     vol = sino.new_zeros(geom.vox_shape)
     for (idx, sw, yf, uf), sc in zip(gstruct, scalars):
-        g = sino[torch.as_tensor(idx, device=sino.device)]
-        if uf:
-            g = g.flip(1)
-        vb = slabk.slab_backproject(g.contiguous(), sc, geom, quad)
-        vol += unorient_volume(vb, sw, yf)
+        rows = torch.as_tensor(idx, device=sino.device)
+        for part in _row_chunks(len(idx), views_chunk):
+            g = sino[rows[part]]
+            if uf:
+                g = g.flip(1)
+            vb = slabk.slab_backproject(g.contiguous(), sc[part], geom, quad)
+            vol += unorient_volume(vb, sw, yf)
     return vol
 
 
 def project(vol, geom: Geometry, views, *, dtype=torch.float32,
-            quad: str = "plane", device=None):
-    """Multi-view slab forward → ``(n_proj, n_det)``."""
+            quad: str = "arc", views_chunk: int | None = None,
+            prec: str | None = None, strict_bounds: bool = True,
+            device=None):
+    """Multi-view slab forward → ``(n_proj, n_det)``, on ``vol``'s device
+    unless ``device`` is given. ``views_chunk`` and ``prec`` as in
+    :func:`project_scalars`; ``strict_bounds`` does nothing (see
+    :func:`scalar_groups`)."""
     device = vol.device if device is None else device
-    gstruct, scalars = scalar_groups(geom, views, quad, dtype=dtype,
+    gstruct, scalars = scalar_groups(geom, views, quad, dtype,
                                      device=device)
-    return project_scalars(vol.to(device=device, dtype=dtype), geom,
-                           gstruct, scalars, quad)
+    return project_scalars(vol.to(device=device), geom, gstruct, scalars,
+                           quad, dtype, views_chunk, prec)
 
 
 def backproject(sino, geom: Geometry, views, *, dtype=torch.float32,
-                quad: str = "plane", device=None):
+                quad: str = "arc", views_chunk: int | None = None,
+                prec: str | None = None, strict_bounds: bool = True,
+                device=None):
     """Exact adjoint of :func:`project` → volume ``vox_shape``."""
     device = sino.device if device is None else device
-    gstruct, scalars = scalar_groups(geom, views, quad, dtype=dtype,
+    gstruct, scalars = scalar_groups(geom, views, quad, dtype,
                                      device=device)
-    return backproject_scalars(sino.to(device=device, dtype=dtype), geom,
-                               gstruct, scalars, quad)
+    return backproject_scalars(sino.to(device=device), geom, gstruct,
+                               scalars, quad, dtype, views_chunk, prec)

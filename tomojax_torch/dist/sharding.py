@@ -4,7 +4,8 @@
 SPMD: one process per device, started by ``torchrun`` or
 ``torch.multiprocessing.spawn``, NCCL between cards and gloo between CPU
 processes. :func:`make_mesh` lays the default group's ranks out as
-(``proj``, ``ray``), row-major (rank = proj index · n_ray + ray index).
+(``proj``, ``ray``), row-major (layout position = proj index · n_ray + ray
+index), in rank order or in the order its ``devices`` gives.
 
 Every rank holds the whole volume, as tomojax's replicated ``P()`` input
 does. An operator's ``A`` computes the rank's own part of the sinogram and
@@ -46,6 +47,7 @@ from tomojax_torch.core import voxel_projector as vox
 from tomojax_torch.core.geometry import Geometry, Views
 from tomojax_torch.core.operators import (QUADS, TomoOperator,
                                           resolve_device)
+from tomojax_torch.kernels.slab import resolve_prec
 
 
 def _initialized() -> bool:
@@ -54,15 +56,17 @@ def _initialized() -> bool:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """The default group's ranks as an ``(n_proj, n_ray)`` grid; ``groups``
-    holds this rank's process group along each axis (None: the default
-    group)."""
+    """The default group's ranks as an ``(n_proj, n_ray)`` grid; ``layout``
+    holds the rank at each grid position, row-major (None: rank order),
+    and ``groups`` this rank's process group along each axis (None: the
+    default group)."""
 
     n_proj: int
     n_ray: int
     rank: int
     initialized: bool
     groups: dict
+    layout: tuple | None = None
 
     @property
     def shape(self) -> dict:
@@ -72,10 +76,30 @@ class Mesh:
     def size(self) -> int:
         return self.n_proj * self.n_ray
 
+    @property
+    def position(self) -> int:
+        """This rank's position in the grid, row-major."""
+        return self.rank if self.layout is None else self.layout.index(
+            self.rank)
+
+    def rank_at(self, position: int) -> int:
+        """The rank at a grid position."""
+        return position if self.layout is None else self.layout[position]
+
     def index(self, axis: str) -> int:
         """This rank's index along ``axis``."""
-        return self.rank // self.n_ray if axis == "proj" else (
-            self.rank % self.n_ray)
+        return self.position // self.n_ray if axis == "proj" else (
+            self.position % self.n_ray)
+
+    def members(self, axis=None) -> list:
+        """The ranks along ``axis`` through this rank (None: every rank),
+        in grid order."""
+        P, R = self.n_proj, self.n_ray
+        if axis is None:
+            return [self.rank_at(i) for i in range(P * R)]
+        if axis == "proj":
+            return [self.rank_at(p * R + self.index("ray")) for p in range(P)]
+        return [self.rank_at(self.index("proj") * R + r) for r in range(R)]
 
 
 def init_from_env(device) -> bool:
@@ -95,15 +119,25 @@ def init_from_env(device) -> bool:
     return True
 
 
-def make_mesh(n_proj_shards: int | None = None,
-              n_ray_shards: int = 1) -> Mesh:
+def make_mesh(n_proj_shards: int | None = None, n_ray_shards: int = 1,
+              devices=None) -> Mesh:
     """Lay the default group's ranks out as (``proj``, ``ray``); defaults
     to every rank on ``proj`` (the reference's angle data-parallelism).
     The second axis doubles as the volume axis of the volume-sharded
-    operators. Every rank must call it, in the same order."""
+    operators. Every rank must call it, in the same order.
+
+    :param devices: the default group's ranks in the order the mesh lays
+        them out, row-major (tomojax's device list); None: rank order. A
+        sequence that is not a permutation of every rank raises
+        ``ValueError`` (a mesh over part of the world is not ported)."""
     init = _initialized()
     world = dist.get_world_size() if init else 1
     rank = dist.get_rank() if init else 0
+    layout = (tuple(range(world)) if devices is None
+              else tuple(int(d) for d in devices))
+    if sorted(layout) != list(range(world)):
+        raise ValueError(f"devices {list(layout)} is not a permutation of "
+                         f"the {world} ranks")
     if n_proj_shards is None:
         n_proj_shards = world // n_ray_shards
     if n_proj_shards * n_ray_shards != world:
@@ -113,12 +147,14 @@ def make_mesh(n_proj_shards: int | None = None,
     groups = {"proj": None, "ray": None}
     if world > 1:
         for axis, lists in (
-                ("proj", [[p * R + r for p in range(P)] for r in range(R)]),
-                ("ray", [[p * R + r for r in range(R)] for p in range(P)])):
+                ("proj", [[layout[p * R + r] for p in range(P)]
+                          for r in range(R)]),
+                ("ray", [[layout[p * R + r] for r in range(R)]
+                         for p in range(P)])):
             if 1 < len(lists[0]) < world:
                 groups[axis] = dist.new_subgroups_by_enumeration(lists)[0]
     return Mesh(n_proj=P, n_ray=R, rank=rank, initialized=init,
-                groups=groups)
+                groups=groups, layout=layout)
 
 
 def _skip(mesh: Mesh, axis) -> bool:
@@ -130,7 +166,8 @@ def _skip(mesh: Mesh, axis) -> bool:
 
 def _gather(t, mesh: Mesh, axis=None) -> list:
     """``all_gather`` along ``axis`` (None: every rank) → the tensors in
-    index order."""
+    index order (a group gathers in rank order; the mesh's layout may
+    order its members otherwise)."""
     if _skip(mesh, axis):
         return [t]
     n = mesh.size if axis is None else mesh.shape[axis]
@@ -138,7 +175,9 @@ def _gather(t, mesh: Mesh, axis=None) -> list:
     out = [torch.empty_like(t) for _ in range(n)]
     dist.all_gather(out, t, group=None if axis is None else
                     mesh.groups[axis])
-    return out
+    members = mesh.members(axis)
+    in_rank_order = sorted(members)
+    return [out[in_rank_order.index(m)] for m in members]
 
 
 def _sum(t, mesh: Mesh, axis=None):
@@ -184,10 +223,7 @@ def make_sharded_operator(geom: Geometry, views: Views, mesh: Mesh, *,
     (``ray``, the ray family only); ``A`` gathers the sinogram, ``AT``
     sums the ranks' backprojections. ``n_proj`` must divide over ``proj``
     and ``n_det`` over ``ray``."""
-    if prec not in (None, "f32x2"):
-        raise NotImplementedError(
-            f"prec={prec!r}: a reduced-precision tier needs its own "
-            "contract (ROADMAP Queue 3)")
+    resolve_prec(prec)
     device = resolve_device(device)
     if family in QUADS:
         if mesh.n_ray != 1:
@@ -404,7 +440,7 @@ def _return_halos(blk, H: int, nzl: int, mesh: Mesh):
     for side, peer, halo in ((0, i - 1, blk[:, :, :H]),
                              (1, i + 1, blk[:, :, H + nzl:])):
         if 0 <= peer < nV:
-            rank = mesh.rank + (peer - i)
+            rank = mesh.rank_at(mesh.position + (peer - i))
             recv[side] = torch.empty_like(halo)
             reqs.append(dist.isend(halo.contiguous(), rank))
             reqs.append(dist.irecv(recv[side], rank))

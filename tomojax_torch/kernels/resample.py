@@ -350,10 +350,11 @@ def resample_rows(arr, offsets, slope, m_out: int, max_slope: float,
 
 def resample_rows_transpose(g, offsets, slope, n_data: int,
                             max_slope: float, out_order=None, *,
-                            add_into=None):
+                            add_into=None, interpret: bool = False):
     """Exact transpose of :func:`resample_rows` applied to cotangent rows
     ``g`` (V, *rows, M) → (V, *rows, n_data): sanitize, then K8 (its
-    ``out_order`` or ``add_into``)."""
+    ``out_order`` or ``add_into``). ``interpret`` (tomojax's Pallas
+    interpret mode) does nothing: a CPU tensor takes the plain version."""
     off, sl = _sanitize(offsets.to(g.dtype),
                         torch.as_tensor(slope, dtype=g.dtype,
                                         device=g.device).reshape(-1),

@@ -31,19 +31,47 @@ first use.
 A tensor on the CPU takes the plain PyTorch version beside each wrapper
 (``core.slab_projector``'s spec); a CUDA tensor launches the kernel or
 raises.
+
+:func:`resolve_prec` reads the precision tier as tomojax's does; the
+per-view scalar layout (:data:`NS`, ``S_*``) is
+``core.slab_projector``'s, re-exported here where tomojax defines it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
 from tomojax_torch.core import slab_projector as sp
 from tomojax_torch.core.geometry import Geometry
+from tomojax_torch.core.slab_projector import (  # noqa: F401 (re-exports)
+    NS, S_B1, S_CXB, S_CZB, S_EDX, S_EDY, S_EDZ, S_EUX, S_EUY, S_EUYIEUX,
+    S_EVX, S_EVY, S_EVZ, S_GZX, S_INV_EDY, S_INV_EUX, S_RX, S_RZ, S_SCALE,
+    S_WAV, S_WAX, S_ZAV)
 
 JAC_PASSES = tuple(name for name, *_ in sp.JAC_PASSES)
 NJP = len(JAC_PASSES)
+
+
+def resolve_prec(prec: str | None = None, *, name: str = "prec") -> str:
+    """The slab kernels' precision tier (tomojax's ``resolve_prec``):
+    ``prec``, else ``TOMOJAX_SLAB_PREC``, else ``"f32x2"``.
+
+    ``"f32x2"`` is plain fp32 here (tomojax's two bf16 MXU passes exist to
+    reach fp32 on the TPU). ``"bf16"`` raises ``NotImplementedError``: a
+    reduced-precision tier needs its own contract (ROADMAP Queue 3). Any
+    other value raises ``ValueError``, as in tomojax. ``name`` is the
+    caller's name for the setting, in the error message."""
+    p = prec or os.environ.get("TOMOJAX_SLAB_PREC", "f32x2")
+    if p not in ("f32x2", "bf16"):
+        raise ValueError(f"unknown slab kernel precision tier {p!r}")
+    if p == "bf16":
+        raise NotImplementedError(
+            f"{name}={p!r}: a reduced-precision tier needs its own "
+            "contract (ROADMAP Queue 3)")
+    return p
 
 
 # The plain versions: tomojax's XLA forward in PyTorch (K1, K3, and the

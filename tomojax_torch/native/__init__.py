@@ -6,6 +6,8 @@ directory), built at first use with ``g++ -O2 -shared -fPIC`` into
 ``build/native/`` at the repository root (listed in ``.gitignore``), named
 by a hash of the source and flags so an edited source is rebuilt. Without
 a compiler :func:`is_available` is False and the entry points raise.
+:data:`AVAILABLE` follows :func:`is_available` once the library has been
+asked for (False before, as tomojax's).
 
 The functions take and return host float64 numpy arrays, with tomojax's
 signatures: :func:`forward_view`, :func:`backproject_view` and
@@ -27,6 +29,8 @@ import numpy as np
 SRC = Path(__file__).resolve().parent / "tomonative.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 FLAGS = ("-O2", "-shared", "-fPIC")
+
+AVAILABLE = False
 
 
 def library_path() -> Path:
@@ -59,10 +63,12 @@ def build() -> Path:
 @functools.lru_cache(maxsize=None)
 def _load():
     """The loaded library with each entry point's signature, or None when
-    it cannot be built."""
+    it cannot be built; sets :data:`AVAILABLE`."""
+    global AVAILABLE
     try:
         lib = ctypes.CDLL(str(build()))
     except (OSError, RuntimeError, subprocess.CalledProcessError):
+        AVAILABLE = False
         return None
     i64 = ctypes.c_int64
     f64 = ctypes.c_double
@@ -77,6 +83,7 @@ def _load():
     lib.ray_sparse_coo_f64.argtypes = [pd, pd, i64, i64, i64, i64, i64, f64,
                                        pi, pi, pd]
     lib.ray_sparse_coo_f64.restype = i64
+    AVAILABLE = True
     return lib
 
 

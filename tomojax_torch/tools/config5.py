@@ -46,6 +46,7 @@ from tomojax_torch.core import phantom
 from tomojax_torch.core import slab_projector as sp
 from tomojax_torch.core.geometry import Geometry, Views
 from tomojax_torch.core.operators import make_operator, resolve_device
+from tomojax_torch.kernels.slab import resolve_prec
 from tomojax_torch.recon.cgls import cgls_init, cgls_steps
 from tomojax_torch.tools._baseline import device_record, rel_l2, write
 from tomojax_torch.utils.profiling import timed
@@ -233,10 +234,7 @@ def main(argv=None, volume=None) -> dict:
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
-    if args.prec != "f32x2":
-        raise NotImplementedError(
-            f"prec={args.prec!r}: a reduced-precision tier needs its own "
-            "contract (ROADMAP Queue 3)")
+    resolve_prec(args.prec)
     dev = resolve_device(args.device)
     if args.mode == "mesh":
         import torch.distributed as dist

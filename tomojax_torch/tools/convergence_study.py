@@ -53,6 +53,7 @@ from tomojax_torch.core import phantom, projector
 from tomojax_torch.core import slab_projector as sp
 from tomojax_torch.core.geometry import Geometry, Views
 from tomojax_torch.core.operators import operator_from_scalars, resolve_device
+from tomojax_torch.kernels.slab import resolve_prec
 from tomojax_torch.recon.cgls import cgls_init, cgls_steps
 from tomojax_torch.tools._baseline import device_record
 
@@ -174,10 +175,7 @@ def study(args) -> dict:
     """Run the study → ``{"record", "states" (stage → final AlignState,
     "final" with the final volume), "geom", "projections", "phantom",
     "truth", "phi"}``."""
-    if args.final_prec != "f32x2":
-        raise NotImplementedError(
-            f"--final-prec {args.final_prec}: a reduced-precision tier needs "
-            "its own contract (ROADMAP Queue 3)")
+    resolve_prec(args.final_prec, name="--final-prec")
     device = resolve_device(args.device)
     n, n_proj = args.size, args.views
     geom = Geometry(n_proj=n_proj, vox_shape=(n, n, n), det_shape=(n, n))

@@ -93,7 +93,7 @@ def groups(n, device):
         alpha=rng.uniform(-0.02, 0.02, n_proj),
         beta=rng.uniform(-0.02, 0.02, n_proj),
         t=rng.uniform(-4, 4, (n_proj, 3)), device=device)
-    gstruct, scalars = sp.scalar_groups(geom, views, device=device)
+    gstruct, scalars = sp.scalar_groups(geom, views, "plane", device=device)
     vol = torch.as_tensor(phantom.shepp3d(n), device=device)
     return geom, [(sp.orient_volume(vol, geom, sw, yf).contiguous(), sc)
                   for (_, sw, yf, _), sc in zip(gstruct, scalars)]

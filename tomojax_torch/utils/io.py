@@ -4,16 +4,20 @@
 interchangeable between the two packages.
 
 A path ending in ``.npz`` holds the same arrays under the same names in a
-numpy archive instead, for machines without ``h5py``.
+numpy archive instead, for machines without ``h5py`` (:data:`HAVE_H5PY`
+says whether it is installed).
 """
 
 from __future__ import annotations
 
+import importlib.util
 import os
 
 import numpy as np
 
 from tomojax_torch.core.geometry import Views
+
+HAVE_H5PY = importlib.util.find_spec("h5py") is not None
 
 
 def _is_npz(path) -> bool:

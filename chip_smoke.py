@@ -136,7 +136,9 @@ script exits non-zero:
    their plain versions (one view per chunk at this size) on 32 of the
    views, covering every orientation group, with phase 3's tolerances
    and two applies bit-identical; their time per 1024-view apply beside
-   ``utils/roofline``'s bound. 12c: ``--mode mesh`` in a world of one over
+   ``utils/roofline``'s bound; then K1b/K2b, the kernels of 14b, on the
+   same views with 14a's bars and readings (no rounding-flip reading) and
+   their time per 1024-view apply beside K1/K2's. 12c: ``--mode mesh`` in a world of one over
    NCCL at 512³ × 16 views: the angle-sharded slab_plane operator
    bit-equal to the unsharded one, the volume-sharded slab operator
    (plane and arc, halo 32) within 1e-5 of it, forward and adjoint;
@@ -163,9 +165,36 @@ script exits non-zero:
    ``forward_view`` of one view per group (four) within 5e-4 of
    ``project``'s rows (bit-equal ones counted).
 
+14. The bf16 bulk tier (``prec="bf16"``; tomojax's ``bf16=True`` variants
+   of its Pallas slab kernels). 14a: K1b/K2b at phase 3's problem and
+   K3b/K4b at phase 5's, launched alone first (each bf16 counter rises by
+   the groups, no other), then each against its plain bf16 version (per
+   view rel L2 ≤ 5e-4 forward, ≤ 5e-4 adjoint), against its fp32 kernel
+   (rel L2 ≤ 3e-3 and ≥ 1e-6 in every group: tomojax's contract, and the
+   rounding happened), two applies bit-identical, the bf16 pair's mismatch
+   (float64 dot products): tomojax's |⟨Ax, y⟩ − ⟨x, Aᵀy⟩|/max(|⟨Ax, y⟩|, 1)
+   with its numerator and denominator pooled (root mean square) over 32
+   standard-normal cotangents ≤ 5e-3, and the ratio on the non-negative
+   |y| ≤ 5e-3; tomojax's single draw per group printed beside the plain
+   bf16 pair's and the fp32 kernels' on the same y (one draw divides by a
+   normal sum around 0: ``tools/bf16_gate.py``); the adjoint's rounding
+   flips (``bf16_gate.rounding_flips``) beside K2/K4's fp32 distance from
+   their plain versions, printed; times per apply beside the fp32
+   kernels' and the bound. Then tomojax's gate problem
+   (``tools/bf16_gate.py``: 8 views, its cotangent seed) at 64³ and 256³
+   on the kernels: each group's forward within 3e-3 of fp32 and the pooled
+   mismatch ≤ 5e-3; the single draws printed with their verdict. 14b (inside phase 12, on 12a's data and CC views in memory):
+   12a's 10 CGLS iterations on the bf16 slab_plane operator, rel-L2 ≤ 0.25
+   and within 2e-3 of 12a's, the residual norm falling at every iteration,
+   no reinit quit, K1b/K2b launched and K1/K2 not. 14c: phase 6's dataset
+   through ``cli align --recon-prec bf16`` with phase 6's settings cut to 3
+   outers: outer 2's rel-L2 within 5e-3 of phase 6's, the gauge-corrected
+   mean |tx|, |tz| errors below the COM start's, K3b, K4b and K5 launched.
+
 The JSON line's launches count phases 4 and 12a for K1/K2 (all three CGLS
-runs and ``simulate``, and config 5), phase 6 for K3-K6 and phase 8 for
-K7-K9; phases 9, 10, 11, 12c and 13 print their own. Bounds come from
+runs and ``simulate``, and config 5), phase 6 for K3-K6, phase 8 for
+K7-K9, 14b for K1b/K2b and 14c for K3b/K4b (each entry of the bf16 tier
+marked ``"tier": "bf16"``); phases 9, 10, 11, 12c and 13 print their own. Bounds come from
 ``tomojax_torch/utils/roofline.py``, timers from
 ``tomojax_torch/utils/profiling.py``.
 
@@ -209,7 +238,8 @@ from tomojax_torch.kernels import _build
 from tomojax_torch.kernels import resample as rs
 from tomojax_torch.kernels import slab as slabk
 from tomojax_torch.recon.cgls import cgls_init, cgls_steps
-from tomojax_torch.tools import config1, config2, config5, convergence_study
+from tomojax_torch.tools import (bf16_gate, config1, config2, config5,
+                                 convergence_study)
 from tomojax_torch.tools._baseline import smi_line
 from tomojax_torch.utils import io, profiling, roofline
 from tomojax_torch.utils.profiling import cuda_ms, event_timed
@@ -241,7 +271,25 @@ RESAMPLE_SOURCE = "tomojax_torch/kernels/csrc/resample.cu"
 COUNTED = (slabk.slab_plane_fwd, slabk.slab_plane_adj, slabk.slab_arc_fwd,
            slabk.slab_arc_adj, slabk.slab_project_jac,
            slabk.slab_project_field, rs.resample_fwd, rs.resample_transpose,
-           rs.resample_rows_raw)
+           rs.resample_rows_raw, slabk.slab_plane_fwd_bf16,
+           slabk.slab_plane_adj_bf16, slabk.slab_arc_fwd_bf16,
+           slabk.slab_arc_adj_bf16)
+# phase 14: the bf16 tier's kernels and their fp32 counterparts per
+# quadrature: (K1b/K3b, K2b/K4b, K1/K3, K2/K4)
+BF16_KERNELS = {
+    "plane": (slabk.slab_plane_fwd_bf16, slabk.slab_plane_adj_bf16,
+              slabk.slab_plane_fwd, slabk.slab_plane_adj),
+    "arc": (slabk.slab_arc_fwd_bf16, slabk.slab_arc_adj_bf16,
+            slabk.slab_arc_fwd, slabk.slab_arc_adj)}
+TOL_BF16 = 3e-3            # bf16 against fp32, per apply (tomojax's bar)
+MIN_BF16 = 1e-6            # ... and moved off it: the rounding happened
+TOL_MISMATCH = 5e-3        # |<Ax,y>-<x,Aᵀy>|/|<Ax,y>| of the bf16 pair
+MISMATCH_DRAWS = 32        # standard-normal cotangents pooled for it
+FLIP_VIEWS = 4             # views of 14a's rounding-flip reading
+GATE_SIZES = (64, 256)     # tomojax's gate problem (tools/bf16_gate.py)
+C5_BF16_DIFF = 2e-3        # 14b: bf16 rel-L2 within this of 12a's
+C4_BF16_DIFF = 5e-3        # 14c: outer 2's rel-L2 within this of phase 6's
+C4_BF16_OUTERS = 3
 # K3's and K5's times per 90-view apply, and K1's per 180-view apply, in the
 # one-thread-per-ray designs that the marches replaced (NVIDIA H100 80GB
 # HBM3, 700 W)
@@ -344,8 +392,9 @@ def check_pair(e, fwd_name, adj_name):
           f"{fwd_name}/{adj_name} adjoint identity {e['dot']}")
 
 
-def phase_kernels(dev):
-    """K1/K2 against their plain versions at the main path's shapes."""
+def plane_problem(dev):
+    """Phase 3's problem: the 256³ Shepp phantom, 180 views over the full
+    circle with ±0.02 rad tilts and ±4 px shifts → ``(geom, views, vol)``."""
     rng = np.random.default_rng(SEED)
     geom = Geometry(n_proj=N_PROJ, vox_shape=(N,) * 3, det_shape=(N, N))
     views = Views.create(
@@ -353,7 +402,27 @@ def phase_kernels(dev):
         alpha=rng.uniform(-0.02, 0.02, N_PROJ),
         beta=rng.uniform(-0.02, 0.02, N_PROJ),
         t=rng.uniform(-4, 4, (N_PROJ, 3)), device=dev)
-    vol = torch.as_tensor(phantom.shepp3d(N), device=dev)
+    return geom, views, torch.as_tensor(phantom.shepp3d(N), device=dev)
+
+
+def arc_problem(dev):
+    """Phase 5's problem (config 4's shapes): 256³, 90 views over the
+    full circle with ±0.5° tilts and ±2 px shifts → ``(geom, views,
+    vol)``."""
+    rng = np.random.default_rng(SEED)
+    geom = Geometry(n_proj=N_ARC, vox_shape=(N,) * 3, det_shape=(N, N))
+    amax = np.deg2rad(0.5)
+    views = Views.create(
+        N_ARC, phi=0.3 + np.linspace(0, 2 * np.pi, N_ARC, endpoint=False),
+        alpha=rng.uniform(-amax, amax, N_ARC),
+        beta=rng.uniform(-amax, amax, N_ARC),
+        t=rng.uniform(-2, 2, (N_ARC, 3)), device=dev)
+    return geom, views, torch.as_tensor(phantom.shepp3d(N), device=dev)
+
+
+def phase_kernels(dev):
+    """K1/K2 against their plain versions at the main path's shapes."""
+    geom, views, vol = plane_problem(dev)
     groups = slab_groups(geom, views, vol, "plane", dev)
     check(len(groups) == 4, f"expected 4 orientation groups: {len(groups)}")
     e = pair_errors(groups, geom, "plane")
@@ -474,15 +543,7 @@ def phase_main_path(tmp):
 def phase_arc_kernels(dev):
     """K3/K4/K5 (and the single-field entry) against their plain versions
     at config 4's shapes."""
-    rng = np.random.default_rng(SEED)
-    geom = Geometry(n_proj=N_ARC, vox_shape=(N,) * 3, det_shape=(N, N))
-    amax = np.deg2rad(0.5)
-    views = Views.create(
-        N_ARC, phi=0.3 + np.linspace(0, 2 * np.pi, N_ARC, endpoint=False),
-        alpha=rng.uniform(-amax, amax, N_ARC),
-        beta=rng.uniform(-amax, amax, N_ARC),
-        t=rng.uniform(-2, 2, (N_ARC, 3)), device=dev)
-    vol = torch.as_tensor(phantom.shepp3d(N), device=dev)
+    geom, views, vol = arc_problem(dev)
     groups = slab_groups(geom, views, vol, "arc", dev)
     check(len(groups) >= 4, f"expected >= 4 orientation groups: "
           f"{len(groups)}")
@@ -689,7 +750,7 @@ def phase_config4(tmp, dev):
           f"config 4 alpha/beta mean errors did not fall: {last} vs {e0}")
     check(min(launches["fwd"], launches["adj"], launches["jac"]) > 0,
           f"config 4 did not launch K3, K4 and K5: {launches}")
-    return launches
+    return launches, hist
 
 
 def fast_problem(dev):
@@ -1480,9 +1541,10 @@ def phase_config5(tmp, dev):
     # ---- 12a: tools/config5, CC pre-alignment + CGLS -----------------
     reset_counts()
     t0 = time.perf_counter()
+    kept = {}
     rec = config5.main(["--prealign", "cc", "--niter", str(C5_NITER),
                         "--out", os.path.join(tmp, "config5.json")],
-                       volume=vol_np)
+                       volume=vol_np, keep=kept)
     wall = time.perf_counter() - t0
     launches = {"fwd": slabk.slab_plane_fwd.launches,
                 "adj": slabk.slab_plane_adj.launches}
@@ -1513,8 +1575,12 @@ def phase_config5(tmp, dev):
           "config 5 CC residual")
     check(min(launches.values()) > 0, f"config 5 launches {launches}")
 
-    # ---- 12b: K1/K2 at 512^3 -----------------------------------------
+    # ---- 14b: 12a's CGLS again on the bf16 operator -------------------
     geom, phi, t, _ = config5.problem(C5_N, C5_VIEWS)
+    launches_bf16 = phase_config5_bf16(geom, phi, kept, vol_np, rec, dev)
+    del kept
+
+    # ---- 12b: K1/K2 at 512^3 -----------------------------------------
     views = Views.create(C5_VIEWS, phi=phi, t=t, device=dev)
     vol = torch.as_tensor(vol_np, device=dev)
     groups = slab_groups(geom, views, vol, "plane", dev)
@@ -1538,6 +1604,23 @@ def phase_config5(tmp, dev):
           f"{t_k1:.3f} ms, K2 {t_k2:.3f} ms; bound {bnd[0]:.3f} ms "
           f"({bnd[1]}), K1 {t_k1 / bnd[0]:.1f}x, K2 {t_k2 / bnd[0]:.1f}x")
     check_pair(e, "K1", "K2")
+
+    # ---- 12b: K1b/K2b at 512^3, the kernels of 14b's CGLS --------------
+    eb, _ = bf16_errors(sub_groups, geom, "plane", label="12b", flips=False)
+    t_k1b = cuda_ms(lambda: [slabk.slab_plane_fwd_bf16(vo, sc, geom)
+                             for vo, sc, _ in groups], 3)
+    t_k2b = cuda_ms(lambda: [slabk.slab_plane_adj_bf16(y, sc, geom)
+                             for _, sc, y in groups], 3)
+    print(f"12b K1b/K2b at {C5_N}^3 on the same {len(sub)} views: K1b max "
+          f"per-view rel L2 {eb['fwd_rel']:.3e} (tol {TOL_FWD}), K2b "
+          f"{eb['adj_rel']:.3e} (tol {TOL_ADJ}) against plain bf16; against "
+          f"K1 {eb['fwd_f32_min']:.3e}-{eb['fwd_f32']:.3e}, K2 "
+          f"{eb['adj_f32_min']:.3e}-{eb['adj_f32']:.3e} (bars >= {MIN_BF16}, "
+          f"<= {TOL_BF16}); two applies bit-identical")
+    print(f"12b per {C5_VIEWS}-view apply: K1b {t_k1b:.3f} ms (K1 "
+          f"{t_k1:.3f}), K2b {t_k2b:.3f} ms (K2 {t_k2:.3f}), each with its "
+          f"wrapper's cast; bound {bnd[0]:.3f} ms ({bnd[1]})")
+    check_bf16(eb, "plane", "12b")
     del groups, sub_groups
 
     # ---- 12c: mesh mode, a world of one over NCCL ---------------------
@@ -1598,6 +1681,47 @@ def phase_config5(tmp, dev):
           f"(torch.profiler): wall {wall * 1e3:.1f} ms, device busy "
           f"{total / 1e6 / wall:.1%}; K2 {k2 / total:.1%} of device time, "
           f"K1 {k1 / total:.1%}; top kernels: {top}")
+    return launches, launches_bf16
+
+
+def phase_config5_bf16(geom, phi, kept, vol_np, rec, dev):
+    """14b: 12a's 10 CGLS iterations again, on the bf16 slab_plane
+    operator (K1b/K2b), from 12a's data and CC views in memory: rel-L2 ≤
+    0.25 and within 2e-3 of 12a's, the residual norm falling at every
+    iteration, no reinit quit; K1b/K2b's launches (counts set to 0 just
+    before)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        state, cg = config5.cgls_stage(
+            geom, phi, kept["t_rec"], kept["proj"].reshape(C5_VIEWS, -1),
+            C5_NITER, "bf16", "slab_plane", dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fwd": slabk.slab_plane_fwd_bf16.launches,
+                "adj": slabk.slab_plane_adj_bf16.launches}
+    counts = {fn.__name__: fn.launches for fn in COUNTED}
+    rel = config5.rel_l2(state.x, vol_np)
+    conv = cg["cgls_conv"]
+    print(f"14b config 5 CGLS {C5_NITER} on the bf16 operator ({C5_N}^3, "
+          f"{C5_VIEWS} views, 12a's data and CC views): {cg['t_cgls_s']:.3f} "
+          f"s ({cg['cgls_proj_per_s']:.1f} proj/s fwd+adj; 12a "
+          f"{rec['t_cgls_s']:.3f} s, {rec['cgls_proj_per_s']:.1f} proj/s), "
+          f"wall {wall:.3f} s; rel-L2 {rel:.5f} (bf16) vs {rec['vol_rel_l2']:.5f}"
+          f" (f32x2, 12a), bars <= {C5_REL_L2_MAX} and within "
+          f"{C5_BF16_DIFF}; stop {cg['cgls_stop']}; conv "
+          + ", ".join(f"{c:.5g}" for c in conv))
+    print(f"14b launches {json.dumps(counts)}")
+    check(cg["cgls_iters_run"] == C5_NITER and cg["cgls_stop"] == 0,
+          f"14b CGLS ran {cg['cgls_iters_run']} (stop {cg['cgls_stop']})")
+    check(rel <= C5_REL_L2_MAX
+          and abs(rel - rec["vol_rel_l2"]) <= C5_BF16_DIFF,
+          f"14b rel-L2 {rel} vs 12a's {rec['vol_rel_l2']}")
+    check(all(b < a for a, b in zip(conv, conv[1:])),
+          f"14b CGLS conv not falling: {conv}")
+    check(min(launches.values()) > 0
+          and counts["slab_plane_fwd"] == counts["slab_plane_adj"] == 0,
+          f"14b launches {counts}")
     return launches
 
 
@@ -1739,6 +1863,248 @@ def phase_voxel(dev):
     check(worst <= TOL_NATIVE, f"native vs ray family: {worst}")
 
 
+def bf16_errors(groups, geom, quad, label="14a", flips=True):
+    """The bf16 kernels (K1b/K2b plane, K3b/K4b arc) on the orientation
+    groups ``(vol_or, scalars, y)``: launched alone (their counters rise,
+    no other does), then against their plain bf16 versions (max per-view
+    rel L2 and max abs of the forward, rel L2 and max abs of the adjoint,
+    and the plain versions' time), against the fp32 kernels (the min and
+    max rel L2 over groups), two applies bit-identical, and the pair's
+    mismatch: tomojax's |<Ax,y>-<x,Aᵀy>|/max(|<Ax,y>|, 1) on ``y`` beside
+    the same for the fp32 kernels and the plain bf16 pair, its numerator
+    and denominator pooled over 32 standard-normal cotangents, and the
+    ratio on |y| (float64 dot products). With ``flips``: the adjoint
+    against the plain fp32 one (K2/K4's fp32 distance, which bf16
+    rounding amplifies) and ``bf16_gate.rounding_flips`` on the first
+    group's first views."""
+    fwd_b, adj_b, fwd_f, adj_f = BF16_KERNELS[quad]
+    reset_counts()
+    for vol_or, sc, y in groups:
+        fwd_b(vol_or, sc, geom)
+        adj_b(y, sc, geom)
+    counts = {fn.__name__: fn.launches for fn in COUNTED}
+    check(counts[fwd_b.__name__] == counts[adj_b.__name__] == len(groups)
+          and all(v == 0 for k, v in counts.items()
+                  if k not in (fwd_b.__name__, adj_b.__name__)),
+          f"{label} {quad}: bf16 launches {counts}")
+    e = {k: [] for k in ("fwd_rel", "fwd_abs", "adj_rel", "adj_abs",
+                         "fwd_f32", "adj_f32", "written", "written_f32",
+                         "written_plain", "lhs", "pooled", "abs_y",
+                         "adj_f32_plain")}
+    plain_ms = {"fwd": 0.0, "adj": 0.0}
+    gen = torch.Generator(device=groups[0][0].device).manual_seed(SEED + 1)
+    for vol_or, sc, y in groups:
+        ker = fwd_b(vol_or, sc, geom)
+        check(torch.equal(ker, fwd_b(vol_or, sc, geom)),
+              f"two {fwd_b.__name__} applies differ")
+        ref, ms = event_timed(lambda: slabk.slab_project_plain(
+            vol_or, sc, geom, quad, prec="bf16"))
+        plain_ms["fwd"] += ms
+        e["fwd_rel"].append(float(per_view_rel(ker, ref).max()))
+        e["fwd_abs"].append(float((ker - ref).abs().max()))
+        kf = fwd_f(vol_or, sc, geom)
+        e["fwd_f32"].append(rel_l2(ker, kf))
+        kadj = adj_b(y, sc, geom)
+        check(torch.equal(kadj, adj_b(y, sc, geom)),
+              f"two {adj_b.__name__} applies differ")
+        radj, ms = event_timed(lambda: slabk.slab_backproject_plain(
+            y, sc, geom, quad, prec="bf16"))
+        plain_ms["adj"] += ms
+        e["adj_rel"].append(rel_l2(kadj, radj))
+        e["adj_abs"].append(float((kadj - radj).abs().max()))
+        kadj_f = adj_f(y, sc, geom)
+        e["adj_f32"].append(rel_l2(kadj, kadj_f))
+        e["written"].append(bf16_gate.mismatch(ker, y, vol_or, kadj))
+        e["written_f32"].append(bf16_gate.mismatch(kf, y, vol_or, kadj_f))
+        e["written_plain"].append(bf16_gate.mismatch(ref, y, vol_or, radj))
+        e["lhs"].append(bf16_gate.dot(ker, y)
+                        / float(torch.linalg.norm(ker)))
+        if flips:
+            e["adj_f32_plain"].append(rel_l2(
+                kadj_f, slabk.slab_backproject_plain(y, sc, geom, quad)))
+        del ref, radj, kf, kadj_f
+        e["pooled"].append(bf16_gate.pooled_mismatch(
+            ker, vol_or, lambda g: adj_b(g, sc, geom), tuple(y.shape), gen,
+            MISMATCH_DRAWS)["pooled"])
+        e["abs_y"].append(bf16_gate.mismatch(ker, y.abs(), vol_or,
+                                             adj_b(y.abs(), sc, geom)))
+    out = {k: max(v) for k, v in e.items() if v}
+    out["fwd_f32_min"], out["adj_f32_min"] = min(e["fwd_f32"]), min(
+        e["adj_f32"])
+    print(f"{label} {quad} bf16 pair mismatch, tomojax's |<Ax,y>-<x,A^T y>|/"
+          f"max(|<Ax,y>|,1) on one standard-normal y per group: "
+          + ", ".join(f"{w:.2e}" for w in e["written"])
+          + " (<Ax,y>/|Ax| " + ", ".join(f"{v:.3f}" for v in e["lhs"])
+          + "; the plain bf16 pair " + ", ".join(
+              f"{w:.2e}" for w in e["written_plain"]) + "; the fp32 kernels "
+          + ", ".join(f"{w:.1e}" for w in e["written_f32"])
+          + f"; printed); pooled over {MISMATCH_DRAWS} draws "
+          + ", ".join(f"{w:.3e}" for w in e["pooled"])
+          + f"; on |y| max {out['abs_y']:.3e} (tol {TOL_MISMATCH} both)")
+    if flips:
+        vo, sc, y = groups[0]
+        r = bf16_gate.rounding_flips(y[:FLIP_VIEWS], sc[:FLIP_VIEWS], geom,
+                                     quad)
+        out["flips"] = r
+        d = out["adj_f32_plain"]
+        k_law = out["adj_rel"] / d ** 0.5 if d > 0 else float("nan")
+        print(f"{label} {quad} rounding flips (plain bf16 adjoint in "
+              f"float32 vs float64, {FLIP_VIEWS} views): {r['flips']:.3e} "
+              "of the "
+              f"tables' nonzero elements differ, {r['one_ulp']:.3f} of them "
+              "by one "
+              f"bf16 ulp; bf16 adjoints {r['gap']:.3e} apart, fp32 ones "
+              f"{r['delta']:.3e}: gap/sqrt(delta) "
+              f"{r['gap'] / r['delta'] ** 0.5:.4f}; the kernels: "
+              f"{adj_b.__name__} vs plain {out['adj_rel']:.3e}, "
+              f"{adj_f.__name__} vs plain {out['adj_f32_plain']:.3e}: "
+              f"{k_law:.4f}")
+    check(out["pooled"] <= TOL_MISMATCH and out["abs_y"] <= TOL_MISMATCH,
+          f"{label} {quad} mismatch: pooled {out['pooled']}, on |y| "
+          f"{out['abs_y']}")
+    return out, plain_ms
+
+
+def check_bf16(e, quad, label):
+    """The bars of ``bf16_errors``'s readings ``e`` against the plain bf16
+    versions (phase 3's) and the fp32 kernels (tomojax's, and moved)."""
+    fwd_b, adj_b, _, _ = BF16_KERNELS[quad]
+    check(e["fwd_rel"] <= TOL_FWD,
+          f"{label} {fwd_b.__name__} vs plain {e['fwd_rel']}")
+    check(e["adj_rel"] <= TOL_ADJ,
+          f"{label} {adj_b.__name__} vs plain {e['adj_rel']}")
+    for k in ("fwd", "adj"):
+        check(MIN_BF16 <= e[f"{k}_f32_min"] and e[f"{k}_f32"] <= TOL_BF16,
+              f"{label} {quad} {k} vs fp32: {e[f'{k}_f32_min']}-"
+              f"{e[f'{k}_f32']}")
+
+
+def gate_readings(dev):
+    """14a: ``tools/bf16_gate`` (tomojax's gate problem: 8 views, its seed)
+    at 64³ and 256³ on the kernels: each group's forward against fp32 ≤
+    3e-3 and the pooled mismatch ≤ 5e-3; tomojax's single draw printed
+    with its verdict."""
+    for size in GATE_SIZES:
+        rows = bf16_gate.run(size, dev, MISMATCH_DRAWS)
+        worst = max(r["bf16"] for r in rows)
+        print(f"14a tomojax's gate problem at {size}^3 (8 views, seed 7): "
+              "fwd rel " + ", ".join(f"{r['fwd_rel']:.2e}" for r in rows)
+              + "; single-draw mismatch " + ", ".join(
+                  f"{r['bf16']:.2e}" for r in rows)
+              + f" (worst {worst:.2e}: "
+              f"{'PASS' if worst <= TOL_MISMATCH else 'FAIL'} against "
+              f"{TOL_MISMATCH}, printed; <Ax,y>/|Ax| " + ", ".join(
+                  f"{r['lhs'] / r['ax_norm']:.3f}" for r in rows)
+              + "; bf16 A + fp32 AT " + ", ".join(
+                  f"{r['bf16_fwd']:.2e}" for r in rows)
+              + "; fp32 A + bf16 AT " + ", ".join(
+                  f"{r['bf16_adj']:.2e}" for r in rows)
+              + "); pooled over 32 draws " + ", ".join(
+                  f"{r['pooled']:.3e}" for r in rows))
+        check(max(r["fwd_rel"] for r in rows) <= TOL_BF16
+              and max(r["pooled"] for r in rows) <= TOL_MISMATCH,
+              f"14a gate problem at {size}^3: {rows}")
+
+
+def phase_bf16_kernels(dev):
+    """14a: K1b/K2b at phase 3's problem and K3b/K4b at phase 5's, each
+    against its plain bf16 version and its fp32 kernel, with its time per
+    apply beside the fp32 kernel's and the bound."""
+    t_phase = time.perf_counter()
+    res = {}
+    for quad, problem in (("plane", plane_problem), ("arc", arc_problem)):
+        geom, views, vol = problem(dev)
+        groups = slab_groups(geom, views, vol, quad, dev)
+        e, plain_ms = bf16_errors(groups, geom, quad)
+        fwd_b, adj_b, fwd_f, adj_f = BF16_KERNELS[quad]
+
+        def fwd(fn):
+            return lambda: [fn(vo, sc, geom) for vo, sc, _ in groups]
+
+        def adj(fn):
+            return lambda: [fn(y, sc, geom) for _, sc, y in groups]
+
+        t = {"fwd": cuda_ms(fwd(fwd_b), 5), "fwd_f32": cuda_ms(fwd(fwd_f), 5),
+             "adj": cuda_ms(adj(adj_b), 3), "adj_f32": cuda_ms(adj(adj_f), 3),
+             "fwd_plain": plain_ms["fwd"], "adj_plain": plain_ms["adj"],
+             "bound": groups_bound(geom, groups, quad)}
+        n_views = sum(sc.shape[0] for _, sc, _ in groups)
+        fn_name, an_name = fwd_b.__name__, adj_b.__name__
+        print(f"14a {fn_name} vs plain bf16: max per-view rel L2 "
+              f"{e['fwd_rel']:.3e} (tol {TOL_FWD}), max abs "
+              f"{e['fwd_abs']:.3e}; vs {fwd_f.__name__}: rel L2 "
+              f"{e['fwd_f32_min']:.3e}-{e['fwd_f32']:.3e} over "
+              f"{len(groups)} groups (bars >= {MIN_BF16}, <= {TOL_BF16})")
+        print(f"14a {an_name} vs plain bf16: rel L2 {e['adj_rel']:.3e} "
+              f"(tol {TOL_ADJ}), max abs {e['adj_abs']:.3e}; vs "
+              f"{adj_f.__name__}: rel L2 {e['adj_f32_min']:.3e}-"
+              f"{e['adj_f32']:.3e}; two applies of each bit-identical")
+        print(f"14a per {n_views}-view apply ({N}^3): {fn_name} "
+              f"{t['fwd']:.3f} ms vs {fwd_f.__name__} {t['fwd_f32']:.3f} ms, "
+              f"{an_name} {t['adj']:.3f} ms vs {adj_f.__name__} "
+              f"{t['adj_f32']:.3f} ms (each with its wrapper's cast); "
+              f"plain bf16 {t['fwd_plain']:.3f} / {t['adj_plain']:.3f} ms; "
+              f"bound {t['bound'][0]:.3f} ms ({t['bound'][1]})")
+        check_bf16(e, quad, "14a")
+        res[quad] = {**e, **t}
+        del groups
+    gate_readings(dev)
+    print(f"14a: {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
+def phase_bf16_align(tmp, dev, hist6):
+    """14c: config 4's dataset (phase 6's file) through ``cli align`` with
+    phase 6's settings, ``--recon-prec bf16`` and 3 outers: outer 2's
+    rel-L2 within 5e-3 of phase 6's outer 2, the gauge-corrected mean |tx|
+    and |tz| errors below their start, K3b, K4b and K5 launched."""
+    data = os.path.join(tmp, "config4.npz")
+    out = os.path.join(tmp, "align_c4_bf16.npy")
+    reset_counts()
+    t0 = time.perf_counter()
+    r = cli.main(["align", "-i", data, "-o", out, "--recon-prec", "bf16",
+                  "--set", "align.pre_align_cc=true",
+                  "--set", "align.family=slab",
+                  "--set", "align.refine_method=lm_slab",
+                  "--set", "align.recon=cgls",
+                  "--set", "align.recon_iters=30",
+                  "--set", "align.refine_iters=10",
+                  "--set", "align.param_set=xzab",
+                  "--set", "align.moment_period=1",
+                  "--set", "align.accel_period=4",
+                  "--set", f"align.outer_iters={C4_BF16_OUTERS}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in COUNTED}
+    d = io.load_dataset(data)
+    geom = Geometry(n_proj=N_ARC, vox_shape=(N,) * 3, det_shape=(N, N))
+    est = com_align(torch.as_tensor(d["projections"], device=dev), geom,
+                    d["phi"], device=dev).cpu().numpy()
+    th0 = np.zeros((N_ARC, 6))
+    th0[:, 0], th0[:, 2], th0[:, 3] = est[:, 0], est[:, 1], d["phi"]
+    e0 = param_errors(th0, d)
+    hist = r["state"].history
+    last = C4_BF16_OUTERS - 1
+    for k, th in enumerate(r["theta_per_outer"]):
+        print(f"14c config 4 bf16 outer {k}: vol rel-L2 "
+              f"{hist['recon_rms'][k]:.4f} (phase 6: "
+              f"{hist6['recon_rms'][k]:.4f}), refine cost "
+              f"{hist['refine_cost'][k]:.6g}, gauge-corrected mean/max "
+              f"{fmt_errors(param_errors(np.asarray(th, np.float64), d))}")
+    e = param_errors(np.asarray(r["theta_per_outer"][last], np.float64), d)
+    print(f"14c align wall {wall:.2f} s ({C4_BF16_OUTERS} outers); launches "
+          f"{json.dumps(launches)}")
+    diff = abs(hist["recon_rms"][last] - hist6["recon_rms"][last])
+    check(diff <= C4_BF16_DIFF, f"14c outer {last} rel-L2 differs from "
+          f"phase 6's by {diff}")
+    check(e["tx"][0] < e0["tx"][0] and e["tz"][0] < e0["tz"][0],
+          f"14c |tx|, |tz| errors {e} not below the start {e0}")
+    check(min(launches["slab_arc_fwd_bf16"], launches["slab_arc_adj_bf16"],
+              launches["slab_project_jac"]) > 0,
+          f"14c did not launch K3b, K4b and K5: {launches}")
+    return launches
+
+
 def _plain_arc(vol, y, geom, gstruct, scalars):
     """The arc operator's plain versions over the orientation groups:
     ``(forward (V, nu, nv), adjoint vox_shape)``, flips as the operator's."""
@@ -1764,15 +2130,7 @@ def phase_default_calls(dev):
     tomojax's), ``views_chunk`` and the slab ``forward_view`` — at 256³ ×
     90 views over the full circle (phase 5's problem)."""
     t_phase = time.perf_counter()
-    rng = np.random.default_rng(SEED)
-    geom = Geometry(n_proj=N_ARC, vox_shape=(N,) * 3, det_shape=(N, N))
-    amax = np.deg2rad(0.5)
-    views = Views.create(
-        N_ARC, phi=0.3 + np.linspace(0, 2 * np.pi, N_ARC, endpoint=False),
-        alpha=rng.uniform(-amax, amax, N_ARC),
-        beta=rng.uniform(-amax, amax, N_ARC),
-        t=rng.uniform(-2, 2, (N_ARC, 3)), device=dev)
-    vol = torch.as_tensor(phantom.shepp3d(N), device=dev)
+    geom, views, vol = arc_problem(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     y = torch.randn((N_ARC, geom.n_det), generator=gen, device=dev)
     gstruct, scalars = sp.scalar_groups(geom, views, device=dev)
@@ -1850,7 +2208,7 @@ def main():
     print(f"bounds at {flops / 1e12:g} TFLOP/s fp32, {bw / 1e12:g} TB/s")
     print("tf32: matmul.allow_tf32 = False, cudnn.allow_tf32 = False")
 
-    t0 = time.perf_counter()
+    t_script = t0 = time.perf_counter()
     lib = _build.load()
     print(f"build: {_build.library_path().name} ready in "
           f"{time.perf_counter() - t0:.2f} s ({lib._name})")
@@ -1860,15 +2218,17 @@ def main():
     try:
         launches = phase_main_path(tmp)
         ka = phase_arc_kernels(dev)
-        arc_launches = phase_config4(tmp, dev)
+        arc_launches, hist6 = phase_config4(tmp, dev)
         kr = phase_resample(dev)
         fast_launches, _ = phase_fast_align(tmp, dev)
         phase_config2(tmp, dev)
         ray_ms = phase_config1(tmp, dev)
         phase_exact_align(tmp, dev, ray_ms)
         phase_study(dev)
-        c5_launches = phase_config5(tmp, dev)
+        c5_launches, bf16_plane_launches = phase_config5(tmp, dev)
         phase_default_calls(dev)
+        kb = phase_bf16_kernels(dev)
+        bf16_arc_launches = phase_bf16_align(tmp, dev, hist6)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1932,6 +2292,28 @@ def main():
          **timing(kr["raw"], kr["fwd_plain"], kr["bound_fwd"],
                   kr["fwd_lib"])},
     ]
+    # the bf16 tier (phase 14): the bf16=True variants of the same two
+    # Pallas kernels; K1b/K2b launched by 14b's CGLS, K3b/K4b by 14c's align
+    for kname, quad, key, line, n in (
+            ("slab_plane_fwd_bf16", "plane", "fwd", 293,
+             bf16_plane_launches["fwd"]),
+            ("slab_plane_adj_bf16", "plane", "adj", 605,
+             bf16_plane_launches["adj"]),
+            ("slab_arc_fwd_bf16", "arc", "fwd", 293,
+             bf16_arc_launches["slab_arc_fwd_bf16"]),
+            ("slab_arc_adj_bf16", "arc", "adj", 605,
+             bf16_arc_launches["slab_arc_adj_bf16"])):
+        e = kb[quad]
+        kernels.append({
+            "name": kname, "route": "cuda", "tier": "bf16",
+            "source": KERNEL_SOURCE if quad == "plane" else ARC_SOURCE,
+            "replaces": f"tomojax/kernels/slab.py:{line}",
+            "variant": "bf16=True (tomojax/kernels/slab.py:"
+                       f"{904 if key == 'fwd' else 1015})",
+            "launches": n, "max_abs_err": e[f"{key}_abs"],
+            **timing(e[key], e[f"{key}_plain"], e["bound"])})
+    print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s from the "
+          "build to the kernels' line")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

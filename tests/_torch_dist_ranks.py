@@ -109,6 +109,43 @@ def dist_rank(rank, world, store, out_dir):
     dist.destroy_process_group()
 
 
+def submesh_rank(rank, world, store, out_dir):
+    """Meshes over part of the world, built on every rank:
+    ``make_mesh(devices=[2, 0])`` runs the angle-sharded slab_plane
+    operator (f32x2 and bf16) on ranks 2 and 0, ``make_mesh(1, 2, [3, 1])``
+    the volume-sharded plane operator (halo 8) on ranks 3 and 1; each rank
+    outside a mesh records that the operator refused it. Each rank writes
+    ``out_dir/sub<r>.npz``."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    from tomojax_torch.dist import (make_mesh, make_sharded_operator,
+                                    make_volume_sharded_slab_operator)
+
+    vol, geom, views, _, y = problem()
+    x, y = torch.as_tensor(vol), torch.as_tensor(y)
+    kw = dict(dtype=F64, device="cpu")
+    angle, volume = make_mesh(devices=[2, 0]), make_mesh(1, 2, [3, 1])
+    builds = {
+        "angle": lambda **k: make_sharded_operator(
+            geom, views, angle, family="slab_plane", **kw, **k),
+        "angle_bf16": lambda **k: make_sharded_operator(
+            geom, views, angle, family="slab_plane", prec="bf16", **kw, **k),
+        "vol": lambda **k: make_volume_sharded_slab_operator(
+            geom, views, volume, quad="plane", halo=8, **kw, **k)}
+    out = {}
+    for name, build in builds.items():
+        try:
+            op = build()
+        except ValueError:
+            out[f"{name}_refused"] = 1
+            continue
+        out[f"{name}_A"], out[f"{name}_AT"] = op.A(x), op.AT(y)
+    np.savez(os.path.join(out_dir, f"sub{rank}.npz"),
+             **{k: np.asarray(torch.as_tensor(v)) for k, v in out.items()})
+    dist.destroy_process_group()
+
+
 def main_rank(rank, world, store, module, argv):
     """``module.main(argv)`` (a module of the port with a command line) as
     one rank of a gloo world."""

@@ -345,8 +345,10 @@ def test_roofline_in_tomojax_order(prob):
     assert m == troof.slab_apply_model(tg, "plane", n_views=8)
     assert m["views"] == jroof.slab_apply_model(
         jg, "plane", "f32x2", 8)["config"]["V"] == 8
-    with pytest.raises(NotImplementedError):
-        troof.slab_apply_model(tg, "plane", "bf16")
+    # the bf16 tier computes the same function through the same fp32
+    # interface: its model and bound are f32x2's
+    assert troof.slab_apply_model(tg, "plane", "bf16", 8) == m
+    assert troof.slab_bound(tg, "arc", "bf16") == troof.slab_bound(tg, "arc")
 
 
 def test_device_peaks_by_kind(monkeypatch):
@@ -477,26 +479,29 @@ def test_kernels_slab_scalar_layout():
 
 
 def test_resolve_prec_outcomes(monkeypatch):
+    """tomojax's three outcomes: the default tier, the bf16 tier (given or
+    read from ``TOMOJAX_SLAB_PREC``, which then reaches the operators), and
+    ``ValueError`` for an unknown tier."""
     monkeypatch.delenv("TOMOJAX_SLAB_PREC", raising=False)
     assert tslabk.resolve_prec() == tslabk.resolve_prec("f32x2") == "f32x2"
     assert jslabk.resolve_prec() == "f32x2"
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 3"):
-        tslabk.resolve_prec("bf16")
+    assert tslabk.resolve_prec("bf16") == jslabk.resolve_prec("bf16")
     with pytest.raises(ValueError):
         tslabk.resolve_prec("fp8")
     with pytest.raises(ValueError):
         jslabk.resolve_prec("fp8")
+    geom = interop.geometry(dataclasses.asdict(jgeo.Geometry(
+        n_proj=2, vox_shape=(N,) * 3, det_shape=(N, N))))
+    views = {"phi": np.array([0.3, 1.2]), "alpha": np.zeros(2),
+             "beta": np.zeros(2), "t": np.zeros((2, 3)),
+             "cor": np.zeros((2, 3))}
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal((N,) * 3))
+    bf16 = tsp.project(x, geom, views, dtype=F64, prec="bf16")
+    assert not torch.equal(bf16, tsp.project(x, geom, views, dtype=F64))
     # the environment's tier, as tomojax reads it
     monkeypatch.setenv("TOMOJAX_SLAB_PREC", "bf16")
-    assert jslabk.resolve_prec() == "bf16"
-    with pytest.raises(NotImplementedError):
-        tslabk.resolve_prec()
-    with pytest.raises(NotImplementedError):
-        tsp.project(torch.zeros(N, N, N, dtype=F64), interop.geometry(
-            dataclasses.asdict(jgeo.Geometry(n_proj=2, vox_shape=(N,) * 3,
-                                             det_shape=(N, N)))),
-            {"phi": np.zeros(2), "alpha": np.zeros(2), "beta": np.zeros(2),
-             "t": np.zeros((2, 3)), "cor": np.zeros((2, 3))}, dtype=F64)
+    assert jslabk.resolve_prec() == tslabk.resolve_prec() == "bf16"
+    assert torch.equal(tsp.project(x, geom, views, dtype=F64), bf16)
 
 
 def test_make_mesh_devices_in_a_world_of_one():
@@ -504,6 +509,7 @@ def test_make_mesh_devices_in_a_world_of_one():
     assert (mesh.n_proj, mesh.n_ray, mesh.index("proj")) == (1, 1, 0)
     assert mesh.members() == [0]
     assert tdist.make_mesh(1, 1, (0,)).shape == tdist.make_mesh().shape
-    for bad in ([1], [0, 0], []):
-        with pytest.raises(ValueError, match="permutation"):
+    for bad, match in (([1], "the world has ranks"), ([0, 0], "repeats"),
+                       ([], "empty")):
+        with pytest.raises(ValueError, match=match):
             tdist.make_mesh(devices=bad)

@@ -70,9 +70,20 @@ def test_device_mode_matches_tomojax(jconfig5, tmp_path, monkeypatch,
     assert got["device"] == {"type": "cpu", "name": "cpu"}
 
 
-def test_reduced_precision_raises():
-    with pytest.raises(NotImplementedError, match="Queue 3"):
-        config5.main([*SMALL, "--device", "cpu", "--prec", "bf16"])
+def test_reduced_precision_raises(tmp_path):
+    """``--prec bf16`` (which raised until the tier was ported) runs the
+    CGLS stage on the bf16 operator: the record says so, CGLS runs its 10
+    iterations, and the rel-L2 lies within 5e-3 of the f32x2 run on the
+    same problem (the data stays fp32)."""
+    out = tmp_path / "bf16.json"
+    got = config5.main([*SMALL, "--device", "cpu", "--prec", "bf16",
+                        "--out", str(out)])
+    want = config5.main([*SMALL, "--device", "cpu"])
+    assert json.loads(out.read_text())["prec"] == got["prec"] == "bf16"
+    assert want["prec"] == "f32x2"
+    assert got["cgls_iters_run"] == 10 and got["cgls_stop"] == 0
+    assert abs(got["vol_rel_l2"] - want["vol_rel_l2"]) <= 5e-3
+    assert got["vol_rel_l2"] != want["vol_rel_l2"]
 
 
 def test_mesh_mode_in_a_two_rank_world(tmp_path):

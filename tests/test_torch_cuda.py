@@ -1,4 +1,5 @@
-"""The CUDA kernels K1-K5, K7 and K8 against their plain PyTorch versions,
+"""The CUDA kernels K1-K5, K7 and K8 and the bf16 tier's K1b-K4b against
+their plain PyTorch versions,
 on the card, and the plain-PyTorch modules (cross-correlation, the
 regularized solvers, the exact ray family and its LM) and the CV driver on
 the card against the CPU.
@@ -36,6 +37,7 @@ from tomojax_torch.kernels import resample as rs
 from tomojax_torch.kernels import slab as slabk
 from tomojax_torch.recon import cgls, fista_tv, lasso_fista, tikhonov_gd
 from tomojax_torch.recon.fista_tv import estimate_lipschitz
+from tomojax_torch.tools import bf16_gate
 
 pytestmark = pytest.mark.cuda
 
@@ -715,6 +717,83 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
         rs.resample_fwd(rows.double(), off.double(), slope.double(), 130)
     with pytest.raises(ValueError):
         rs.resample_fwd(rows, off.cpu(), slope, 130)
+
+
+BF16 = {"plane": (slabk.slab_plane_fwd_bf16, slabk.slab_plane_adj_bf16,
+                  slabk.slab_plane_fwd, slabk.slab_plane_adj),
+        "arc": (slabk.slab_arc_fwd_bf16, slabk.slab_arc_adj_bf16,
+                slabk.slab_arc_fwd, slabk.slab_arc_adj)}
+
+
+@pytest.mark.parametrize("quad", ["plane", "arc"])
+@pytest.mark.parametrize("n", [48, 50])
+def test_bf16_kernels_match_plain_and_fp32(cuda, quad, n):
+    """K1b-K4b (``prec="bf16"``) at 48³ (16-byte staging: nz, nv multiples
+    of 8) and 50³ (nz = 50, nv = 58: the plain-load staging): against their
+    plain bf16 versions (5e-4 per view forward, 5e-4 adjoint), within 3e-3
+    and at least 1e-6 of the fp32 kernels (tomojax's contract), two applies
+    bit-identical, the bf16 pair's mismatch within 5e-3 (tomojax's
+    numerator and denominator pooled over 32 standard-normal cotangents,
+    and the ratio on the non-negative |y|); each launch counted, the fp32
+    kernels' counters untouched."""
+    fwd_b, adj_b, fwd_f, adj_f = BF16[quad]
+    geom, views, vol, rng = _problem(n=n)
+    for vol_or, sc in _groups(geom, views, vol, cuda, quad):
+        y = torch.as_tensor(rng.standard_normal(
+            (sc.shape[0],) + geom.det_shape), dtype=torch.float32,
+            device=cuda)
+        before = [f.launches for f in BF16[quad]]
+        ker = slabk.slab_project(vol_or, sc, geom, quad, prec="bf16")
+        kadj = slabk.slab_backproject(y, sc, geom, quad, prec="bf16")
+        assert [f.launches for f in BF16[quad]] == [
+            before[0] + 1, before[1] + 1, before[2], before[3]]
+        assert torch.equal(ker, fwd_b(vol_or, sc, geom))
+        assert torch.equal(kadj, adj_b(y, sc, geom))
+        ref = slabk.slab_project_plain(vol_or, sc, geom, quad, prec="bf16")
+        rel = (torch.linalg.norm(ker - ref, dim=(1, 2))
+               / torch.linalg.norm(ref, dim=(1, 2)))
+        assert float(rel.max()) <= 5e-4
+        radj = slabk.slab_backproject_plain(y, sc, geom, quad, prec="bf16")
+        assert float(torch.linalg.norm(kadj - radj)
+                     / torch.linalg.norm(radj)) <= 5e-4
+        for b, f in ((ker, fwd_f(vol_or, sc, geom)),
+                     (kadj, adj_f(y, sc, geom))):
+            r = float(torch.linalg.norm(b - f) / torch.linalg.norm(f))
+            assert 1e-6 <= r <= 3e-3
+        pooled = bf16_gate.pooled_mismatch(
+            ker, vol_or, lambda g: adj_b(g, sc, geom), tuple(y.shape), rng,
+            32)
+        assert pooled["pooled"] <= 5e-3
+        assert bf16_gate.mismatch(ker, y.abs(), vol_or,
+                                  adj_b(y.abs(), sc, geom)) <= 5e-3
+
+
+def test_bf16_wrappers_raise_on_bad_input(cuda):
+    """A bf16 entry takes the fp32 operand on the card (its cast is its
+    own) and raises on another type; it never runs the plain version."""
+    geom, views, vol, _ = _problem(n=32, n_proj=8)
+    vol_or, sc = next(_groups(geom, views, vol, cuda))
+    with pytest.raises(TypeError):
+        slabk.slab_plane_fwd_bf16(vol_or.double(), sc, geom)
+    with pytest.raises(TypeError):
+        slabk.slab_arc_adj_bf16(vol_or.new_zeros(
+            (sc.shape[0],) + geom.det_shape, dtype=torch.bfloat16), sc,
+            geom)
+
+
+def test_bf16_cgls_on_card_tracks_cpu(cuda):
+    """CGLS 10 on the bf16 slab_plane operator, card against the CPU's
+    plain bf16 versions: the rel-L2 to the phantom within 1e-3."""
+    geom, views, vol, _ = _problem(n=32, n_proj=16)
+    out = []
+    for dev in ("cpu", cuda):
+        op = make_operator(geom, views, family="slab_plane", prec="bf16",
+                           device=dev)
+        x = torch.as_tensor(vol, device=dev)
+        r = cgls(op, op.A(x), niter=10, ground_truth=x, reinit_tol=1e-3)
+        assert r.stop_reason == 0
+        out.append(float(r.rms_error[-1]))
+    assert abs(out[0] - out[1]) <= 1e-3
 
 
 def test_fast_operator_on_card_tracks_cpu(cuda):

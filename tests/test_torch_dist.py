@@ -26,6 +26,13 @@ rank's results to a file; this process holds them to:
   the port's unsharded operators and solvers, which their own parity
   files hold to tomojax's.
 
+A second spawn of 4 ranks builds meshes over part of the world on every
+rank (``make_mesh(devices=[2, 0])``, ``make_mesh(1, 2, [3, 1])``): the
+angle-sharded slab_plane operator, fp32 and bf16, on ranks 2 and 0 and the
+volume-sharded plane operator on ranks 3 and 1 equal the port's unsharded
+operators of the same tier to 1e-12 in float64; the ranks outside a mesh
+get ``ValueError`` from its operators, before any collective.
+
 One card cannot hold two NCCL ranks; the multi-rank paths are held here
 over gloo, and a world of one over NCCL in ``tests/test_torch_cuda.py``.
 """
@@ -65,6 +72,13 @@ def results(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("dist")
     ranks.spawn(ranks.dist_rank, WORLD, tmp, str(tmp))
     return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(WORLD)]
+
+
+@pytest.fixture(scope="module")
+def submesh(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("submesh")
+    ranks.spawn(ranks.submesh_rank, WORLD, tmp, str(tmp))
+    return [dict(np.load(tmp / f"sub{r}.npz")) for r in range(WORLD)]
 
 
 @pytest.fixture(scope="module")
@@ -256,3 +270,28 @@ def test_a_world_of_one_without_a_process_group(prob):
         tdist.make_sharded_operator(prob["geom"], prob["views"],
                                     tdist.Mesh(1, 2, 0, False, {}),
                                     family="slab", device="cpu")
+
+
+@pytest.mark.parametrize("name, members, family, kw", [
+    ("angle", (2, 0), "slab_plane", {}),
+    ("angle_bf16", (2, 0), "slab_plane", {"prec": "bf16"}),
+    ("vol", (3, 1), "slab_plane", {})])
+def test_mesh_over_part_of_the_world(submesh, prob, name, members, family,
+                                     kw):
+    """A mesh over part of the 4-rank world (tomojax's device list): the
+    members' A and Aᵀ are the same bits on each member and equal the
+    unsharded operator of the same tier to 1e-12; every other rank was
+    refused with ``ValueError`` and joined no collective."""
+    op = make_operator(prob["geom"], prob["views"], family=family,
+                       dtype=F64, device="cpu", **kw)
+    first = submesh[members[0]]
+    assert _rel(first[f"{name}_A"], op.A(prob["x"])) <= TOL_EQ
+    assert _rel(first[f"{name}_AT"], op.AT(prob["yt"])) <= TOL_EQ
+    for r in range(WORLD):
+        if r in members:
+            for d in ("A", "AT"):
+                np.testing.assert_array_equal(submesh[r][f"{name}_{d}"],
+                                              first[f"{name}_{d}"])
+        else:
+            assert submesh[r][f"{name}_refused"] == 1
+            assert f"{name}_A" not in submesh[r]

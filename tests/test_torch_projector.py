@@ -230,8 +230,14 @@ def test_make_operator_ray_family(prob):
     np.testing.assert_allclose(chunked.AT(torch.as_tensor(y)).numpy(),
                                plain.AT(torch.as_tensor(y)).numpy(),
                                rtol=1e-12, atol=1e-12)
-    with pytest.raises(NotImplementedError, match="Queue 3"):
-        tmake(prob["tg"], prob["tv"], dtype=F64, device="cpu", prec="bf16")
+    # the tier is the slab families' (K1b-K4b); the others ignore it, as
+    # tomojax's make_operator does
+    tier = tmake(prob["tg"], prob["tv"], dtype=F64, device="cpu",
+                 prec="bf16")
+    assert torch.equal(tier.A(torch.as_tensor(x)),
+                       plain.A(torch.as_tensor(x)))
+    assert torch.equal(tier.AT(torch.as_tensor(y)),
+                       plain.AT(torch.as_tensor(y)))
 
 
 def test_alignment_cost_ray_matches_tomojax(prob):

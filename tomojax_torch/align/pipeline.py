@@ -176,14 +176,26 @@ def _default_bounds(dtype=torch.float32, device=None):
     return lo, -lo
 
 
-def _check_supported(family, recon, refine_method, recon_prec):
+def _resolve_reinit_tol(reinit_tol, prec: str) -> float:
+    """CGLS divergence-guard slack for a kernel precision tier (tomojax's
+    ``_resolve_reinit_tol``): ``reinit_tol`` if given, else 1e-3 for the
+    bf16 tier, whose A/Aᵀ pair is a mutual transpose only to its ~1e-3
+    rounding (the strict guard would end the solve on rounding noise with
+    the double-reinit quit), else 0 — the reference's strict guard."""
+    if reinit_tol is not None:
+        return float(reinit_tol)
+    return 1e-3 if prec == "bf16" else 0.0
+
+
+def _check_supported(family, recon, refine_method, recon_prec) -> str:
+    """Check the driver's options; returns the resolved ``recon_prec``."""
     if family not in QUADS and family not in ("ray", "fast", "voxel"):
         raise ValueError(f"unknown projector family: {family!r}")
     if refine_method not in ("lm", "lm_slab", "gd_fast"):
         raise ValueError(f"unknown refine_method {refine_method!r}")
-    resolve_prec(recon_prec, name="recon_prec")
     if recon not in ("sirt", "cgls"):
         raise ValueError(f"unknown recon {recon!r}")
+    return resolve_prec(recon_prec, name="recon_prec")
 
 
 def _views_on(views: Views, dtype, device) -> Views:
@@ -248,8 +260,17 @@ def align_reconstruct(projections, geom: Geometry, views0: Views, *,
 
     Arguments and defaults are tomojax's: ``family`` "ray" (exact),
     "slab" (arc), "slab_plane", "fast" or "voxel"; ``refine_method`` "lm",
-    "lm_slab" or "gd_fast". A reduced-precision ``recon_prec`` raises
-    ``NotImplementedError`` naming its ROADMAP entry.
+    "lm_slab" or "gd_fast".
+
+    :param recon_prec: the slab kernels' tier of the reconstruction stage:
+        "f32x2" (fp32) or "bf16", the bulk tier (each pass's input rounded
+        to bf16, each apply within 3e-3 of fp32:
+        :func:`~tomojax_torch.kernels.slab.resolve_prec`). Refinement,
+        the debias stage and the moment hook stay in the default tier.
+        The other families ignore it but for ``reinit_tol``.
+    :param reinit_tol: CGLS divergence-guard slack; None resolves per
+        ``recon_prec`` (:func:`_resolve_reinit_tol`: 1e-3 for bf16, else
+        0).
 
     :param projections: measured sinogram ``(n_proj, n_det)`` or
         ``(n_proj, nu, nv)``.
@@ -283,7 +304,7 @@ def align_reconstruct(projections, geom: Geometry, views0: Views, *,
         are a tensor, else ``cuda``).
     :returns: the final :class:`AlignState`.
     """
-    _check_supported(family, recon, refine_method, recon_prec)
+    recon_prec = _check_supported(family, recon, refine_method, recon_prec)
     device = _default_device(device, projections)
     kw = dict(dtype=dtype, device=device)
     n = geom.n_proj
@@ -322,7 +343,7 @@ def align_reconstruct(projections, geom: Geometry, views0: Views, *,
     quad = QUADS.get(family)
     gt = (None if ground_truth is None
           else torch.as_tensor(np.asarray(ground_truth)).to(**kw))
-    rtol = 0.0 if reinit_tol is None else float(reinit_tol)
+    rtol = _resolve_reinit_tol(reinit_tol, recon_prec)
     gstruct = None      # frozen octant groups of the solver
     refine_gs = None    # frozen octant groups of the refinement
     mom_mask = None     # data-driven moment-hook support mask
@@ -412,7 +433,7 @@ def align_reconstruct(projections, geom: Geometry, views0: Views, *,
             else:
                 gstruct, scalars = res
             op = operator_from_scalars(geom, gstruct, scalars,
-                                       family=family, **kw)
+                                       family=family, prec=recon_prec, **kw)
         chunk = recon_chunk or recon_iters
         rms = 0.0
         if recon == "cgls":
@@ -672,7 +693,8 @@ def align_reconstruct_cv(projections, geom: Geometry, views0: Views, *,
     :returns: the final state; ``volume`` is the mean of the complement
         volumes.
     """
-    _check_supported("slab", recon, "lm_slab", recon_prec)
+    recon_prec = _check_supported("slab", recon, "lm_slab", recon_prec)
+    rtol = _resolve_reinit_tol(None, recon_prec)
     device = _default_device(device, projections)
     kw = dict(dtype=dtype, device=device)
     n = geom.n_proj
@@ -748,7 +770,7 @@ def align_reconstruct_cv(projections, geom: Geometry, views0: Views, *,
             gstructs[k], scalars = (sp.scalar_groups(gh, sub, quad, **kw)
                                     if res is None else res)
             op = operator_from_scalars(gh, gstructs[k], scalars,
-                                       family="slab", **kw)
+                                       family="slab", prec=recon_prec, **kw)
             x = (torch.zeros(geom.vox_shape, **kw) if vols[k] is None
                  else vols[k])
             done = 0
@@ -757,7 +779,8 @@ def align_reconstruct_cv(projections, geom: Geometry, views0: Views, *,
                 nit = min(chunk, recon_iters - done)
                 r = (sirt(op, projections[ix], niter=nit, x0=x)
                      if recon == "sirt" else
-                     cgls(op, projections[ix], niter=nit, x0=x))
+                     cgls(op, projections[ix], niter=nit, x0=x,
+                          reinit_tol=rtol))
                 x = r.x
                 done += nit
             vols[k] = x

@@ -264,6 +264,8 @@ def cmd_align(args):
 
     cfg = _load_config(args)
     a = cfg.align
+    if args.recon_prec is not None:
+        a.recon_prec = args.recon_prec
     _check_supported(a.family, a.recon, a.refine_method, a.recon_prec)
     device = resolve_device(args.device)
     d = io.load_dataset(args.input)
@@ -365,6 +367,10 @@ def main(argv=None):
     p.add_argument("--input", "-i", required=True)
     p.add_argument("--output", "-o", required=True)
     p.add_argument("--vox-shape", default=None)
+    p.add_argument("--recon-prec", default=None, choices=["f32x2", "bf16"],
+                   help="the slab kernels' tier of the reconstruction "
+                        "stage (align.recon_prec; bf16: the bulk tier, "
+                        "refinement stays fp32)")
     p.set_defaults(fn=cmd_align)
 
     args = ap.parse_args(argv)

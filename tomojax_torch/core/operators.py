@@ -9,9 +9,9 @@ Ported families:
   PyTorch on every device.
 - ``family="slab"`` — the slab-marching operator in arc quadrature (the
   exact ray march's samples); on a CUDA device it runs the hand-written
-  kernels K3/K4.
+  kernels K3/K4 (K3b/K4b in the bf16 tier, ``prec="bf16"``).
 - ``family="slab_plane"`` — one sample per slab plane; on a CUDA device it
-  runs K1/K2.
+  runs K1/K2 (K1b/K2b in the bf16 tier).
 - ``family="fast"`` — the multi-pass resampling family
   (``core.fast_projector``); on a CUDA device A runs K7 and Aᵀ K8.
 - ``family="voxel"`` — the voxel-driven bilinear splat with its gather
@@ -59,6 +59,7 @@ class TomoOperator:
     family: str
     dtype: torch.dtype
     device: torch.device
+    prec: str | None = None   # the slab kernels' tier (None: no tier)
 
     @property
     def vol_shape(self):
@@ -93,11 +94,12 @@ def make_operator(geom: Geometry, views: Views, *, family: str = "ray",
         their own chunks; their results do not depend on it.
     :param voxel_mask: optional boolean volume; False voxels are excluded
         from the system.
-    :param prec: the slab kernels' precision tier
+    :param prec: the slab families' precision tier
         (:func:`~tomojax_torch.kernels.slab.resolve_prec`: ``"f32x2"`` is
-        plain fp32 here; a reduced-precision tier raises).
+        plain fp32 here, ``"bf16"`` the bulk tier); the other families
+        ignore it, as tomojax's.
     """
-    resolve_prec(prec)
+    prec = resolve_prec(prec)
     if family == "ray":
         return _views_operator(
             geom, views, family, dtype, device, voxel_mask,
@@ -125,7 +127,7 @@ def make_operator(geom: Geometry, views: Views, *, family: str = "ray",
                                            dtype=dtype, device=device)
     return operator_from_scalars(geom, gstruct, scalars, family=family,
                                  dtype=dtype, device=device, views=views,
-                                 voxel_mask=voxel_mask)
+                                 voxel_mask=voxel_mask, prec=prec)
 
 
 def _mask(voxel_mask, geom: Geometry, dtype, device):
@@ -165,25 +167,28 @@ def _views_operator(geom: Geometry, views: Views, family: str, dtype,
 
 
 def operator_from_scalars(geom: Geometry, gstruct, scalars, *, family: str,
-                          dtype, device, views=None,
-                          voxel_mask=None) -> TomoOperator:
+                          dtype, device, views=None, voxel_mask=None,
+                          prec: str | None = None) -> TomoOperator:
     """The slab operator of a given group structure and per-view scalars
-    (``slab_projector.scalar_groups``/``group_scalars_for``): the
-    alternating driver rebuilds it from new scalars every outer."""
+    (``slab_projector.scalar_groups``/``group_scalars_for``) in the tier
+    ``prec``: the alternating driver rebuilds it from new scalars every
+    outer."""
     quad = QUADS[family]
+    prec = resolve_prec(prec)
     mask = _mask(voxel_mask, geom, dtype, device)
 
     def A(x):
         x = x.reshape(geom.vox_shape).to(dtype)
         if mask is not None:
             x = x * mask
-        return slabp.project_scalars(x, geom, gstruct, scalars, quad, dtype)
+        return slabp.project_scalars(x, geom, gstruct, scalars, quad, dtype,
+                                     prec=prec)
 
     def AT(y):
         out = slabp.backproject_scalars(
             y.reshape(geom.n_proj, geom.n_det), geom, gstruct, scalars, quad,
-            dtype)
+            dtype, prec=prec)
         return out * mask if mask is not None else out
 
     return TomoOperator(geom=geom, views=views, A=A, AT=AT, family=family,
-                        dtype=dtype, device=torch.device(device))
+                        dtype=dtype, device=torch.device(device), prec=prec)

@@ -410,10 +410,33 @@ def _mlerp_rows(arr, pos):
     return -m * tap(0) + m * tap(1)
 
 
-def _forward_chunk(vol_or, sc, nu: int, nv: int):
+def bf16_round(t):
+    """``t`` rounded to bfloat16 (nearest even) and back to its dtype: the
+    bf16 tier's rounding."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+class _RoundCotangent(torch.autograd.Function):
+    """The identity, whose vjp rounds the cotangent to bfloat16: the bf16
+    tier's rounding of the pass-B transpose in the adjoint."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return bf16_round(g)
+
+
+round_cotangent = _RoundCotangent.apply
+
+
+def _forward_chunk(vol_or, sc, nu: int, nv: int, table_hook=None):
     """Plane forward of ``c`` views: ``vol_or`` (nx, ny, nz), ``sc``
     (c, NS) → (c, nu, nv). All slabs at once: intermediates are
-    (c, ny, nx, nv) and (c, ny, nv, nu)."""
+    (c, ny, nx, nv) and (c, ny, nv, nu). ``table_hook`` (if not None)
+    maps the pass-A table before pass B reads it."""
     nx, ny, nz = vol_or.shape
     c = sc.shape[0]
     kw = dict(dtype=vol_or.dtype, device=vol_or.device)
@@ -429,6 +452,8 @@ def _forward_chunk(vol_or, sc, nu: int, nv: int):
     vz = torch.arange(nv, **kw).reshape(1, 1, 1, nv)
     zeta = cz + p(S_GZX) * (x - cx) + vz * p(S_ZAV)           # (c, ny, nx, nv)
     tA = _lerp_rows(vol_or.permute(1, 0, 2), zeta)            # (c, ny, nx, nv)
+    if table_hook is not None:
+        tA = table_hook(tA)
     v = torch.arange(nv, **kw).reshape(1, 1, nv, 1)
     u = torch.arange(nu, **kw).reshape(1, 1, 1, nu)
     X = cx + p(S_EVX) * v + p(S_EUX) * u                      # (c, ny, nv, nu)
@@ -436,11 +461,14 @@ def _forward_chunk(vol_or, sc, nu: int, nv: int):
     return out.sum(1).transpose(1, 2) * sc[:, S_SCALE].reshape(c, 1, 1)
 
 
-def _forward_chunk_arc(vol_or, sc, geom: Geometry, deriv, jweight, rweight):
+def _forward_chunk_arc(vol_or, sc, geom: Geometry, deriv, jweight, rweight,
+                       table_hook=None):
     """Arc forward of ``c`` views (tomojax's ``_forward_oriented_xla`` arc
     branch, in its operation order): ``vol_or`` (nx, ny, nz), ``sc`` (c,
     NS) → (c, nu, nv). All source slabs r = −1 … ny−1 at once:
-    intermediates are (c, ny+1, nx, nv) and (c, ny+1, nu, nv)."""
+    intermediates are (c, ny+1, nx, nv) and (c, ny+1, nu, nv).
+    ``table_hook`` (if not None) maps each branch's and side's pass-A
+    table before pass B reads it."""
     nx, ny, nz = vol_or.shape
     nu, nv = geom.det_shape
     n_steps = geom.n_steps
@@ -487,6 +515,8 @@ def _forward_chunk_arc(vol_or, sc, geom: Geometry, deriv, jweight, rweight):
         vals = []
         for side in rows:
             tA = lerp_a(side, zeta)                     # (c, ny+1, nx, nv)
+            if table_hook is not None:
+                tA = table_hook(tA)
             if deriv == "zc":
                 # dζ/dedz weighting, evaluated ON the grid (cf_xv wraps
                 # mod 1, so no sample-level expansion is exact)
@@ -512,9 +542,12 @@ def _view_chunk(vol_shape, det_shape) -> int:
 
 def forward_oriented(vol_or, scalars, geom: Geometry, quad: str = "plane",
                      deriv: str | None = None, jweight: bool = False,
-                     rweight: bool = False):
+                     rweight: bool = False, *, table_hook=None):
     """Plain forward of one orientation group: ``vol_or`` (nx, ny, nz),
-    ``scalars`` (V, NS) → (V, nu, nv), chunked over views.
+    ``scalars`` (V, NS) → (V, nu, nv), chunked over views. ``table_hook``
+    maps each pass-A table before pass B reads it (the bf16 tier's
+    rounding: :func:`bf16_round`, or :func:`round_cotangent` in the
+    adjoint).
 
     ``deriv`` (``"x"``, ``"y"``, ``"z"``, ``"zm"``, ``"zc"``), ``jweight``
     and ``rweight`` select the arc-only Jacobian building blocks: hat′ in
@@ -529,25 +562,29 @@ def forward_oriented(vol_or, scalars, geom: Geometry, quad: str = "plane",
     c = _view_chunk(vol_or.shape, geom.det_shape)
     if quad == "plane":
         def run(sc):
-            return _forward_chunk(vol_or, sc, nu, nv)
+            return _forward_chunk(vol_or, sc, nu, nv, table_hook)
     else:
         def run(sc):
             return _forward_chunk_arc(vol_or, sc, geom, deriv, jweight,
-                                      rweight)
+                                      rweight, table_hook)
     return torch.cat([run(scalars[i:i + c])
                       for i in range(0, scalars.shape[0], c)])
 
 
-def adjoint_oriented(g, scalars, geom: Geometry, quad: str = "plane"):
+def adjoint_oriented(g, scalars, geom: Geometry, quad: str = "plane", *,
+                     table_hook=None):
     """Plain adjoint of :func:`forward_oriented`: autograd's vjp of the
-    linear forward, chunked over views → oriented volume (nx, ny, nz)."""
+    linear forward, chunked over views → oriented volume (nx, ny, nz).
+    ``table_hook`` goes to the forward (:func:`round_cotangent` rounds the
+    pass-B transpose before the vjp of pass A reads it)."""
     c = _view_chunk(geom.vox_shape, geom.det_shape)
     out = torch.zeros(geom.vox_shape, dtype=g.dtype, device=g.device)
     for i in range(0, scalars.shape[0], c):
         with torch.enable_grad():
             x = torch.zeros(geom.vox_shape, dtype=g.dtype, device=g.device,
                             requires_grad=True)
-            y = forward_oriented(x, scalars[i:i + c], geom, quad)
+            y = forward_oriented(x, scalars[i:i + c], geom, quad,
+                                 table_hook=table_hook)
             (gx,) = torch.autograd.grad(y, x, g[i:i + c])
         out += gx
     return out
@@ -739,12 +776,13 @@ def project_scalars(vol, geom: Geometry, gstruct, scalars,
     goes through :class:`~tomojax_torch.kernels.slab.SlabPlane` (K1
     forward, K2 backward) or :class:`~tomojax_torch.kernels.slab.SlabArc`
     (K3, K4), in calls of at most ``views_chunk`` views (the result does
-    not depend on it). ``prec`` is checked by
-    :func:`~tomojax_torch.kernels.slab.resolve_prec`."""
+    not depend on it), in the tier
+    :func:`~tomojax_torch.kernels.slab.resolve_prec` gives ``prec``
+    (``"bf16"``: K1b-K4b)."""
     from tomojax_torch.kernels import slab as slabk
     _check_square(geom)
     _check_quad(quad)
-    slabk.resolve_prec(prec)
+    prec = slabk.resolve_prec(prec)
     fn = slabk.SlabPlane if quad == "plane" else slabk.SlabArc
     n = sum(len(g[0]) for g in gstruct)
     nu, nv = geom.det_shape
@@ -754,7 +792,7 @@ def project_scalars(vol, geom: Geometry, gstruct, scalars,
         vol_or = orient_volume(vol, geom, sw, yf).contiguous()
         rows = torch.as_tensor(idx, device=out.device)
         for part in _row_chunks(len(idx), views_chunk):
-            sino = fn.apply(vol_or, sc[part], geom)
+            sino = fn.apply(vol_or, sc[part], geom, prec)
             if uf:
                 sino = sino.flip(1)
             out[rows[part]] = sino
@@ -766,11 +804,11 @@ def backproject_scalars(sino, geom: Geometry, gstruct, scalars,
                         views_chunk: int | None = None,
                         prec: str | None = None):
     """Exact adjoint of :func:`project_scalars` → volume ``vox_shape`` in
-    ``dtype``; each group goes through K2 (plane) or K4 (arc), in calls of
-    at most ``views_chunk`` views."""
+    ``dtype``; each group goes through K2 (plane) or K4 (arc), or K2b/K4b
+    in the bf16 tier, in calls of at most ``views_chunk`` views."""
     from tomojax_torch.kernels import slab as slabk
     _check_square(geom)
-    slabk.resolve_prec(prec)
+    prec = slabk.resolve_prec(prec)
     nu, nv = geom.det_shape
     sino = sino.reshape(-1, nu, nv).to(dtype)
     vol = sino.new_zeros(geom.vox_shape)
@@ -780,7 +818,8 @@ def backproject_scalars(sino, geom: Geometry, gstruct, scalars,
             g = sino[rows[part]]
             if uf:
                 g = g.flip(1)
-            vb = slabk.slab_backproject(g.contiguous(), sc[part], geom, quad)
+            vb = slabk.slab_backproject(g.contiguous(), sc[part], geom, quad,
+                                        prec)
             vol += unorient_volume(vb, sw, yf)
     return vol
 

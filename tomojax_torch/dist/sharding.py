@@ -3,9 +3,12 @@
 
 SPMD: one process per device, started by ``torchrun`` or
 ``torch.multiprocessing.spawn``, NCCL between cards and gloo between CPU
-processes. :func:`make_mesh` lays the default group's ranks out as
+processes. :func:`make_mesh` lays ranks of the default group out as
 (``proj``, ``ray``), row-major (layout position = proj index · n_ray + ray
-index), in rank order or in the order its ``devices`` gives.
+index): every rank in rank order, or the ranks its ``devices`` lists, in
+that order — part of the world, as tomojax's device list may be. A mesh
+over part of the world runs its collectives in a process group of its own
+members; the sharded operators refuse a rank outside it.
 
 Every rank holds the whole volume, as tomojax's replicated ``P()`` input
 does. An operator's ``A`` computes the rank's own part of the sinogram and
@@ -56,10 +59,11 @@ def _initialized() -> bool:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """The default group's ranks as an ``(n_proj, n_ray)`` grid; ``layout``
-    holds the rank at each grid position, row-major (None: rank order),
-    and ``groups`` this rank's process group along each axis (None: the
-    default group)."""
+    """Ranks of the default group as an ``(n_proj, n_ray)`` grid;
+    ``layout`` holds the rank at each grid position, row-major (None: rank
+    order), ``groups`` this rank's process group along each axis and
+    ``group`` the whole mesh's (None: the default group), and ``member``
+    whether this rank is in the mesh."""
 
     n_proj: int
     n_ray: int
@@ -67,6 +71,8 @@ class Mesh:
     initialized: bool
     groups: dict
     layout: tuple | None = None
+    group: object = None
+    member: bool = True
 
     @property
     def shape(self) -> dict:
@@ -79,6 +85,7 @@ class Mesh:
     @property
     def position(self) -> int:
         """This rank's position in the grid, row-major."""
+        _check_member(self)
         return self.rank if self.layout is None else self.layout.index(
             self.rank)
 
@@ -121,40 +128,61 @@ def init_from_env(device) -> bool:
 
 def make_mesh(n_proj_shards: int | None = None, n_ray_shards: int = 1,
               devices=None) -> Mesh:
-    """Lay the default group's ranks out as (``proj``, ``ray``); defaults
-    to every rank on ``proj`` (the reference's angle data-parallelism).
-    The second axis doubles as the volume axis of the volume-sharded
-    operators. Every rank must call it, in the same order.
+    """Lay ranks of the default group out as (``proj``, ``ray``);
+    defaults to every rank on ``proj`` (the reference's angle
+    data-parallelism). The second axis doubles as the volume axis of the
+    volume-sharded operators. Every rank must call it, in the same order,
+    members of the mesh or not (``torch.distributed.new_group`` needs
+    every rank).
 
-    :param devices: the default group's ranks in the order the mesh lays
-        them out, row-major (tomojax's device list); None: rank order. A
-        sequence that is not a permutation of every rank raises
-        ``ValueError`` (a mesh over part of the world is not ported)."""
+    :param devices: the ranks the mesh lays out, in its order, row-major
+        (tomojax's device list): any non-empty list of distinct existing
+        ranks, whose count is ``n_proj_shards × n_ray_shards``; None: every
+        rank in rank order. A mesh over part of the world gets a process
+        group of its members, and its axes subgroups inside it."""
     init = _initialized()
     world = dist.get_world_size() if init else 1
     rank = dist.get_rank() if init else 0
     layout = (tuple(range(world)) if devices is None
               else tuple(int(d) for d in devices))
-    if sorted(layout) != list(range(world)):
-        raise ValueError(f"devices {list(layout)} is not a permutation of "
-                         f"the {world} ranks")
+    if not layout:
+        raise ValueError("devices is empty: a mesh needs ranks")
+    if len(set(layout)) != len(layout):
+        raise ValueError(f"devices {list(layout)} repeats a rank")
+    if not all(0 <= d < world for d in layout):
+        raise ValueError(f"devices {list(layout)}: the world has ranks "
+                         f"0 .. {world - 1}")
+    n = len(layout)
     if n_proj_shards is None:
-        n_proj_shards = world // n_ray_shards
-    if n_proj_shards * n_ray_shards != world:
-        raise ValueError(f"{n_proj_shards} x {n_ray_shards} != {world} "
-                         "ranks")
+        n_proj_shards = n // n_ray_shards
+    if n_proj_shards * n_ray_shards != n:
+        raise ValueError(f"{n_proj_shards} x {n_ray_shards} != {n} ranks")
     P, R = n_proj_shards, n_ray_shards
+    # the whole mesh's group: the default group for the whole world
+    group = (dist.new_group(sorted(layout))
+             if init and n < world else None)
     groups = {"proj": None, "ray": None}
-    if world > 1:
+    if init:
         for axis, lists in (
                 ("proj", [[layout[p * R + r] for p in range(P)]
                           for r in range(R)]),
                 ("ray", [[layout[p * R + r] for r in range(R)]
                          for p in range(P)])):
-            if 1 < len(lists[0]) < world:
+            if len(lists[0]) == n:
+                groups[axis] = group
+            elif len(lists[0]) > 1:
                 groups[axis] = dist.new_subgroups_by_enumeration(lists)[0]
     return Mesh(n_proj=P, n_ray=R, rank=rank, initialized=init,
-                groups=groups, layout=layout)
+                groups=groups, layout=layout, group=group,
+                member=rank in layout)
+
+
+def _check_member(mesh: Mesh):
+    """Raise ``ValueError`` on a rank outside ``mesh`` (before any
+    collective: a rank outside a group never joins its collectives)."""
+    if not mesh.member:
+        raise ValueError(f"rank {mesh.rank} is not in the mesh's devices "
+                         f"{list(mesh.layout)}")
 
 
 def _skip(mesh: Mesh, axis) -> bool:
@@ -173,7 +201,7 @@ def _gather(t, mesh: Mesh, axis=None) -> list:
     n = mesh.size if axis is None else mesh.shape[axis]
     t = t.contiguous()
     out = [torch.empty_like(t) for _ in range(n)]
-    dist.all_gather(out, t, group=None if axis is None else
+    dist.all_gather(out, t, group=mesh.group if axis is None else
                     mesh.groups[axis])
     members = mesh.members(axis)
     in_rank_order = sorted(members)
@@ -185,7 +213,8 @@ def _sum(t, mesh: Mesh, axis=None):
     if _skip(mesh, axis):
         return t
     t = t.contiguous()
-    dist.all_reduce(t, group=None if axis is None else mesh.groups[axis])
+    dist.all_reduce(t, group=mesh.group if axis is None else
+                    mesh.groups[axis])
     return t
 
 
@@ -222,14 +251,17 @@ def make_sharded_operator(geom: Geometry, views: Views, mesh: Mesh, *,
     each rank projects its views (``proj``) over its detector rays
     (``ray``, the ray family only); ``A`` gathers the sinogram, ``AT``
     sums the ranks' backprojections. ``n_proj`` must divide over ``proj``
-    and ``n_det`` over ``ray``."""
-    resolve_prec(prec)
+    and ``n_det`` over ``ray``. ``prec`` is the slab families' tier
+    (:func:`~tomojax_torch.kernels.slab.resolve_prec`); the others ignore
+    it, as tomojax's. A rank outside ``mesh`` raises ``ValueError``."""
+    prec = resolve_prec(prec)
+    _check_member(mesh)
     device = resolve_device(device)
     if family in QUADS:
         if mesh.n_ray != 1:
             raise ValueError("the slab family shards over 'proj' only")
         return _make_slab_sharded(geom, views, mesh, QUADS[family], dtype,
-                                  device, family)
+                                  device, family, prec)
     if family not in ("ray", "fast"):
         raise ValueError(f"unknown projector family: {family!r}")
     if family == "fast" and mesh.n_ray != 1:
@@ -290,10 +322,11 @@ def _padded_groups(geom: Geometry, views: Views, quad: str, n_shards: int,
 
 
 def _make_slab_sharded(geom: Geometry, views: Views, mesh: Mesh, quad: str,
-                       dtype, device, family: str) -> TomoOperator:
+                       dtype, device, family: str, prec: str) -> TomoOperator:
     """Angle-sharded slab operator: views grouped by orientation at build
     time, each group padded to a multiple of ``proj``; each rank applies
-    K1/K2 (plane) or K3/K4 (arc) to its scalar rows."""
+    K1/K2 (plane) or K3/K4 (arc), or their bf16 variants, to its scalar
+    rows."""
     from tomojax_torch.kernels import slab as slabk
     sp._check_square(geom)
     nu, nv = geom.det_shape
@@ -308,8 +341,9 @@ def _make_slab_sharded(geom: Geometry, views: Views, mesh: Mesh, quad: str,
         out = vol.new_zeros((n, nu, nv))
         for idx, sw, yf, uf, sc, vg in groups:
             vol_or = sp.orient_volume(vol, geom, sw, yf).contiguous()
-            sino = _gather_blocks(slabk.slab_project(vol_or, sc, geom, quad),
-                                  mesh, dim=1)[:vg]
+            sino = _gather_blocks(
+                slabk.slab_project(vol_or, sc, geom, quad, prec=prec), mesh,
+                dim=1)[:vg]
             if uf:
                 sino = sino.flip(1)
             out[torch.as_tensor(idx, device=out.device)] = sino
@@ -322,13 +356,13 @@ def _make_slab_sharded(geom: Geometry, views: Views, mesh: Mesh, quad: str,
             g = _pad_rows(y[torch.as_tensor(idx, device=y.device)], uf, vg,
                           sc.shape[0] * mesh.n_proj)
             g = g[_block(g.shape[0], mesh.n_proj, mesh.index("proj"))]
-            vb = slabk.slab_backproject(g.contiguous(), sc, geom, quad)
+            vb = slabk.slab_backproject(g.contiguous(), sc, geom, quad, prec)
             vol += sp.unorient_volume(vb, sw, yf)
         return _sum(vol, mesh)
 
     return TomoOperator(geom=geom, views=views, A=A, AT=AT,
                         family=f"{family}-sharded", dtype=dtype,
-                        device=device)
+                        device=device, prec=prec)
 
 
 def _pad_rows(g, uflip: bool, n_valid: int, n_rows: int):
@@ -344,6 +378,7 @@ def _pad_rows(g, uflip: bool, n_valid: int, n_rows: int):
 def make_volume_sharded_slab_operator(geom: Geometry, views: Views,
                                       mesh: Mesh, *, quad: str = "arc",
                                       dtype=torch.float32, halo: int = 32,
+                                      prec: str | None = None,
                                       device=None) -> TomoOperator:
     """Volume-sharded slab operator: the volume's z axis and the
     detector's v axis split over the mesh's second axis, views over
@@ -357,8 +392,11 @@ def make_volume_sharded_slab_operator(geom: Geometry, views: Views,
     adjoint returns each block's halo cotangents to the neighbours that
     own those planes (point to point), sums over ``proj`` and gathers the
     z blocks. Every view's z-v offset must stay inside the halo (checked
-    here)."""
+    here). ``prec`` is the kernels' tier; a rank outside ``mesh`` raises
+    ``ValueError``."""
     from tomojax_torch.kernels import slab as slabk
+    prec = resolve_prec(prec)
+    _check_member(mesh)
     sp._check_quad(quad)
     sp._check_square(geom)
     device = resolve_device(device)
@@ -402,8 +440,8 @@ def make_volume_sharded_slab_operator(geom: Geometry, views: Views,
         for idx, sw, yf, uf, sc, vg in groups:
             vol_or = sp.orient_volume(blk, local_geom, sw, yf).contiguous()
             sino = _gather_blocks(
-                slabk.slab_project(vol_or, sc, local_geom, quad), mesh,
-                dim=2)[:vg]
+                slabk.slab_project(vol_or, sc, local_geom, quad, prec=prec),
+                mesh, dim=2)[:vg]
             if uf:
                 sino = sino.flip(1)
             out[torch.as_tensor(idx, device=out.device)] = sino
@@ -417,7 +455,8 @@ def make_volume_sharded_slab_operator(geom: Geometry, views: Views,
                           sc.shape[0] * mesh.n_proj)
             g = g[_block(g.shape[0], mesh.n_proj, mesh.index("proj")),
                   :, v0:v0 + nvl]
-            vb = slabk.slab_backproject(g.contiguous(), sc, local_geom, quad)
+            vb = slabk.slab_backproject(g.contiguous(), sc, local_geom, quad,
+                                        prec)
             blk += sp.unorient_volume(vb, sw, yf)
         own = _return_halos(blk, H, nzl, mesh)
         own = _sum(own, mesh, "proj")
@@ -425,7 +464,7 @@ def make_volume_sharded_slab_operator(geom: Geometry, views: Views,
 
     return TomoOperator(geom=geom, views=views, A=A, AT=AT,
                         family=f"slab-volume-sharded-{quad}", dtype=dtype,
-                        device=device)
+                        device=device, prec=prec)
 
 
 def _return_halos(blk, H: int, nzl: int, mesh: Mesh):
@@ -460,6 +499,7 @@ def sharded_refine_views(vol, projections, geom: Geometry, views: Views,
     own views (``align.refine.refine_views``); returns the gathered ``(θ
     (n_proj, 6), cost (n_proj,))`` on every rank."""
     from tomojax_torch.align.refine import PARAM_SETS, refine_views
+    _check_member(mesh)
     if mask is None:
         mask = PARAM_SETS["xzab"]
     n = views.n_proj
@@ -482,7 +522,9 @@ def make_volume_sharded_operator(geom: Geometry, views: Views, mesh: Mesh,
     ``ray`` and gathers the views over ``proj``; ``AT`` gathers each
     block's voxels from the detector, sums its views over ``proj`` and
     gathers the blocks over ``ray``. Requires ``nx`` and ``n_proj`` to
-    divide over their axes."""
+    divide over their axes; a rank outside ``mesh`` raises
+    ``ValueError``."""
+    _check_member(mesh)
     device = resolve_device(device)
     nx = geom.vox_shape[0]
     _check_divides(nx, mesh.n_ray, "nx")

@@ -33,7 +33,8 @@ _L = ctypes.c_longlong
 # int fn(const float* in, const float* scalars, float* out,
 #        int V, int nx, int ny, int nz, int nu, int nv, cudaStream_t);
 # the arc kernels take (int n_steps, int n_branch) before the stream, and
-# the arc adjoint a scratch volume after its output
+# the arc adjoint a scratch volume after its output; the bf16 entries
+# (*_bf16) take their first operand in bf16
 _PLANE = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _ARC = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 _ARC_ADJ = [_P, *_ARC]
@@ -51,8 +52,12 @@ _DIV_CHECK = [_P, _P, _P, _I, ctypes.c_float, _P]
 _SIGNATURES = {
     "slab_plane_fwd": _PLANE,
     "slab_plane_adj": _PLANE,
+    "slab_plane_fwd_bf16": _PLANE,
+    "slab_plane_adj_bf16": _PLANE,
     "slab_arc_fwd": _ARC,
     "slab_arc_adj": _ARC_ADJ,
+    "slab_arc_fwd_bf16": _ARC,
+    "slab_arc_adj_bf16": _ARC_ADJ,
     "slab_arc_jac": _ARC,
     "slab_arc_div_check": _DIV_CHECK,
     "resample_fwd": _RESAMPLE_FWD,

@@ -103,12 +103,79 @@
 // small kernel adds, so two applies give the same bits (CGLS repeats its
 // digits). Nothing of the TPU design is carried over (selection/align
 // matmuls, bf16 hi/lo split, band budget, lane padding, view bucketing).
+//
+// The bf16 tier (K3b slab_arc_fwd_bf16, K4b slab_arc_adj_bf16) replaces the
+// bf16=True variants of _fwd_kernel and _adj_kernel in arc quadrature
+// (chosen at tomojax/kernels/slab.py:904 and :1015). The kernels are the
+// same, instantiated on the storage type TS = __nv_bfloat16, with K3's and
+// K4's fp32 arithmetic in the same order (the samples stay K3's to the
+// bit) and rounding (nearest even) at each pass's input:
+//   K3b stages the volume's rows in bf16 (the wrapper casts the oriented
+//     volume once) and holds the pass-A tables in bf16: each branch's
+//     z-lerps of both sides are rounded before the (1 - fy)/fy blend reads
+//     them (the direct path rounds the same values);
+//   K4b reads the cotangent g in bf16 (the wrapper casts it once) and
+//     rounds the two planes of each view's and branch's pass-B transpose
+//     where pass A reads them, one per target side: T_all - T_fy (slab r)
+//     and T_fy (slab r + 1); the sums, the scratch volume and the add stay
+//     fp32.
+// tomojax rounds its matmul operands (the products w*g and the aligned
+// accumulator); a gather has none, so the rounding points are g and the
+// tables, within tomojax's contract for the tier (3e-3 relative per apply,
+// 5e-3 A/A^T mismatch: scripts/tpu_kernel_check.py). K5 has no bf16 tier,
+// as in tomojax. 16-byte copies carry 8 bf16 values (nz a multiple of 8);
+// other sizes stage with plain loads. kernels/slab.py's plain bf16
+// versions round at the same points.
 
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+// The storage types of staged values: a value as fp32 (val), fp32 rounded
+// to TS (to_ts, nearest even), and fp32 rounded to TS and back (round_ts).
+__device__ __forceinline__ float val(float x) { return x; }
+__device__ __forceinline__ float val(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename TS>
+__device__ __forceinline__ TS to_ts(float x);
+template <>
+__device__ __forceinline__ float to_ts<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_ts<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <typename TS>
+__device__ __forceinline__ float round_ts(float x) {
+  return val(to_ts<TS>(x));
+}
+
+// Values of TS per 16-byte copy.
+template <typename TS>
+__host__ __device__ constexpr int per16() {
+  return 16 / static_cast<int>(sizeof(TS));
+}
+
+// A table entry of two values (sides r and r + 1) of TS, as fp32.
+__device__ __forceinline__ float2 load2(const float* q) {
+  return *reinterpret_cast<const float2*>(q);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* q) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(q));
+}
+__device__ __forceinline__ void store2(float* q, float a, float b) {
+  *reinterpret_cast<float2*>(q) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* q, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(q) = __floats2bfloat162_rn(a, b);
+}
 
 // Per-view scalar layout: tomojax_torch/core/slab_projector.py S_*.
 constexpr int NS = 21;
@@ -291,7 +358,7 @@ constexpr int kFwdThreads = 256;
 constexpr int kFwdWarps = kFwdThreads / 32;
 constexpr int kFU = 32, kFV = 32;
 constexpr int kPix = kFU / kFwdWarps;
-constexpr int kSX = 52, kSZ = 44;      // kSZ: a multiple of 4 (16-byte rows)
+constexpr int kSX = 52;
 constexpr int kQX = 52;
 constexpr int kTab = kQX * kFV;        // entries of one table
 constexpr int kRing = 3;
@@ -310,9 +377,26 @@ __host__ __device__ constexpr int tab_width() {
   return tab_vec<kJac>() * kTabBranches + (kJac ? 1 : 0);
 }
 
-template <bool kJac>
+// The staged slabs of storage type TS: rows of kSZ values z, a multiple of
+// per16<TS>() (16-byte rows); bf16's 48 keeps fp32's capacity once z0 is
+// aligned down to a copy (44 - 3 = 48 - 7). A thread's share of a slab's
+// copies: its copy i moves 16-byte chunk c of window row xl (e = tid +
+// i*kFwdThreads over kSX rows of kRowChunks chunks), packed as xl << 8 |
+// c; fixed over the march.
+template <typename TS>
+struct ArcStage {
+  static constexpr int kSZ = sizeof(TS) == 4 ? 44 : 48;
+  static constexpr int kRowChunks = kSZ / per16<TS>();
+  static constexpr int kSlots =
+      (kSX * kRowChunks + kFwdThreads - 1) / kFwdThreads;
+  static_assert(kSZ % per16<TS>() == 0, "staged rows of 16-byte copies");
+};
+
+// The ring and the tables in TS (K5's cf in fp32), then the windows.
+template <bool kJac, typename TS>
 constexpr int fwd_smem() {
-  return 4 * (kRing * kSX * kSZ + tab_width<kJac>() * kTab) +
+  return static_cast<int>(sizeof(TS)) *
+             (kRing * kSX * ArcStage<TS>::kSZ + tab_width<kJac>() * kTab) +
          kChunk * (2 * sizeof(short4) + sizeof(unsigned));
 }
 
@@ -322,7 +406,7 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                "l"(src));
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                "l"(src));
@@ -414,9 +498,10 @@ __device__ __forceinline__ short4 step_window(const Arc& p, const FwdTile& t,
 }
 
 // The staged window of slab s: the union of the windows of steps s - 1 and
-// s (the two that read it), z aligned down to a multiple of 4 for 16-byte
-// copies, clamped to the ring's capacity; empty for a slab outside
-// [0, ny).
+// s (the two that read it), z aligned down to a multiple of per16<TS>()
+// for 16-byte copies, clamped to the ring's capacity; empty for a slab
+// outside [0, ny).
+template <typename TS>
 __device__ __forceinline__ short4 stage_window(const Arc& p,
                                                const FwdTile& t, int s,
                                                int nx, int ny, int nz,
@@ -432,47 +517,49 @@ __device__ __forceinline__ short4 stage_window(const Arc& p,
                     max(a.w, b.w));
   }
   if (w.x > w.y) return w;
-  if (vec) w.z &= ~3;
+  if (vec) w.z &= ~(per16<TS>() - 1);
   w.y = min(static_cast<int>(w.y), w.x + kSX - 1);
-  w.w = min(static_cast<int>(w.w), w.z + kSZ - 1);
+  w.w = min(static_cast<int>(w.w), w.z + ArcStage<TS>::kSZ - 1);
   return w;
 }
 
-// A thread's share of a slab's copies: its copy i moves 16-byte chunk c of
-// window row xl (e = tid + i*kFwdThreads over kSX rows of kRowChunks
-// chunks), packed as xl << 8 | c; fixed over the march.
-constexpr int kRowChunks = kSZ / 4;
-constexpr int kSlots = (kSX * kRowChunks + kFwdThreads - 1) / kFwdThreads;
-
+template <typename TS>
 __device__ __forceinline__ int copy_slot(int tid, int i) {
+  constexpr int kRowChunks = ArcStage<TS>::kRowChunks;
   const int e = tid + i * kFwdThreads;
   return e < kSX * kRowChunks ? (e / kRowChunks) << 8 | e % kRowChunks
                               : 0xFFFF << 8;
 }
 
-// Issue the copies of slab s's window into buf (one commit group).
-__device__ __forceinline__ void stage_slab(float* buf,
-                                           const float* __restrict__ vol,
-                                           int s, short4 w, int ny, int nz,
-                                           bool vec, int tid,
-                                           const int (&slot)[kSlots]) {
+// Issue the copies of slab s's window into buf (one commit group); bf16
+// without vec stages with plain loads and stores (cp.async has no 2-byte
+// copy), which the next barrier makes visible as it does the copies.
+template <typename TS>
+__device__ __forceinline__ void stage_slab(
+    TS* buf, const TS* __restrict__ vol, int s, short4 w, int ny, int nz,
+    bool vec, int tid, const int (&slot)[ArcStage<TS>::kSlots]) {
+  constexpr int kSZ = ArcStage<TS>::kSZ, kPer = per16<TS>();
   if (w.x <= w.y) {
     const int nxw = w.y - w.x + 1;
-    const float* src = vol + (static_cast<size_t>(w.x) * ny + s) * nz + w.z;
+    const TS* src = vol + (static_cast<size_t>(w.x) * ny + s) * nz + w.z;
     const size_t pitch = static_cast<size_t>(ny) * nz;
     if (vec) {
-      const int nch = (w.w - w.z + 4) >> 2;
+      const int nch = (w.w - w.z + kPer) / kPer;
 #pragma unroll
-      for (int i = 0; i < kSlots; ++i) {
+      for (int i = 0; i < ArcStage<TS>::kSlots; ++i) {
         const int xl = slot[i] >> 8, c = slot[i] & 255;
         if (xl < nxw && c < nch)
-          cp_async16(buf + xl * kSZ + 4 * c, src + xl * pitch + 4 * c);
+          cp_async16(buf + xl * kSZ + kPer * c, src + xl * pitch + kPer * c);
       }
     } else {
       const int nzw = w.w - w.z + 1;
       for (int e = tid; e < nxw * kSZ; e += kFwdThreads) {
         const int xl = e / kSZ, zl = e - xl * kSZ;
-        if (zl < nzw) cp_async4(buf + xl * kSZ + zl, src + xl * pitch + zl);
+        if (zl >= nzw) continue;
+        if constexpr (sizeof(TS) == 4)
+          cp_async4(buf + xl * kSZ + zl, src + xl * pitch + zl);
+        else
+          buf[xl * kSZ + zl] = src[xl * pitch + zl];
       }
     }
   }
@@ -570,8 +657,9 @@ __device__ __forceinline__ void accumulate(float (&a)[kJac ? NJP : 1],
 
 // K3 (kJac false): out (V, nu, nv). K5 (kJac true): out (V, NJP, nu, nv),
 // the 12 building blocks in JAC_PASSES order (val, px, py, pz, jx, jy, jz,
-// rx, ry, rz, zm, zc). grid (v tiles, u tiles, views); vol (nx, ny, nz),
-// scalars (V, NS). Every output is written exactly once.
+// rx, ry, rz, zm, zc). grid (v tiles, u tiles, views); vol (nx, ny, nz) of
+// TS (K3b: bf16, its rows and tables held in bf16), scalars (V, NS). Every
+// output is written exactly once.
 //
 // A step is fast when its tables cover its window, the staged windows hold
 // it and the march has at most two branches: pass A fills the tables from
@@ -580,18 +668,22 @@ __device__ __forceinline__ void accumulate(float (&a)[kJac ? NJP : 1],
 // other step (a window beyond the capacities, a march step below 1/sqrt(2))
 // runs pass B the direct way, grid_at and taps_of on global memory per
 // sample, as a one-thread-per-ray march does.
-template <bool kJac>
+template <bool kJac, typename TS>
 __global__ void __launch_bounds__(kFwdThreads, kJac ? 2 : 4)
-arc_march_kernel(const float* __restrict__ vol,
+arc_march_kernel(const TS* __restrict__ vol,
                  const float* __restrict__ scalars, float* __restrict__ out,
                  int nx, int ny, int nz, int nu, int nv, int n_steps,
                  int n_branch, bool vec) {
+  static_assert(!kJac || sizeof(TS) == 4, "K5 has no bf16 tier");
   constexpr int kF = kJac ? NJP : 1;
   constexpr int kVec = tab_vec<kJac>();
+  constexpr int kSZ = ArcStage<TS>::kSZ;
+  constexpr int kSlots = ArcStage<TS>::kSlots;
   extern __shared__ __align__(16) float sm[];
-  float* const ring = sm;
-  float* const tab = sm + kRing * kSX * kSZ;   // [branch][xl][v] vectors
-  float* const tab_cf = tab + kVec * kTabBranches * kTab;   // K5: [xl][v]
+  TS* const ring = reinterpret_cast<TS*>(sm);
+  TS* const tab = ring + kRing * kSX * kSZ;   // [branch][xl][v] vectors
+  float* const tab_cf =   // K5: [xl][v]
+      reinterpret_cast<float*>(tab + kVec * kTabBranches * kTab);
   short4* const c_step =
       reinterpret_cast<short4*>(tab + tab_width<kJac>() * kTab);
   short4* const c_stage = c_step + kChunk;
@@ -623,11 +715,11 @@ arc_march_kernel(const float* __restrict__ vol,
 
   int slot[kSlots];
 #pragma unroll
-  for (int i = 0; i < kSlots; ++i) slot[i] = copy_slot(tid, i);
+  for (int i = 0; i < kSlots; ++i) slot[i] = copy_slot<TS>(tid, i);
 
   // staged windows of slabs r and r + 1 (slab 0 staged before step -1)
   short4 st_r = empty_win();
-  short4 st_r1 = stage_window(p, tile, 0, nx, ny, nz, vec);
+  short4 st_r1 = stage_window<TS>(p, tile, 0, nx, ny, nz, vec);
   stage_slab(ring + slab_at(0), vol, 0, st_r1, ny, nz, vec, tid, slot);
 
   for (int ri = -1; ri < ny; ++ri) {
@@ -644,16 +736,18 @@ arc_march_kernel(const float* __restrict__ vol,
         const short4 w = step_window(p, tile, rs, nx, ny, nz);
         const bool fast =
             w.y - w.x < kQX && n_branch <= kTabBranches &&
-            (rs < 0 || holds(stage_window(p, tile, rs, nx, ny, nz, vec), w)) &&
+            (rs < 0 ||
+             holds(stage_window<TS>(p, tile, rs, nx, ny, nz, vec), w)) &&
             (rs + 1 >= ny ||
-             holds(stage_window(p, tile, rs + 1, nx, ny, nz, vec), w));
+             holds(stage_window<TS>(p, tile, rs + 1, nx, ny, nz, vec), w));
         const unsigned lb =
             live_branches(p, tile, rs, w, n_branch, n_steps);
         c_step[tid] = w;
         c_live[tid] = lb && fast ? lb | 1u << 31 : lb;
       } else if (tid < 2 * kChunk) {
         c_stage[tid - kChunk] =
-            stage_window(p, tile, ri + tid - kChunk + 2, nx, ny, nz, vec);
+            stage_window<TS>(p, tile, ri + tid - kChunk + 2, nx, ny, nz,
+                             vec);
       }
       __syncthreads();
     }
@@ -670,7 +764,7 @@ arc_march_kernel(const float* __restrict__ vol,
       const bool side0 = ri >= 0, side1 = ri + 1 < ny;
       if (live >> 31) {
         // pass A, once per (x, v) of the window: staged row (x, z) of the
-        // side slabs at sm[base + x*kSZ + z]
+        // side slabs at ring[base + x*kSZ + z]
         const int base0 = slab_at(ri) - st_r.x * kSZ - st_r.z;
         const int base1 = slab_at(ri + 1) - st_r1.x * kSZ - st_r1.z;
         const unsigned unz = static_cast<unsigned>(nz);
@@ -681,8 +775,8 @@ arc_march_kernel(const float* __restrict__ vol,
             grid_at<true>(p, r, cx, cz, static_cast<float>(x), vt, &cf,
                           &zaff);
             if (kJac) tab_cf[e] = cf;
-            const float* row0 = sm + base0 + x * kSZ;
-            const float* row1 = sm + base1 + x * kSZ;
+            const TS* row0 = ring + base0 + x * kSZ;
+            const TS* row1 = ring + base1 + x * kSZ;
             float a0 = 0.0f, c0 = 0.0f, a1 = 0.0f, c1 = 0.0f;
             int k_prev = 0;
 #pragma unroll
@@ -699,20 +793,20 @@ arc_march_kernel(const float* __restrict__ vol,
               if (b == 0 || !(live & 1u) || k != k_prev) {
                 const bool ia = static_cast<unsigned>(k) < unz;
                 const bool ic = static_cast<unsigned>(k) + 1u < unz;
-                a0 = side0 && ia ? row0[k] : 0.0f;
-                c0 = side0 && ic ? row0[k + 1] : 0.0f;
-                a1 = side1 && ia ? row1[k] : 0.0f;
-                c1 = side1 && ic ? row1[k + 1] : 0.0f;
+                a0 = side0 && ia ? val(row0[k]) : 0.0f;
+                c0 = side0 && ic ? val(row0[k + 1]) : 0.0f;
+                a1 = side1 && ia ? val(row1[k]) : 0.0f;
+                c1 = side1 && ic ? val(row1[k + 1]) : 0.0f;
                 k_prev = k;
               }
-              float* t = tab + (b * kTab + e) * kVec;
+              TS* t = tab + (b * kTab + e) * kVec;
               const float h0 = (1.0f - w) * a0 + w * c0;
               const float h1 = (1.0f - w) * a1 + w * c1;
-              if (kJac) {
+              if constexpr (kJac) {
                 *reinterpret_cast<float4*>(t) =
                     make_float4(h0, h1, c0 - a0, c1 - a1);
               } else {
-                *reinterpret_cast<float2*>(t) = make_float2(h0, h1);
+                store2(t, h0, h1);   // rounded to TS
               }
             }
           }
@@ -739,15 +833,15 @@ arc_march_kernel(const float* __restrict__ vol,
               t[o].in = static_cast<unsigned>(xl + o) <
                         static_cast<unsigned>(nq);
               const int e = t[o].in ? (xl + o) * kFV + lane : lane;
-              const float* q = tab + (b * kTab + e) * kVec;
-              if (kJac) {
+              const TS* q = tab + (b * kTab + e) * kVec;
+              if constexpr (kJac) {
                 const float4 h = *reinterpret_cast<const float4*>(q);
                 t[o].l = {h.x, h.y, h.z, h.w};
                 // branch 0's cf + 0 is cf
                 t[o].cfg = b ? add(tab_cf[e], static_cast<float>(b))
                              : tab_cf[e];
               } else {
-                const float2 h = *reinterpret_cast<const float2*>(q);
+                const float2 h = load2(q);
                 t[o].l = {h.x, h.y, 0.0f, 0.0f};
                 t[o].cfg = 0.0f;
               }
@@ -782,14 +876,20 @@ arc_march_kernel(const float* __restrict__ vol,
                             &zaff);
               t[o].cfg = add(cf, static_cast<float>(b));
               const float zeta = zeta_at(p, t[o].cfg, zaff);
-              const float* col = vol + static_cast<size_t>(xi) * ny * nz;
-              if (side0)
-                taps_of([&](int kz) { return __ldg(col + ri * nz + kz); },
-                        zeta, nz, &t[o].l.h0, &t[o].l.d0);
-              if (side1)
+              const TS* col = vol + static_cast<size_t>(xi) * ny * nz;
+              // the z-lerps rounded to TS, as the tables hold them
+              if (side0) {
                 taps_of(
-                    [&](int kz) { return __ldg(col + (ri + 1) * nz + kz); },
-                    zeta, nz, &t[o].l.h1, &t[o].l.d1);
+                    [&](int kz) { return val(__ldg(col + ri * nz + kz)); },
+                    zeta, nz, &t[o].l.h0, &t[o].l.d0);
+                t[o].l.h0 = round_ts<TS>(t[o].l.h0);
+              }
+              if (side1) {
+                taps_of([&](int kz) {
+                  return val(__ldg(col + (ri + 1) * nz + kz));
+                }, zeta, nz, &t[o].l.h1, &t[o].l.d1);
+                t[o].l.h1 = round_ts<TS>(t[o].l.h1);
+              }
             }
             accumulate<kJac>(acc[k], s, r, s.X - xf, t);
           }
@@ -855,11 +955,13 @@ __device__ __forceinline__ float2 tap_code(float pos, float lo, float hi) {
 }
 
 // K4: grid (z tiles, x tiles, source slabs r = -1 .. ny-1); gathers the
-// cotangent g: (V, nu, nv) into side0 (slab r, from source r) and side1
-// (slab r + 1, from source r), both (nx, ny, nz). Every voxel of both is
-// written exactly once.
+// cotangent g: (V, nu, nv) of TS into side0 (slab r, from source r) and
+// side1 (slab r + 1, from source r), both (nx, ny, nz). Every voxel of both
+// is written exactly once. K4b (TS bf16) reads g in bf16 and rounds each
+// side's plane of T where pass A reads it.
+template <typename TS>
 __global__ void __launch_bounds__(kAdjThreads, 2)
-arc_adj_kernel(const float* __restrict__ g, const float* __restrict__ scalars,
+arc_adj_kernel(const TS* __restrict__ g, const float* __restrict__ scalars,
                float* __restrict__ side0, float* __restrict__ side1, int V,
                int nx, int ny, int nz, int nu, int nv, int n_steps,
                int n_branch) {
@@ -888,7 +990,7 @@ arc_adj_kernel(const float* __restrict__ g, const float* __restrict__ scalars,
 
   for (int view = 0; view < V; ++view) {
     const Arc p = load_arc(scalars + view * NS);
-    const float* gv = g + static_cast<size_t>(view) * nu * nv;
+    const TS* gv = g + static_cast<size_t>(view) * nu * nv;
     const float cx = slab_cx(p, r);
     const float cz = slab_cz(p, r);
     // ζ's affine part in v: za(x) + zav*v, za(x) = cz + gzx*(x - cx)
@@ -931,7 +1033,7 @@ arc_adj_kernel(const float* __restrict__ g, const float* __restrict__ scalars,
                                        static_cast<float>(v), b, n_steps);
             float gw = 0.0f, gy = 0.0f;
             if (s.ok) {
-              gw = __ldg(gv + static_cast<size_t>(u) * nv + v);
+              gw = val(__ldg(gv + static_cast<size_t>(u) * nv + v));
               gy = s.fy * gw;
               ok_here = 1;
             }
@@ -991,6 +1093,8 @@ arc_adj_kernel(const float* __restrict__ g, const float* __restrict__ scalars,
         for (int v = lo; v <= hi; ++v) {
           const float2 zc = sZ[xa_l * kVP + (v - vc0)];
           const float2 t = sT[xa_l * kVP + (v - vc0)];
+          // each side's plane of T, rounded to TS
+          const float t0 = round_ts<TS>(t.x - t.y), t1 = round_ts<TS>(t.y);
           const int k = __float_as_int(zc.x);
 #pragma unroll
           for (int o = 0; o < 2; ++o) {
@@ -998,7 +1102,7 @@ arc_adj_kernel(const float* __restrict__ g, const float* __restrict__ scalars,
             if (z < za_o || z > zb_o) continue;
             const float wz = o ? zc.y : 1.0f - zc.y;
             float2* a = sA + xa_l * kAP + (z - z0);
-            *a = make_float2(a->x + wz * (t.x - t.y), a->y + wz * t.y);
+            *a = make_float2(a->x + wz * t0, a->y + wz * t1);
           }
         }
         // no barrier here: the next chunk's staging barrier orders this
@@ -1040,25 +1144,50 @@ div_check_kernel(const float* __restrict__ a, float* __restrict__ q_rcp,
   }
 }
 
-// Launch the march: K3 (kJac false) or K5.
-template <bool kJac>
-int launch_march(const float* vol, const float* scalars, float* out, int V,
+// Launch the march: K3 (kJac false), K3b (TS bf16) or K5.
+template <bool kJac, typename TS>
+int launch_march(const TS* vol, const float* scalars, float* out, int V,
                  int nx, int ny, int nz, int nu, int nv, int n_steps,
                  int n_branch, void* stream) {
   if (V <= 0 || nu <= 0 || nv <= 0) return 0;
   // grid z holds the views; windows are kept as 16-bit indices
   if (V > 65535 || nx >= 32768 || nz >= 32768)
     return static_cast<int>(cudaErrorInvalidConfiguration);
+  constexpr int kSmem = fwd_smem<kJac, TS>();
   cudaError_t e = cudaFuncSetAttribute(
-      arc_march_kernel<kJac>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      fwd_smem<kJac>());
+      arc_march_kernel<kJac, TS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const bool vec =
-      nz % 4 == 0 && reinterpret_cast<std::uintptr_t>(vol) % 16 == 0;
+  const bool vec = nz % per16<TS>() == 0 &&
+                   reinterpret_cast<std::uintptr_t>(vol) % 16 == 0;
   const dim3 grid((nv + kFV - 1) / kFV, (nu + kFU - 1) / kFU, V);
-  arc_march_kernel<kJac><<<grid, kFwdThreads, fwd_smem<kJac>(),
-                           static_cast<cudaStream_t>(stream)>>>(
+  arc_march_kernel<kJac, TS><<<grid, kFwdThreads, kSmem,
+                               static_cast<cudaStream_t>(stream)>>>(
       vol, scalars, out, nx, ny, nz, nu, nv, n_steps, n_branch, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch K4 (TS float) or K4b (TS bf16), then the add: vol receives side 0
+// and then side 1 added; side1 is scratch of vol's shape (nx, ny, nz).
+template <typename TS>
+int launch_adj(const TS* g, const float* scalars, float* vol, float* side1,
+               int V, int nx, int ny, int nz, int nu, int nv, int n_steps,
+               int n_branch, void* stream) {
+  const long long n = static_cast<long long>(nx) * ny * nz;
+  if (n <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaFuncSetAttribute(
+      arc_adj_kernel<TS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kAdjSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((nz + kTZ - 1) / kTZ, (nx + kTX - 1) / kTX, ny + 1);
+  arc_adj_kernel<TS><<<grid, kAdjThreads, kAdjSmem, s>>>(
+      g, scalars, vol, side1, V, nx, ny, nz, nu, nv, n_steps, n_branch);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long blocks = (n + 255) / 256;
+  add_kernel<<<static_cast<int>(blocks < 8192 ? blocks : 8192), 256, 0, s>>>(
+      vol, side1, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1073,26 +1202,28 @@ int slab_arc_fwd(const float* vol, const float* scalars, float* out, int V,
                              n_steps, n_branch, stream);
 }
 
-// vol receives side 0 and then side 1 added; side1 is scratch of vol's
-// shape (nx, ny, nz).
 int slab_arc_adj(const float* g, const float* scalars, float* vol,
                  float* side1, int V, int nx, int ny, int nz, int nu, int nv,
                  int n_steps, int n_branch, void* stream) {
-  const long long n = static_cast<long long>(nx) * ny * nz;
-  if (n <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaFuncSetAttribute(
-      arc_adj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kAdjSmem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((nz + kTZ - 1) / kTZ, (nx + kTX - 1) / kTX, ny + 1);
-  arc_adj_kernel<<<grid, kAdjThreads, kAdjSmem, s>>>(
-      g, scalars, vol, side1, V, nx, ny, nz, nu, nv, n_steps, n_branch);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long blocks = (n + 255) / 256;
-  add_kernel<<<static_cast<int>(blocks < 8192 ? blocks : 8192), 256, 0, s>>>(
-      vol, side1, n);
-  return static_cast<int>(cudaGetLastError());
+  return launch_adj(g, scalars, vol, side1, V, nx, ny, nz, nu, nv, n_steps,
+                    n_branch, stream);
+}
+
+// K3b: vol is the oriented volume in bf16.
+int slab_arc_fwd_bf16(const void* vol, const float* scalars, float* out,
+                      int V, int nx, int ny, int nz, int nu, int nv,
+                      int n_steps, int n_branch, void* stream) {
+  return launch_march<false>(static_cast<const __nv_bfloat16*>(vol), scalars,
+                             out, V, nx, ny, nz, nu, nv, n_steps, n_branch,
+                             stream);
+}
+
+// K4b: g is the cotangent in bf16.
+int slab_arc_adj_bf16(const void* g, const float* scalars, float* vol,
+                      float* side1, int V, int nx, int ny, int nz, int nu,
+                      int nv, int n_steps, int n_branch, void* stream) {
+  return launch_adj(static_cast<const __nv_bfloat16*>(g), scalars, vol,
+                    side1, V, nx, ny, nz, nu, nv, n_steps, n_branch, stream);
 }
 
 int slab_arc_jac(const float* vol, const float* scalars, float* out, int V,

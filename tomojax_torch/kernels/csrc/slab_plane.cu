@@ -75,9 +75,33 @@
 // traffic of the two transposes, not bytes. Nothing of the TPU design is
 // carried over (one-hot selection matmuls, bf16 hi/lo split, band budget,
 // lane padding, view bucketing): a Hopper thread gathers directly.
+//
+// The bf16 tier (K1b slab_plane_fwd_bf16, K2b slab_plane_adj_bf16) replaces
+// the bf16=True variants of the same two Pallas kernels (chosen at
+// tomojax/kernels/slab.py:904 and :1015), which feed each pass of the
+// two-pass transform to the MXU as one bf16 operand. It is the same
+// kernels instantiated on the storage type TS = __nv_bfloat16 of what
+// they stage, with the same fp32 arithmetic, rounding (nearest even) at
+// each pass's input:
+//   K1b stages the volume's rows in bf16 (the wrapper casts the oriented
+//     volume once) and holds T in bf16: pass A reads rounded rows, pass B
+//     reads a rounded T; the sums, the positions and the 1/edy scale stay
+//     fp32;
+//   K2b stages the cotangent g in bf16 (the wrapper casts it once) and
+//     rounds each view's pass-B transpose, scale * T[x, v], where pass A
+//     reads it; T accumulates in fp32 over the u chunks and the pass-A
+//     sums and the volume stay fp32.
+// tomojax rounds the products w*g and its aligned accumulator because
+// those are its matmul operands; a gather has no such operand, so the
+// rounding points are g and T. The difference lies within tomojax's
+// contract for the tier (3e-3 relative per apply, 5e-3 A/A^T mismatch:
+// scripts/tpu_kernel_check.py). 16-byte copies carry 8 bf16 values: they
+// need nz (K1b) or nv (K2b) a multiple of 8; other sizes stage with plain
+// loads. kernels/slab.py's plain bf16 versions round at the same points.
 
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -137,13 +161,42 @@ __device__ __forceinline__ float plane_zeta(const Plane& p, float r, float x,
   return zeta_at(p, slab_cx(p, r), slab_cz(p, r), x, v);
 }
 
+// The storage types of staged values: a value as fp32 (val), fp32 rounded
+// to TS (to_ts, nearest even), and fp32 rounded to TS and back (round_ts).
+__device__ __forceinline__ float val(float x) { return x; }
+__device__ __forceinline__ float val(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename TS>
+__device__ __forceinline__ TS to_ts(float x);
+template <>
+__device__ __forceinline__ float to_ts<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_ts<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <typename TS>
+__device__ __forceinline__ float round_ts(float x) {
+  return val(to_ts<TS>(x));
+}
+
+// Values of TS per 16-byte copy.
+template <typename TS>
+__host__ __device__ constexpr int per16() {
+  return 16 / static_cast<int>(sizeof(TS));
+}
+
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
                "l"(src));
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                "l"(src));
@@ -203,7 +256,7 @@ __device__ __forceinline__ void cp_async4_zfill(float* dst, const float* src,
                "l"(src), "r"(src_bytes));
 }
 
-__device__ __forceinline__ void cp_async16_zfill(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
                                                  int src_bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
@@ -243,18 +296,34 @@ constexpr int kFwdThreads = 256;
 constexpr int kFwdWarps = kFwdThreads / 32;
 constexpr int kFU = 32, kFV = 32;
 constexpr int kPix = kFU / kFwdWarps;
-constexpr int kSX = 56, kSZ = 44;   // kSZ: a multiple of 4 (16-byte rows)
+constexpr int kSX = 56;
 constexpr int kRowsA = kSX / kFwdWarps;   // pass-A columns per warp
-constexpr int kSlab = kSX * kSZ;
 constexpr int kTab = kSX * kFV;
 constexpr int kRing = 3;
 constexpr int kWin = 128;
-constexpr int kFwdSmem = 4 * (kRing * kSlab + 2 * kTab) + kWin * 16;
-static_assert(kFwdSmem <= 227 * 1024, "K1 fits an SM's shared memory");
+
+// The staged slabs and tables of storage type TS. kSZ: the staged rows' z,
+// a multiple of per16<TS>() (16-byte rows); bf16's 48 keeps fp32's
+// capacity once z0 is aligned down to a copy (44 - 3 = 48 - 7). A
+// thread's share of a slab's copies (kVec): 16-byte chunk c = tid %
+// kRowChunks of the ring rows g + k * kCopyRows (g = tid / kRowChunks, k <
+// kCopyIters); fixed over the march.
+template <typename TS>
+struct FwdStage {
+  static constexpr int kSZ = sizeof(TS) == 4 ? 44 : 48;
+  static constexpr int kSlab = kSX * kSZ;
+  static constexpr int kRowChunks = kSZ / per16<TS>();
+  static constexpr int kCopyRows = kFwdThreads / kRowChunks;
+  static constexpr int kCopyIters = (kSX + kCopyRows - 1) / kCopyRows;
+  static constexpr int kSmem =
+      static_cast<int>(sizeof(TS)) * (kRing * kSlab + 2 * kTab) + kWin * 16;
+  static_assert(kSZ % per16<TS>() == 0, "staged rows of 16-byte copies");
+  static_assert(kSmem <= 227 * 1024, "K1 fits an SM's shared memory");
+};
 // A step's window: int4 (x0, x1, z0, z1): T's columns x in [x0, x1] (the
 // staged rows) and the staged rows' z in [z0, z1], unclamped: a column or z
-// outside the volume holds zeros; z0 a multiple of 4 for 16-byte copies
-// (kVec). z1 < 0 marks a step without windows:
+// outside the volume holds zeros; z0 a multiple of per16<TS>() for 16-byte
+// copies (kVec). z1 < 0 marks a step without windows:
 // kEmpty (no tap of the tile reaches the volume) or kDirect (the windows
 // exceed the capacities, or a position is out of floor_small's range).
 constexpr int kEmpty = -1, kDirect = -2;
@@ -280,9 +349,10 @@ __device__ __forceinline__ float tap_hi(float hi, float mag) {
 // Step r's window. X - cx_r = eux*u + evx*v and zeta - cz_r = gzx*(x - cx_r)
 // + zav*v are affine, so their extremes over the tile lie at its corners
 // (and at T's extreme columns).
-template <bool kVec>
+template <typename TS, bool kVec>
 __device__ int4 step_window(const Plane& p, const Corners& c, int ri, int nx,
                             int ny, int nz) {
+  constexpr int kSZ = FwdStage<TS>::kSZ;
   if (ri >= ny) return make_int4(0, -1, 0, kEmpty);
   const float r = static_cast<float>(ri);
   const float cx = slab_cx(p, r), cz = slab_cz(p, r);
@@ -306,50 +376,48 @@ __device__ int4 step_window(const Plane& p, const Corners& c, int ri, int nx,
       zl > static_cast<float>(nz - 1))
     return make_int4(0, -1, 0, kEmpty);
   const int x0 = static_cast<int>(xl), x1 = static_cast<int>(xh);
-  const int z0 = static_cast<int>(zl) & (kVec ? ~3 : ~0);   // rounds down
+  const int z0 =   // rounds down
+      static_cast<int>(zl) & (kVec ? ~(per16<TS>() - 1) : ~0);
   const int z1 = static_cast<int>(zh);
   if (x1 - x0 >= kSX || z1 - z0 >= kSZ) return make_int4(0, -1, 0, kDirect);
   return make_int4(x0, x1, z0, z1);
 }
 
-// A thread's share of a slab's copies (kVec): 16-byte chunk c = tid %
-// kRowChunks of the ring rows g + k * kCopyRows (g = tid / kRowChunks, k <
-// kCopyIters); fixed over the march.
-constexpr int kRowChunks = kSZ / 4;
-constexpr int kCopyRows = kFwdThreads / kRowChunks;
-constexpr int kCopyIters = (kSX + kCopyRows - 1) / kCopyRows;
-
 // Issue the copies of slab s's rows x in [w.x, w.y], z in [w.z, w.w]
 // (zeros outside the volume) into buf[x - w.x][z - w.z] as one cp.async
 // commit group (empty for a step without windows): 16-byte copies (kVec:
-// nz and w.z multiples of 4, so a copy lies wholly in or out of the
-// volume) or 4-byte ones. Offsets are 32-bit (the wrapper keeps the volume
-// below 2^31 elements); a zero fill reads nothing and points at vol.
-template <bool kVec>
-__device__ __forceinline__ void stage_slab(float* buf,
-                                          const float* __restrict__ vol,
+// nz and w.z multiples of per16<TS>(), so a copy lies wholly in or out of
+// the volume) or 4-byte ones; bf16 without kVec stages with plain loads
+// and stores (cp.async has no 2-byte copy), which the next barrier makes
+// visible as it does the copies. Offsets are 32-bit (the wrapper keeps the
+// volume below 2^31 elements); a zero fill reads nothing and points at vol.
+template <typename TS, bool kVec>
+__device__ __forceinline__ void stage_slab(TS* buf, const TS* __restrict__ vol,
                                           int s, int4 w, int nx, int ny,
                                           int nz, int tid, int c, int g) {
+  using St = FwdStage<TS>;
+  constexpr int kSZ = St::kSZ, kCopyRows = St::kCopyRows;
+  constexpr int kPer = per16<TS>();
   if (w.w >= 0) {
     const unsigned unx = static_cast<unsigned>(nx);
     const unsigned unz = static_cast<unsigned>(nz);
     if (kVec) {
-      const int z = w.z + 4 * c;
-      if (g < kCopyRows && 4 * c <= w.w - w.z) {
+      const int z = w.z + kPer * c;
+      if (g < kCopyRows && kPer * c <= w.w - w.z) {
         const bool z_in = static_cast<unsigned>(z) < unz;
         // rows kCopyRows apart, modulo 2^32 (a row in the volume is exact)
         const unsigned step = static_cast<unsigned>(kCopyRows) * ny * unz;
         unsigned off =
             (static_cast<unsigned>(w.x + g) * ny + s) * unz + z;
         int x = w.x + g;
-        float* const dst = buf + g * kSZ + 4 * c;
+        TS* const dst = buf + g * kSZ + kPer * c;
         if (w.x >= 0 && w.y < nx) {
           // every row in the volume: a copy needs only its address
-          const float* src = vol + (z_in ? off : 0);
+          const TS* src = vol + (z_in ? off : 0);
           const size_t stride =
               z_in ? static_cast<size_t>(kCopyRows) * ny * nz : 0;
 #pragma unroll
-          for (int k = 0; k < kCopyIters; ++k) {
+          for (int k = 0; k < St::kCopyIters; ++k) {
             if (x + k * kCopyRows <= w.y)
               cp_async16_zfill(dst + k * kCopyRows * kSZ, src,
                                z_in ? 16 : 0);
@@ -357,7 +425,7 @@ __device__ __forceinline__ void stage_slab(float* buf,
           }
         } else {
 #pragma unroll
-          for (int k = 0; k < kCopyIters; ++k) {
+          for (int k = 0; k < St::kCopyIters; ++k) {
             if (x <= w.y) {
               const bool in = z_in && static_cast<unsigned>(x) < unx;
               cp_async16_zfill(dst + k * kCopyRows * kSZ,
@@ -376,10 +444,12 @@ __device__ __forceinline__ void stage_slab(float* buf,
           const int x = w.x + xl, z = w.z + zl;
           const bool in = static_cast<unsigned>(x) < unx &&
                           static_cast<unsigned>(z) < unz;
-          cp_async4_zfill(
-              buf + e,
-              vol + (in ? (static_cast<unsigned>(x) * ny + s) * unz + z : 0),
-              in ? 4 : 0);
+          const unsigned off = in ? (static_cast<unsigned>(x) * ny + s) * unz
+                                        + z : 0;
+          if constexpr (sizeof(TS) == 4)
+            cp_async4_zfill(buf + e, vol + off, in ? 4 : 0);
+          else
+            buf[e] = in ? vol[off] : to_ts<TS>(0.0f);
         }
       }
     }
@@ -391,9 +461,9 @@ __device__ __forceinline__ void stage_slab(float* buf,
 // x = fx + i * kFwdWarps, of staged row q[i * kFwdWarps][.] into
 // t[i * kFwdWarps][lane]; kGuard: only the rows below nq (counted from
 // the warp's first).
-template <int kI0, int kI1, bool kGuard>
-__device__ __forceinline__ void pass_a_rows(float* __restrict__ t,
-                                            const float* __restrict__ q,
+template <typename TS, int kI0, int kI1, bool kGuard>
+__device__ __forceinline__ void pass_a_rows(TS* __restrict__ t,
+                                            const TS* __restrict__ q,
                                             const Plane& p, float cx,
                                             float cz, float fx, float fv,
                                             int nq) {
@@ -403,8 +473,9 @@ __device__ __forceinline__ void pass_a_rows(float* __restrict__ t,
     const float zeta =
         zeta_at(p, cx, cz, fx + static_cast<float>(i * kFwdWarps), fv);
     const Floor f = floor_small(zeta);
-    const float* const row = q + i * kFwdWarps * kSZ + f.k;
-    t[i * kFwdWarps * kFV] = lerp_pair(row[0], row[1], zeta - f.f);
+    const TS* const row = q + i * kFwdWarps * FwdStage<TS>::kSZ + f.k;
+    t[i * kFwdWarps * kFV] =
+        to_ts<TS>(lerp_pair(val(row[0]), val(row[1]), zeta - f.f));
   }
 }
 
@@ -412,48 +483,50 @@ __device__ __forceinline__ void pass_a_rows(float* __restrict__ t,
 // zeta_s(x, v) of T's columns x into tab[x - w.x][lane], warp-strided. A
 // window of at least 4 * kFwdWarps columns (every one at 256^3 with a unit
 // pitch) runs the first 4 rows of each warp without tests.
-__device__ __forceinline__ void pass_a(float* __restrict__ tab,
-                                       const float* __restrict__ buf,
+template <typename TS>
+__device__ __forceinline__ void pass_a(TS* __restrict__ tab,
+                                       const TS* __restrict__ buf,
                                        const Plane& p, int s, int4 w,
                                        int warp, int lane, float fv) {
   const float r = static_cast<float>(s);
   const float cx = slab_cx(p, r), cz = slab_cz(p, r);
   const int nq = w.y - w.x + 1 - warp;   // this warp's rows: i*kFwdWarps < nq
   const float fx = static_cast<float>(w.x + warp);
-  const float* const q = buf + warp * kSZ - w.z;   // z at [z]
-  float* const t = tab + warp * kFV + lane;
+  const TS* const q = buf + warp * FwdStage<TS>::kSZ - w.z;   // z at [z]
+  TS* const t = tab + warp * kFV + lane;
   if (nq > 3 * kFwdWarps) {
-    pass_a_rows<0, 4, false>(t, q, p, cx, cz, fx, fv, nq);
-    pass_a_rows<4, kRowsA, true>(t, q, p, cx, cz, fx, fv, nq);
+    pass_a_rows<TS, 0, 4, false>(t, q, p, cx, cz, fx, fv, nq);
+    pass_a_rows<TS, 4, kRowsA, true>(t, q, p, cx, cz, fx, fv, nq);
   } else {
-    pass_a_rows<0, kRowsA, true>(t, q, p, cx, cz, fx, fv, nq);
+    pass_a_rows<TS, 0, kRowsA, true>(t, q, p, cx, cz, fx, fv, nq);
   }
 }
 
 // Pass B of a fast step: both taps of each owned pixel from the table tab
 // (T's columns hold every tap of the tile), added into acc; kGuard: only
 // the pixels inside the detector.
-template <bool kGuard>
+template <bool kGuard, typename TS>
 __device__ __forceinline__ void pass_b(float (&acc)[kPix],
                                        const bool (&pix)[kPix],
                                        const float (&fu)[kPix],
                                        const Plane& p, float cx, float fv,
-                                       const float* __restrict__ tab) {
+                                       const TS* __restrict__ tab) {
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
     if (kGuard && !pix[k]) continue;
     const float X = x_at(p, cx, fu[k], fv);
     const Floor f = floor_small(X);
     const float wx = X - f.f;
-    const float* const t = tab + f.k * kFV;
-    acc[k] = fmaf(1.0f - wx, t[0], acc[k]);
-    acc[k] = fmaf(wx, t[kFV], acc[k]);
+    const TS* const t = tab + f.k * kFV;
+    acc[k] = fmaf(1.0f - wx, val(t[0]), acc[k]);
+    acc[k] = fmaf(wx, val(t[kFV]), acc[k]);
   }
 }
 
-// K1: grid (v tiles, u tiles, views); vol (nx, ny, nz), scalars (V, NS),
-// out (V, nu, nv); kVec: nz a multiple of 4 and vol 16-byte aligned. Every
-// output is written exactly once.
+// K1 (TS float) and K1b (TS bf16): grid (v tiles, u tiles, views); vol
+// (nx, ny, nz) of TS, scalars (V, NS), out (V, nu, nv); kVec: nz a
+// multiple of per16<TS>() and vol 16-byte aligned. Every output is written
+// exactly once.
 //
 // Iteration r: wait for slab r + 1; one barrier; stage slab r + 3 into the
 // slot of slab r (pass A of r ran last iteration); pass A of slab r + 1
@@ -461,13 +534,15 @@ __device__ __forceinline__ void pass_b(float (&acc)[kPix],
 // step, per sample on global memory (the one-thread-per-ray code) for a
 // direct one, nothing for an empty one (no tap of the tile reaches the
 // volume).
-template <bool kVec>
+template <typename TS, bool kVec>
 __global__ void __launch_bounds__(kFwdThreads, 4)
-fwd_kernel(const float* __restrict__ vol, const float* __restrict__ scalars,
+fwd_kernel(const TS* __restrict__ vol, const float* __restrict__ scalars,
            float* __restrict__ out, int nx, int ny, int nz, int nu, int nv) {
+  using St = FwdStage<TS>;
+  constexpr int kSlab = St::kSlab;
   extern __shared__ __align__(16) float sm[];
-  float* const ring = sm;
-  float* const tabs = sm + kRing * kSlab;
+  TS* const ring = reinterpret_cast<TS*>(sm);
+  TS* const tabs = ring + kRing * kSlab;
   int4* const win = reinterpret_cast<int4*>(tabs + 2 * kTab);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int view = blockIdx.z;
@@ -491,14 +566,14 @@ fwd_kernel(const float* __restrict__ vol, const float* __restrict__ scalars,
   }
   const bool full = u0 + kFU <= nu && v0 + kFV <= nv;   // every pixel inside
 
-  const int copy_c = tid % kRowChunks, copy_g = tid / kRowChunks;
+  const int copy_c = tid % St::kRowChunks, copy_g = tid / St::kRowChunks;
 
   for (int s = tid; s < kWin; s += kFwdThreads)
-    win[s] = step_window<kVec>(p, corners, s, nx, ny, nz);
+    win[s] = step_window<TS, kVec>(p, corners, s, nx, ny, nz);
   __syncthreads();
   for (int s = 0; s < kRing; ++s)
-    stage_slab<kVec>(ring + s * kSlab, vol, s, win[s], nx, ny, nz, tid, copy_c,
-                     copy_g);
+    stage_slab<TS, kVec>(ring + s * kSlab, vol, s, win[s], nx, ny, nz, tid,
+                         copy_c, copy_g);
   int4 w_a = win[0];   // the window of the step whose pass A runs next
   cp_async_wait<kRing - 1>();   // slab 0
   __syncthreads();
@@ -511,15 +586,16 @@ fwd_kernel(const float* __restrict__ vol, const float* __restrict__ scalars,
     w_a = win[(ri + 1) % kWin];
     cp_async_wait<kRing - 2>();   // slab r + 1
     __syncthreads();   // ... visible; pass A of r, pass B of r - 1 done
-    stage_slab<kVec>(ring + slot * kSlab, vol, ri + kRing,
-                     win[(ri + kRing) % kWin], nx, ny, nz, tid, copy_c, copy_g);
+    stage_slab<TS, kVec>(ring + slot * kSlab, vol, ri + kRing,
+                         win[(ri + kRing) % kWin], nx, ny, nz, tid, copy_c,
+                         copy_g);
     if (w_a.w >= 0 && v_in)
       pass_a(tabs + ((ri + 1) & 1) * kTab, ring + slot1 * kSlab, p, ri + 1,
              w_a, warp, lane, fv);
     const float r = static_cast<float>(ri);
     const float cx = slab_cx(p, r);
     if (w_b.w >= 0) {
-      const float* const tab = tabs + (ri & 1) * kTab + lane - w_b.x * kFV;
+      const TS* const tab = tabs + (ri & 1) * kTab + lane - w_b.x * kFV;
       if (full)
         pass_b<false>(acc, pix, fu, p, cx, fv, tab);
       else
@@ -540,15 +616,16 @@ fwd_kernel(const float* __restrict__ vol, const float* __restrict__ scalars,
           const float zeta = zeta_at(p, cx, cz, static_cast<float>(xi), fv);
           const float zf = floorf(zeta);
           const int z0 = static_cast<int>(zf);
-          const float* row = vol + (static_cast<size_t>(xi) * ny + ri) * nz;
+          const TS* row = vol + (static_cast<size_t>(xi) * ny + ri) * nz;
           const unsigned unz = static_cast<unsigned>(nz);
           const float a =
-              static_cast<unsigned>(z0) < unz ? __ldg(row + z0) : 0.0f;
+              static_cast<unsigned>(z0) < unz ? val(__ldg(row + z0)) : 0.0f;
           const float c =
-              static_cast<unsigned>(z0) + 1u < unz ? __ldg(row + z0 + 1)
+              static_cast<unsigned>(z0) + 1u < unz ? val(__ldg(row + z0 + 1))
                                                    : 0.0f;
-          acc[k] = fmaf(o ? wx : 1.0f - wx, lerp_pair(a, c, zeta - zf),
-                        acc[k]);
+          // T rounded to TS, as the table holds it
+          acc[k] = fmaf(o ? wx : 1.0f - wx,
+                        round_ts<TS>(lerp_pair(a, c, zeta - zf)), acc[k]);
         }
       }
     }
@@ -556,7 +633,7 @@ fwd_kernel(const float* __restrict__ vol, const float* __restrict__ scalars,
     // r - kWin/2 .. r - 1 (read again after kWin/2 - kRing barriers)
     if (ri % (kWin / 2) == 0 && ri > 0 && tid < kWin / 2) {
       const int s = ri + kWin / 2 + tid;
-      win[s % kWin] = step_window<kVec>(p, corners, s, nx, ny, nz);
+      win[s % kWin] = step_window<TS, kVec>(p, corners, s, nx, ny, nz);
     }
     slot = slot1;
   }
@@ -574,20 +651,26 @@ fwd_kernel(const float* __restrict__ vol, const float* __restrict__ scalars,
 // kVC detector rows v (one chunk per view at 256^3 with a unit pitch: the
 // u window of 32 columns is ~35-50 wide, the v window of 64 z ~70),
 // double-buffered with cp.async across chunks and views. A view's row
-// chunks start at a multiple of kVA rows, so that rows of whole 16-byte
-// words (nv a multiple of 4) are staged with 16-byte copies. kXR = 11 makes
+// chunks start at a multiple of per16<TS>() rows, so that rows of whole
+// 16-byte words (nv a multiple of per16<TS>()) are staged with 16-byte
+// copies. kXR = 11 makes
 // the pass-B owners (3 per row v) fit the CTA in one round. A pass-A
 // thread owns kZR voxels z of one column x for the whole call and keeps
 // their sums in registers.
 constexpr int kAdjThreads = 256;
 constexpr int kTX = 32, kTZ = 64;
-constexpr int kUC = 64, kVC = 80, kVA = 4;
-static_assert(kVC % kVA == 0, "row chunks keep their alignment");
+constexpr int kUC = 64, kVC = 80;
+static_assert(kVC % per16<float>() == 0 && kVC % per16<__nv_bfloat16>() == 0,
+              "row chunks keep their alignment");
 constexpr int kXR = 11, kZR = 8;               // owned x (pass B), z (pass A)
 constexpr int kXG = (kTX + kXR - 1) / kXR;     // pass-B owners per row v
 constexpr int kVP = kVC + 1;                   // T pitch: pass A's lanes
 constexpr int kStage = kUC * kVC;
-constexpr int kAdjSmem = 4 * (2 * kStage + kTX * kVP);
+// two staged chunks of TS, then T (fp32)
+template <typename TS>
+constexpr int adj_smem() {
+  return static_cast<int>(sizeof(TS)) * 2 * kStage + 4 * kTX * kVP;
+}
 
 // One view as a tile sees it: its plane, the slab's offsets, the two
 // reciprocals and the v window of the tile.
@@ -638,6 +721,7 @@ __device__ __forceinline__ void u_window(const ViewTile& w, const AdjTile& t,
 
 // Advance c (and w, when the view changes) to the next chunk with work;
 // false when the tile's views are done. Every thread runs the same steps.
+template <typename TS>
 __device__ bool next_chunk(const AdjTile& t, ViewTile* w, Chunk* c) {
   if (c->uc0 + kUC <= c->uhi) {
     c->uc0 += kUC;
@@ -648,7 +732,7 @@ __device__ bool next_chunk(const AdjTile& t, ViewTile* w, Chunk* c) {
     while (vc0 > w->vhi) {
       if (++c->view >= t.V) return false;
       view_tile(t, c->view, w);
-      vc0 = w->vlo / kVA * kVA;   // vlo >= 0
+      vc0 = w->vlo / per16<TS>() * per16<TS>();   // vlo >= 0
     }
     const int vc1 = min(w->vhi, vc0 + kVC - 1);
     int l0, h0, l1, h1;
@@ -668,31 +752,41 @@ __device__ bool next_chunk(const AdjTile& t, ViewTile* w, Chunk* c) {
   }
 }
 
-// Stage chunk c of the cotangent g: (V, nu, nv) into dst[ul][vl]. Where
-// the chunk's rows start on 16-byte words in g and in dst (nv a multiple
-// of 4), with 16-byte copies: the last word of a row may run past vc1,
-// never past the row's end (vc0 is a multiple of 4, vc0 + 4q <= vc1 <
-// nv), into slots that nothing reads.
-__device__ __forceinline__ void stage_chunk(float* dst, const float* g,
+// Stage chunk c of the cotangent g: (V, nu, nv) of TS into dst[ul][vl].
+// Where the chunk's rows start on 16-byte words in g and in dst (nv a
+// multiple of kPer = per16<TS>()), with 16-byte copies: the last word of a
+// row may run past vc1, never past the row's end (vc0 is a multiple of
+// kPer, vc0 + kPer q <= vc1 < nv), into slots that nothing reads. Else
+// fp32 with 4-byte copies, bf16 with plain loads and stores (cp.async has
+// no 2-byte copy; the next chunk's barrier makes them visible, as it does
+// the copies).
+template <typename TS>
+__device__ __forceinline__ void stage_chunk(TS* dst, const TS* g,
                                             const AdjTile& t,
                                             const Chunk& c) {
+  constexpr int kPer = per16<TS>();
   const int nuw = min(c.uhi - c.uc0 + 1, kUC);
   const int nvw = c.vc1 - c.vc0 + 1;
-  const float* src = g + (static_cast<size_t>(c.view) * t.nu + c.uc0) * t.nv +
-                     c.vc0;
-  if (((reinterpret_cast<uintptr_t>(src) | (4u * t.nv)) & 15) == 0) {
-    constexpr int kW = kVC / 4;   // 16-byte words per staged row
-    const int nq = (nvw + 3) / 4;
+  const TS* src = g + (static_cast<size_t>(c.view) * t.nu + c.uc0) * t.nv +
+                  c.vc0;
+  if (((reinterpret_cast<uintptr_t>(src) | (sizeof(TS) * t.nv)) & 15) == 0) {
+    constexpr int kW = kVC / kPer;   // 16-byte words per staged row
+    const int nq = (nvw + kPer - 1) / kPer;
     for (int e = threadIdx.x; e < nuw * kW; e += kAdjThreads) {
       const int ul = e / kW, q = e - ul * kW;
       if (q < nq)
-        cp_async16(dst + 4 * e, src + static_cast<size_t>(ul) * t.nv + 4 * q);
+        cp_async16(dst + kPer * e,
+                   src + static_cast<size_t>(ul) * t.nv + kPer * q);
     }
     return;
   }
   for (int e = threadIdx.x; e < nuw * kVC; e += kAdjThreads) {
     const int ul = e / kVC, vl = e - ul * kVC;
-    if (vl < nvw) cp_async4(dst + e, src + static_cast<size_t>(ul) * t.nv + vl);
+    if (vl >= nvw) continue;
+    if constexpr (sizeof(TS) == 4)
+      cp_async4(dst + e, src + static_cast<size_t>(ul) * t.nv + vl);
+    else
+      dst[e] = src[static_cast<size_t>(ul) * t.nv + vl];
   }
 }
 
@@ -714,13 +808,16 @@ __device__ __forceinline__ void add_owned(float acc[kZR], int j, float val) {
 //     sweeping their joint v window once with two running sums.
 // (Point scans, and sums in registers selected per candidate, were slower
 // on the H100, as were 2 or 3 CTAs per SM: PERF.md section 6. Four CTAs
-// per SM hold the registers to 64 without spills.)
+// per SM hold the registers to 64 without spills.) K2b (TS bf16) stages g
+// in bf16 and rounds scale * T[x, v] where pass A reads it.
+template <typename TS>
 __global__ void __launch_bounds__(kAdjThreads, 4)
-adj_kernel(const float* __restrict__ g, const float* __restrict__ scalars,
+adj_kernel(const TS* __restrict__ g, const float* __restrict__ scalars,
            float* __restrict__ vol, int V, int nx, int ny, int nz, int nu,
            int nv) {
   extern __shared__ __align__(16) float sm[];
-  float* const sT = sm + 2 * kStage;   // [xl][vl]
+  TS* const stage = reinterpret_cast<TS*>(sm);   // two chunks [ul][vl]
+  float* const sT = reinterpret_cast<float*>(stage + 2 * kStage);  // [xl][vl]
   const int tid = threadIdx.x;
   const int z0 = blockIdx.x * kTZ, x0 = blockIdx.y * kTX, ri = blockIdx.z;
   const int ntx = min(kTX, nx - x0), ntz = min(kTZ, nz - z0);
@@ -740,23 +837,23 @@ adj_kernel(const float* __restrict__ g, const float* __restrict__ scalars,
   ViewTile w;
   w.vhi = -1;
   Chunk c{-1, -kVC, -1, 0, 0, -1};
-  bool have = next_chunk(t, &w, &c);
-  if (have) stage_chunk(sm, g, t, c);
+  bool have = next_chunk<TS>(t, &w, &c);
+  if (have) stage_chunk(stage, g, t, c);
   cp_async_commit();
   int buf = 0;
   while (have) {
     ViewTile wn = w;
     Chunk cn = c;
-    const bool more = next_chunk(t, &wn, &cn);
+    const bool more = next_chunk<TS>(t, &wn, &cn);
     if (more) {
-      stage_chunk(sm + (buf ^ 1) * kStage, g, t, cn);
+      stage_chunk(stage + (buf ^ 1) * kStage, g, t, cn);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* sG = sm + buf * kStage;
+    const TS* sG = stage + buf * kStage;
     const int uc1 = min(c.uhi, c.uc0 + kUC - 1);
     const int nvw = c.vc1 - c.vc0 + 1;
     const bool first_u = c.uc0 == c.ulo;
@@ -789,7 +886,7 @@ adj_kernel(const float* __restrict__ g, const float* __restrict__ scalars,
         const float f = floorf(X);
         const int k = static_cast<int>(f);
         const float wx = X - f;
-        const float gv = sG[(u - c.uc0) * kVC + vl];
+        const float gv = val(sG[(u - c.uc0) * kVC + vl]);
         if (i == 0) cur = k;
         while (cur < k) {   // the sweep has passed column cur
           if (cur >= xa && cur <= xb) col[(cur - xa) * kVP] += s0;
@@ -828,7 +925,7 @@ adj_kernel(const float* __restrict__ g, const float* __restrict__ scalars,
           const float f = floorf(zeta);
           const int k = static_cast<int>(f);
           const float wz = zeta - f;
-          const float tv = trow[v] * w.p.scale;
+          const float tv = round_ts<TS>(trow[v] * w.p.scale);
           if (i == 0) cur = k;
           while (cur < k) {   // the sweep has passed voxel cur
             add_owned(acc, cur - za_o, s0);
@@ -869,18 +966,17 @@ adj_kernel(const float* __restrict__ g, const float* __restrict__ scalars,
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-int slab_plane_fwd(const float* vol, const float* scalars, float* out, int V,
-                   int nx, int ny, int nz, int nu, int nv, void* stream) {
+// Launch K1 (TS float) or K1b (TS bf16) over the views.
+template <typename TS>
+int launch_fwd(const TS* vol, const float* scalars, float* out, int V,
+               int nx, int ny, int nz, int nu, int nv, void* stream) {
   if (V <= 0 || nu <= 0 || nv <= 0) return 0;
-  const bool vec =
-      nz % 4 == 0 && reinterpret_cast<std::uintptr_t>(vol) % 16 == 0;
+  constexpr int kSmem = FwdStage<TS>::kSmem;
+  const bool vec = nz % per16<TS>() == 0 &&
+                   reinterpret_cast<std::uintptr_t>(vol) % 16 == 0;
   const cudaError_t attr = cudaFuncSetAttribute(
-      vec ? fwd_kernel<true> : fwd_kernel<false>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+      vec ? fwd_kernel<TS, true> : fwd_kernel<TS, false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tv = (nv + kFV - 1) / kFV, tu = (nu + kFU - 1) / kFU;
@@ -890,11 +986,11 @@ int slab_plane_fwd(const float* vol, const float* scalars, float* out, int V,
     const float* sc = scalars + static_cast<size_t>(v0) * NS;
     float* o = out + static_cast<size_t>(v0) * nu * nv;
     if (vec) {
-      fwd_kernel<true><<<grid, kFwdThreads, kFwdSmem, s>>>(vol, sc, o, nx, ny,
-                                                           nz, nu, nv);
+      fwd_kernel<TS, true><<<grid, kFwdThreads, kSmem, s>>>(vol, sc, o, nx,
+                                                            ny, nz, nu, nv);
     } else {
-      fwd_kernel<false><<<grid, kFwdThreads, kFwdSmem, s>>>(vol, sc, o, nx, ny,
-                                                            nz, nu, nv);
+      fwd_kernel<TS, false><<<grid, kFwdThreads, kSmem, s>>>(vol, sc, o, nx,
+                                                             ny, nz, nu, nv);
     }
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -902,18 +998,51 @@ int slab_plane_fwd(const float* vol, const float* scalars, float* out, int V,
   return 0;
 }
 
-int slab_plane_adj(const float* g, const float* scalars, float* vol, int V,
-                   int nx, int ny, int nz, int nu, int nv, void* stream) {
+// Launch K2 (TS float) or K2b (TS bf16).
+template <typename TS>
+int launch_adj(const TS* g, const float* scalars, float* vol, int V, int nx,
+               int ny, int nz, int nu, int nv, void* stream) {
   if (static_cast<long long>(nx) * ny * nz <= 0) return 0;
   if (ny > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   const cudaError_t e = cudaFuncSetAttribute(
-      adj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kAdjSmem);
+      adj_kernel<TS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      adj_smem<TS>());
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((nz + kTZ - 1) / kTZ, (nx + kTX - 1) / kTX, ny);
-  adj_kernel<<<grid, kAdjThreads, kAdjSmem,
-               static_cast<cudaStream_t>(stream)>>>(g, scalars, vol, V, nx,
-                                                    ny, nz, nu, nv);
+  adj_kernel<TS><<<grid, kAdjThreads, adj_smem<TS>(),
+                   static_cast<cudaStream_t>(stream)>>>(g, scalars, vol, V,
+                                                        nx, ny, nz, nu, nv);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+int slab_plane_fwd(const float* vol, const float* scalars, float* out, int V,
+                   int nx, int ny, int nz, int nu, int nv, void* stream) {
+  return launch_fwd(vol, scalars, out, V, nx, ny, nz, nu, nv, stream);
+}
+
+int slab_plane_adj(const float* g, const float* scalars, float* vol, int V,
+                   int nx, int ny, int nz, int nu, int nv, void* stream) {
+  return launch_adj(g, scalars, vol, V, nx, ny, nz, nu, nv, stream);
+}
+
+// K1b: vol is the oriented volume in bf16.
+int slab_plane_fwd_bf16(const void* vol, const float* scalars, float* out,
+                        int V, int nx, int ny, int nz, int nu, int nv,
+                        void* stream) {
+  return launch_fwd(static_cast<const __nv_bfloat16*>(vol), scalars, out, V,
+                    nx, ny, nz, nu, nv, stream);
+}
+
+// K2b: g is the cotangent in bf16.
+int slab_plane_adj_bf16(const void* g, const float* scalars, float* vol,
+                        int V, int nx, int ny, int nz, int nu, int nv,
+                        void* stream) {
+  return launch_adj(static_cast<const __nv_bfloat16*>(g), scalars, vol, V,
+                    nx, ny, nz, nu, nv, stream);
 }
 
 }  // extern "C"

@@ -12,7 +12,9 @@ Two modes:
   the default plane); ``--prealign none|cc|com`` estimates (tx, tz) from
   the jittered sinogram (the CC chain's offsets mean-removed); then
   ``--niter`` CGLS iterations on the slab family with the estimated views
-  (``none``: the true views). The record has tomojax's fields
+  (``none``: the true views), on the operator of tier ``--prec`` (the
+  bf16 bulk tier: K1b/K2b, CGLS's guard slack 1e-3; the data and the
+  pre-alignment stay fp32, as tomojax's). The record has tomojax's fields
   (``t_datagen_s``, ``datagen_proj_per_s``, ``t_prealign_s``,
   ``prealign_t{x,z}_gc_mean``, ``t_cgls_s``, ``cgls_iters_run``,
   ``cgls_conv``, ``cgls_proj_per_s``, ``vol_rel_l2``,
@@ -29,8 +31,7 @@ Two modes:
   as tomojax asserts). Rank 0 writes the record.
 
 tomojax's ``--chunk`` (iterations per device program, against its TPU
-runtime's program-kill limit) has no counterpart; ``--prec bf16`` raises
-the reduced-precision error of ROADMAP Queue 3.
+runtime's program-kill limit) has no counterpart.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ import numpy as np
 import torch
 
 from tomojax_torch.align.cc import com_align, cross_correlation_chain
+from tomojax_torch.align.pipeline import _resolve_reinit_tol
 from tomojax_torch.core import phantom
 from tomojax_torch.core import slab_projector as sp
 from tomojax_torch.core.geometry import Geometry, Views
@@ -79,7 +81,42 @@ def gauge_corrected_means(est_tx, est_tz, t, phi) -> dict:
                                          .mean())}
 
 
-def run_device(args, dev, vol_np=None) -> dict:
+def cgls_stage(geom: Geometry, phi, t_rec, b, niter: int, prec: str, fam,
+               dev) -> tuple:
+    """``niter`` CGLS iterations on the ``fam`` operator of the views
+    (``phi``, ``t_rec``) in tier ``prec`` from zero, one iteration per
+    step: ``(state, record)``, the record with ``t_cgls_s``,
+    ``cgls_stop``, ``cgls_iters_run``, ``cgls_conv`` and
+    ``cgls_proj_per_s``."""
+    n_proj = geom.n_proj
+    rec = {}
+    op = make_operator(geom, Views.create(n_proj, phi=phi, t=t_rec),
+                       family=fam, prec=prec, device=dev)
+    rtol = _resolve_reinit_tol(None, prec)
+    t0 = time.perf_counter()
+    state = cgls_init(op, b)
+    convs = []
+    while state.k < niter and state.stop == 0:
+        state, conv, _ = cgls_steps(op, b, state, nsteps=1, niter=niter,
+                                    reinit_tol=rtol)
+        convs.append(float(conv[0]))
+        print(f"[cgls {prec}] {state.k}/{niter} "
+              f"t={time.perf_counter() - t0:.2f}s conv={convs[-1]:.4e}",
+              flush=True)
+    rec["t_cgls_s"] = time.perf_counter() - t0
+    rec["cgls_stop"] = state.stop
+    rec["cgls_iters_run"] = state.k
+    rec["cgls_conv"] = convs[:state.k]
+    # CGLS does a forward and an adjoint per iteration
+    rec["cgls_proj_per_s"] = (n_proj * state.k / rec["t_cgls_s"]
+                              if state.k else 0.0)
+    return state, rec
+
+
+def run_device(args, dev, vol_np=None, keep: dict | None = None) -> dict:
+    """The device mode; ``keep`` (a dict) receives the sinogram
+    (``proj``) and the views' estimated shifts (``t_rec``), for a caller
+    that runs the CGLS stage again."""
     n, n_proj = args.size, args.views
     geom, phi, t, _ = problem(n, n_proj)
     rec = {}
@@ -120,26 +157,12 @@ def run_device(args, dev, vol_np=None) -> dict:
                   f"gauge-corrected mean |tx| "
                   f"{rec['prealign_tx_gc_mean']:.4f} px, |tz| "
                   f"{rec['prealign_tz_gc_mean']:.4f} px", flush=True)
-        op = make_operator(geom, Views.create(n_proj, phi=phi, t=t_rec),
-                           family=fam, device=dev)
-        b = proj.reshape(n_proj, -1)
-        t0 = time.perf_counter()
-        state = cgls_init(op, b)
-        convs = []
-        while state.k < args.niter and state.stop == 0:
-            state, conv, _ = cgls_steps(op, b, state, nsteps=1,
-                                        niter=args.niter)
-            convs.append(float(conv[0]))
-            print(f"[cgls] {state.k}/{args.niter} "
-                  f"t={time.perf_counter() - t0:.2f}s conv={convs[-1]:.4e}",
-                  flush=True)
-        rec["t_cgls_s"] = time.perf_counter() - t0
-    rec["cgls_stop"] = state.stop
-    rec["cgls_iters_run"] = state.k
-    rec["cgls_conv"] = convs[:state.k]
-    # CGLS does a forward and an adjoint per iteration
-    rec["cgls_proj_per_s"] = (n_proj * state.k / rec["t_cgls_s"]
-                              if state.k else 0.0)
+        if keep is not None:
+            keep.update(proj=proj, t_rec=t_rec)
+        state, cg = cgls_stage(geom, phi, t_rec, proj.reshape(n_proj, -1),
+                               args.niter, args.prec, fam, dev)
+    rec.update(cg)
+    rec["prec"] = args.prec
     rec["vol_rel_l2"] = rel_l2(state.x, vol_np)
     if args.prealign != "none":
         rec["wall_to_aligned_recon_s"] = rec["t_prealign_s"] + rec["t_cgls_s"]
@@ -218,9 +241,10 @@ def run_mesh(args, dev) -> dict:
     return rec
 
 
-def main(argv=None, volume=None) -> dict:
+def main(argv=None, volume=None, keep: dict | None = None) -> dict:
     """Run config 5; ``volume`` is the device mode's phantom as a numpy
-    array, if the caller has made it (512³ takes ~10 s on the host)."""
+    array, if the caller has made it (512³ takes ~10 s on the host);
+    ``keep`` as in :func:`run_device`."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", default="device", choices=["device", "mesh"])
     ap.add_argument("--device", default="cuda")
@@ -244,7 +268,7 @@ def main(argv=None, volume=None) -> dict:
         rec = run_mesh(args, dev)
         first = not dist.is_initialized() or dist.get_rank() == 0
     else:
-        rec = run_device(args, dev, volume)
+        rec = run_device(args, dev, volume, keep)
         first = True
     rec = {"config": vars(args), "device": device_record(dev), **rec}
     if first:

@@ -22,6 +22,11 @@ from the last:
 - **final**: a deep chunked plane CGLS at the final θ, defect-corrected
   to the data's family over two rounds (the better round's volume kept).
 
+``--prec-exact``, ``--prec-polish`` and ``--final-prec`` set the slab
+kernels' tier of the exact and polish stages' reconstructions and of the
+final CGLS (``bf16``: the bulk tier, its CGLS guard slack 1e-3);
+refinement, debias and CV stay fp32, as in tomojax.
+
 The record (``--out``; ``<out>.partial`` after every outer) holds
 ``config``, ``iters`` (per stage outer: ``raw`` and ``gauge_corrected``
 (mean, max) |error| of tx, tz, α, β, the fitted ``gauge``, ``vol_rel_l2``,
@@ -46,7 +51,9 @@ import numpy as np
 import torch
 
 from tomojax_torch.align import com_align
-from tomojax_torch.align.pipeline import (_exact_forward, align_reconstruct,
+from tomojax_torch.align.pipeline import (_exact_forward,
+                                          _resolve_reinit_tol,
+                                          align_reconstruct,
                                           align_reconstruct_cv)
 from tomojax_torch.cli import print_param_table
 from tomojax_torch.core import phantom, projector
@@ -340,7 +347,8 @@ def _final_recon(args, geom, state, proj_meas, vol_np, record, device):
     kw = dict(dtype=torch.float32, device=device)
     gstruct, scalars = sp.scalar_groups(geom, state.views, "plane", **kw)
     op = operator_from_scalars(geom, gstruct, scalars, family="slab_plane",
-                               **kw)
+                               prec=args.final_prec, **kw)
+    rtol = _resolve_reinit_tol(None, args.final_prec)
     iters = args.final_recon_iters
     chunk = min(args.recon_chunk or iters, iters)
     b = proj_meas.to(torch.float32).reshape(n_proj, -1)
@@ -360,7 +368,8 @@ def _final_recon(args, geom, state, proj_meas, vol_np, record, device):
                   flush=True)
         st = cgls_init(op, b_work, x)
         while st.k < iters and st.stop == 0:
-            st, _, _ = cgls_steps(op, b_work, st, nsteps=chunk, niter=iters)
+            st, _, _ = cgls_steps(op, b_work, st, nsteps=chunk, niter=iters,
+                                  reinit_tol=rtol)
             print(f"[final] cgls {st.k}/{iters} "
                   f"t={time.perf_counter() - t0:.0f}s", flush=True)
         x = st.x.reshape(geom.vox_shape)

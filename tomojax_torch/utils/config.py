@@ -62,7 +62,9 @@ class AlignConfig:
     accel_period: Optional[int] = None   # Aitken-accelerate every N outers
     moment_period: Optional[int] = 1     # COM moment-match every N outers
     debias_period: Optional[int] = None  # exact-family defect correction
-    recon_prec: str = "f32x2"            # slab kernel tier: f32x2 | bf16
+    recon_prec: str = "f32x2"            # recon stage's slab kernel tier:
+    #                                      f32x2 | bf16 (each apply within
+    #                                      3e-3 of fp32; refinement fp32)
 
 
 @dataclasses.dataclass

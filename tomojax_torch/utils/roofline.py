@@ -18,8 +18,12 @@ on, and any other kind takes them too. ``TOMOJAX_PEAK_FLOPS`` /
 ``TOMOJAX_PEAK_BW`` (units: FLOP/s, B/s) override them.
 
 The signatures are tomojax's; ``prec`` is checked by
-:func:`~tomojax_torch.kernels.slab.resolve_prec` (``"f32x2"`` is plain
-fp32, which the model counts).
+:func:`~tomojax_torch.kernels.slab.resolve_prec`. Both tiers compute the
+same function through the same fp32 interface (the bf16 tier rounds what
+its kernels stage, not what they read or write, and does the same taps),
+so the model and the bound of ``"bf16"`` equal those of ``"f32x2"``: the
+bound is what any implementation needs, not what a bf16 kernel happens to
+stage.
 """
 
 from __future__ import annotations

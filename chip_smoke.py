@@ -180,7 +180,10 @@ script exits non-zero:
    normal sum around 0: ``tools/bf16_gate.py``); the adjoint's rounding
    flips (``bf16_gate.rounding_flips``) beside K2/K4's fp32 distance from
    their plain versions, printed; times per apply beside the fp32
-   kernels' and the bound. Then tomojax's gate problem
+   kernels' and the bound, and K2b's and K4b's (designs of their own)
+   over K2's and K4's beside the ratio when they were the fp32 kernels
+   instantiated on bf16 (12b prints K2b's at 512³). Then tomojax's gate
+   problem
    (``tools/bf16_gate.py``: 8 views, its cotangent seed) at 64³ and 256³
    on the kernels: each group's forward within 3e-3 of fp32 and the pooled
    mismatch ≤ 5e-3; the single draws printed with their verdict. 14b (inside phase 12, on 12a's data and CC views in memory):
@@ -194,7 +197,7 @@ script exits non-zero:
 The JSON line's launches count phases 4 and 12a for K1/K2 (all three CGLS
 runs and ``simulate``, and config 5), phase 6 for K3-K6, phase 8 for
 K7-K9, 14b for K1b/K2b and 14c for K3b/K4b (each entry of the bf16 tier
-marked ``"tier": "bf16"``); phases 9, 10, 11, 12c and 13 print their own. Bounds come from
+marked ``"tier": "bf16"``, K2b's and K4b's ``"design": "own"``); phases 9, 10, 11, 12c and 13 print their own. Bounds come from
 ``tomojax_torch/utils/roofline.py``, timers from
 ``tomojax_torch/utils/profiling.py``.
 
@@ -287,6 +290,11 @@ TOL_MISMATCH = 5e-3        # |<Ax,y>-<x,Aᵀy>|/|<Ax,y>| of the bf16 pair
 MISMATCH_DRAWS = 32        # standard-normal cotangents pooled for it
 FLIP_VIEWS = 4             # views of 14a's rounding-flip reading
 GATE_SIZES = (64, 256)     # tomojax's gate problem (tools/bf16_gate.py)
+# K2b's and K4b's time over K2's and K4's in one call when they were the
+# fp32 kernels instantiated on bf16 (NVIDIA H100 80GB HBM3, 700 W), printed
+# beside the ratio of their own designs
+FP32_ON_BF16_ADJ_RATIO = {"plane": 1.0166, "arc": 1.0008,
+                          "plane_512": 1.0125}
 C5_BF16_DIFF = 2e-3        # 14b: bf16 rel-L2 within this of 12a's
 C4_BF16_DIFF = 5e-3        # 14c: outer 2's rel-L2 within this of phase 6's
 C4_BF16_OUTERS = 3
@@ -1620,6 +1628,8 @@ def phase_config5(tmp, dev):
     print(f"12b per {C5_VIEWS}-view apply: K1b {t_k1b:.3f} ms (K1 "
           f"{t_k1:.3f}), K2b {t_k2b:.3f} ms (K2 {t_k2:.3f}), each with its "
           f"wrapper's cast; bound {bnd[0]:.3f} ms ({bnd[1]})")
+    print(f"12b K2b's own design over K2: {t_k2b / t_k2:.4f} (K2 "
+          f"instantiated on bf16: {FP32_ON_BF16_ADJ_RATIO['plane_512']})")
     check_bf16(eb, "plane", "12b")
     del groups, sub_groups
 
@@ -2045,6 +2055,9 @@ def phase_bf16_kernels(dev):
               f"{t['adj_f32']:.3f} ms (each with its wrapper's cast); "
               f"plain bf16 {t['fwd_plain']:.3f} / {t['adj_plain']:.3f} ms; "
               f"bound {t['bound'][0]:.3f} ms ({t['bound'][1]})")
+        print(f"14a {an_name}'s own design over {adj_f.__name__}: "
+              f"{t['adj'] / t['adj_f32']:.4f} ({adj_f.__name__} "
+              f"instantiated on bf16: {FP32_ON_BF16_ADJ_RATIO[quad]})")
         check_bf16(e, quad, "14a")
         res[quad] = {**e, **t}
         del groups
@@ -2306,6 +2319,7 @@ def main():
         e = kb[quad]
         kernels.append({
             "name": kname, "route": "cuda", "tier": "bf16",
+            **({"design": "own"} if key == "adj" else {}),
             "source": KERNEL_SOURCE if quad == "plane" else ARC_SOURCE,
             "replaces": f"tomojax/kernels/slab.py:{line}",
             "variant": "bf16=True (tomojax/kernels/slab.py:"

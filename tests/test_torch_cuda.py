@@ -196,13 +196,14 @@ def test_arc_adjoint_identity(cuda):
         assert float(abs(lhs - rhs)) <= float(bound), (lhs, rhs)
 
 
-def _odd_arc_case(device, det_pix):
+def _odd_arc_case(device, det_pix, det=None):
     """An odd-sized arc group: a 40×24×36 oriented volume, nu ≠ nv, 7
     jittered views in one orientation group (|φ| < 0.6 rad: no swap or
     flip). At det_pix 0.5 a K4 tile's u and v windows (~70 and ~80 wide)
-    take more than one staged chunk each."""
+    take more than one staged chunk each. ``det`` replaces the detector
+    (nu, nv)."""
     rng = np.random.default_rng(4)
-    nu, nv = (44, 38) if det_pix == 1.0 else (100, 90)
+    nu, nv = det or ((44, 38) if det_pix == 1.0 else (100, 90))
     geom = Geometry(n_proj=7, vox_shape=(40, 24, 36), det_shape=(nu, nv),
                     det_pix=(det_pix, det_pix))
     views = Views.create(7, phi=np.linspace(-0.6, 0.6, 7),
@@ -766,6 +767,54 @@ def test_bf16_kernels_match_plain_and_fp32(cuda, quad, n):
         assert pooled["pooled"] <= 5e-3
         assert bf16_gate.mismatch(ker, y.abs(), vol_or,
                                   adj_b(y.abs(), sc, geom)) <= 5e-3
+
+
+def _bf16_odd_groups(device, quad, case):
+    """Odd-sized groups ``(vol_or, scalars, y)`` for K2b and K4b (x, z
+    and ny not multiples of the adjoints' tiles, nu ≠ nv): "plain", nv not
+    a multiple of 8 (plain-load staging) at a detector pitch below 1,
+    where windows span several staged chunks (plane: 53 × 41 at 0.7, every
+    orientation group; arc: 100 × 90 at 0.5); "vec", nv a multiple of 8
+    (16-byte staging; plane 53 × 48 at pitch 1, arc 44 × 40)."""
+    if quad == "plane":
+        geom, views, vol, rng = _plane_odd_case(
+            device, det=(53, 41) if case == "plain" else (53, 48),
+            det_pix=0.7 if case == "plain" else 1.0)
+        groups = list(_groups(geom, views, vol, device))
+    else:
+        geom, sc, vol_or, _ = _odd_arc_case(
+            device, 0.5 if case == "plain" else 1.0,
+            None if case == "plain" else (44, 40))
+        rng = np.random.default_rng(5)
+        groups = [(vol_or, sc)]
+    return geom, [(vo, sc, torch.as_tensor(
+        rng.standard_normal((sc.shape[0],) + geom.det_shape),
+        dtype=torch.float32, device=device)) for vo, sc in groups]
+
+
+@pytest.mark.parametrize("quad", ["plane", "arc"])
+@pytest.mark.parametrize("case", ["plain", "vec"])
+def test_bf16_adjoints_at_odd_sizes(cuda, quad, case):
+    """K2b and K4b (their own designs) at odd sizes: within 5e-4 of their
+    plain bf16 versions, within 3e-3 and at least 1e-6 of the fp32
+    adjoints, the bf16 pair's mismatch pooled over 32 standard-normal
+    cotangents within 5e-3, and two applies bit-identical (no atomics)."""
+    fwd_b, adj_b, _, adj_f = BF16[quad]
+    geom, groups = _bf16_odd_groups(cuda, quad, case)
+    rng = np.random.default_rng(6)
+    for vol_or, sc, y in groups:
+        kadj = adj_b(y, sc, geom)
+        assert torch.equal(kadj, adj_b(y, sc, geom))
+        radj = slabk.slab_backproject_plain(y, sc, geom, quad, prec="bf16")
+        rel = float(torch.linalg.norm(kadj - radj) / torch.linalg.norm(radj))
+        assert rel <= 5e-4, rel
+        f32 = adj_f(y, sc, geom)
+        r = float(torch.linalg.norm(kadj - f32) / torch.linalg.norm(f32))
+        assert 1e-6 <= r <= 3e-3, r
+        pooled = bf16_gate.pooled_mismatch(
+            fwd_b(vol_or, sc, geom), vol_or, lambda g: adj_b(g, sc, geom),
+            tuple(y.shape), rng, 32)
+        assert pooled["pooled"] <= 5e-3, pooled
 
 
 def test_bf16_wrappers_raise_on_bad_input(cuda):

@@ -8,8 +8,8 @@ import torch
 
 from tomojax_torch import align as ta
 from tomojax_torch.align import pipeline as tp
-from tomojax_torch.tools import (config1, config2, config3, config4_floor,
-                                 config4_profile, k1_split)
+from tomojax_torch.tools import (adj_split, config1, config2, config3,
+                                 config4_floor, config4_profile, k1_split)
 
 torch.set_num_threads(1)
 
@@ -59,6 +59,22 @@ def test_k1_split_variants_apply_to_the_kernel_source():
         out = k1_split.variant_source(name)
         assert out != src, name
         assert "fwd_kernel" in out
+
+
+@pytest.mark.parametrize("kernel", sorted(adj_split.KERNELS))
+def test_adj_split_variants_apply_to_the_kernel_source(kernel):
+    """Each of tools/adj_split's variants of K2b and K4b matches its text
+    in the source exactly once and changes it; the occupancy entry the
+    tool appends names the kernel that the source defines (the tool itself
+    needs the card)."""
+    k = adj_split.KERNELS[kernel]
+    src = k["source"].read_text()
+    assert f"{k['kernel']}(" in src and f"int {k['smem']} =" in src
+    for name in k["variants"]:
+        out = adj_split.variant_source(kernel, name)
+        assert out != src, name
+        assert k["kernel"] in out
+    assert "adj_split_occupancy" in adj_split.with_occupancy(k, src)
 
 
 BASELINE_RUNS = {

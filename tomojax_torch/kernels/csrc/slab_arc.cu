@@ -106,19 +106,18 @@
 //
 // The bf16 tier (K3b slab_arc_fwd_bf16, K4b slab_arc_adj_bf16) replaces the
 // bf16=True variants of _fwd_kernel and _adj_kernel in arc quadrature
-// (chosen at tomojax/kernels/slab.py:904 and :1015). The kernels are the
-// same, instantiated on the storage type TS = __nv_bfloat16, with K3's and
-// K4's fp32 arithmetic in the same order (the samples stay K3's to the
-// bit) and rounding (nearest even) at each pass's input:
-//   K3b stages the volume's rows in bf16 (the wrapper casts the oriented
+// (chosen at tomojax/kernels/slab.py:904 and :1015), with K3's and K4's
+// samples to the bit and rounding (nearest even) at each pass's input:
+//   K3b is K3 instantiated on the storage type TS = __nv_bfloat16: it
+//     stages the volume's rows in bf16 (the wrapper casts the oriented
 //     volume once) and holds the pass-A tables in bf16: each branch's
 //     z-lerps of both sides are rounded before the (1 - fy)/fy blend reads
 //     them (the direct path rounds the same values);
-//   K4b reads the cotangent g in bf16 (the wrapper casts it once) and
-//     rounds the two planes of each view's and branch's pass-B transpose
-//     where pass A reads them, one per target side: T_all - T_fy (slab r)
-//     and T_fy (slab r + 1); the sums, the scratch volume and the add stay
-//     fp32.
+//   K4b (arc_adj_bf16_kernel, a design of its own) reads the cotangent g in
+//     bf16 (the wrapper casts it once) and rounds the two planes of each
+//     view's and branch's pass-B transpose once, one per target side:
+//     T_all - T_fy (slab r) and T_fy (slab r + 1); the sums, the scratch
+//     volume and the add stay fp32.
 // tomojax rounds its matmul operands (the products w*g and the aligned
 // accumulator); a gather has none, so the rounding points are g and the
 // tables, within tomojax's contract for the tier (3e-3 relative per apply,
@@ -126,6 +125,18 @@
 // as in tomojax. 16-byte copies carry 8 bf16 values (nz a multiple of 8);
 // other sizes stage with plain loads. kernels/slab.py's plain bf16
 // versions round at the same points.
+//
+// K4b stages no samples. Per source slab, tile and view it computes, per
+// entry (x, v) of the tile's columns and the view's v window, the grid
+// sawtooth and zeta's affine part once for all branches, and pass B as a
+// gather: over a fixed count of consecutive u from the window of the
+// union of the branches, one march index per (u, v) (jreal_of<true>:
+// __fdiv_rn's bits without a division) gives every branch's sample with
+// K3b's decisions, weighted by hat(X - x) = max(0, 1 - |X - x|), the lerp
+// weight of tap x (zero outside the window: no thread branches on a tap).
+// Pass A is the same gather over v per voxel, for both sides. What bounds
+// it: the issue rate of the samples' exact-rounding arithmetic per
+// candidate, as in K3.
 
 #include <cstdint>
 
@@ -955,13 +966,11 @@ __device__ __forceinline__ float2 tap_code(float pos, float lo, float hi) {
 }
 
 // K4: grid (z tiles, x tiles, source slabs r = -1 .. ny-1); gathers the
-// cotangent g: (V, nu, nv) of TS into side0 (slab r, from source r) and
-// side1 (slab r + 1, from source r), both (nx, ny, nz). Every voxel of both
-// is written exactly once. K4b (TS bf16) reads g in bf16 and rounds each
-// side's plane of T where pass A reads it.
-template <typename TS>
+// cotangent g: (V, nu, nv) into side0 (slab r, from source r) and side1
+// (slab r + 1, from source r), both (nx, ny, nz). Every voxel of both is
+// written exactly once.
 __global__ void __launch_bounds__(kAdjThreads, 2)
-arc_adj_kernel(const TS* __restrict__ g, const float* __restrict__ scalars,
+arc_adj_kernel(const float* __restrict__ g, const float* __restrict__ scalars,
                float* __restrict__ side0, float* __restrict__ side1, int V,
                int nx, int ny, int nz, int nu, int nv, int n_steps,
                int n_branch) {
@@ -990,7 +999,7 @@ arc_adj_kernel(const TS* __restrict__ g, const float* __restrict__ scalars,
 
   for (int view = 0; view < V; ++view) {
     const Arc p = load_arc(scalars + view * NS);
-    const TS* gv = g + static_cast<size_t>(view) * nu * nv;
+    const float* gv = g + static_cast<size_t>(view) * nu * nv;
     const float cx = slab_cx(p, r);
     const float cz = slab_cz(p, r);
     // ζ's affine part in v: za(x) + zav*v, za(x) = cz + gzx*(x - cx)
@@ -1033,7 +1042,7 @@ arc_adj_kernel(const TS* __restrict__ g, const float* __restrict__ scalars,
                                        static_cast<float>(v), b, n_steps);
             float gw = 0.0f, gy = 0.0f;
             if (s.ok) {
-              gw = val(__ldg(gv + static_cast<size_t>(u) * nv + v));
+              gw = __ldg(gv + static_cast<size_t>(u) * nv + v);
               gy = s.fy * gw;
               ok_here = 1;
             }
@@ -1093,8 +1102,7 @@ arc_adj_kernel(const TS* __restrict__ g, const float* __restrict__ scalars,
         for (int v = lo; v <= hi; ++v) {
           const float2 zc = sZ[xa_l * kVP + (v - vc0)];
           const float2 t = sT[xa_l * kVP + (v - vc0)];
-          // each side's plane of T, rounded to TS
-          const float t0 = round_ts<TS>(t.x - t.y), t1 = round_ts<TS>(t.y);
+          const float t0 = t.x - t.y, t1 = t.y;
           const int k = __float_as_int(zc.x);
 #pragma unroll
           for (int o = 0; o < 2; ++o) {
@@ -1109,6 +1117,334 @@ arc_adj_kernel(const TS* __restrict__ g, const float* __restrict__ scalars,
         // pass's reads before the next pass B's writes
       }
     }
+  }
+  __syncthreads();
+  for (int e = tid; e < ntx * kTZ; e += kAdjThreads) {
+    const int xl = e / kTZ, zl = e - xl * kTZ;
+    if (zl >= ntz) continue;
+    const float2 a = sA[xl * kAP + zl];
+    const size_t col = static_cast<size_t>(x0 + xl) * ny;
+    if (ri >= 0) side0[(col + ri) * nz + z0 + zl] = a.x;
+    if (ri + 1 < ny) side1[(col + ri + 1) * nz + z0 + zl] = a.y;
+  }
+}
+
+// K4b tiling: the same source slab r and kTX x kTZ tile of (x, z) as K4.
+// A view's v window (the union over its branches) is cut into chunks of
+// kBVC rows, its branches into rounds of kBMaxBranch; per chunk and round,
+// between two barriers, kBRows * kBVC threads each own one row v and the
+// columns x = xg, xg + kBRows, ... of it (kBEnt entries (x, v)), and compute
+// per entry the grid sawtooth and zeta's affine part (first round) and
+// pass B's sums of the round's branches; then, after the barrier, pass A
+// runs for a thread's kZR voxels z of one column x, both sides and the
+// round's branches, into registers that live across the views. Nothing per
+// sample is staged: an entry computes its candidates' samples itself, one
+// march index for all branches.
+constexpr int kBVC = 80;                              // rows of a v chunk
+constexpr int kBP = kBVC + 1;                         // pitch: 81 words, odd
+constexpr int kBRows = 3;                             // pass-B threads a row
+constexpr int kBEnt = (kTX + kBRows - 1) / kBRows;    // entries a thread
+constexpr int kBMaxBranch = 3;                        // branches a round
+static_assert(kBRows * kBVC <= kAdjThreads, "a pass-B thread per row part");
+// the grid sawtooth and zeta's affine part (fp32), then the rounded planes
+// (T_all - T_fy, T_fy) of each branch (bf16 pairs), all [xl][vl]
+constexpr int kBSmem = 4 * 2 * kTX * kBP + 4 * kBMaxBranch * kTX * kBP;
+static_assert(8 * kTX * kAP <= kBSmem, "the output staging fits");
+
+// The lerp weight that position pos gives tap k: 1 - |pos - k| where
+// positive (1 - w for k = floor(pos), w for k + 1: taps_of's and the
+// plain version's weights), else 0.
+__device__ __forceinline__ float hat(float pos, float k) {
+  return fmaxf(0.0f, 1.0f - fabsf(pos - k));
+}
+
+// i as a float, for |i| < 2^22: 1.5 * 2^23 + i in the mantissa, less
+// 1.5 * 2^23 (I2F issues at a quarter of the FMA rate).
+__device__ __forceinline__ float int_to_float(int i) {
+  return __int_as_float(0x4B400000 + i) - 12582912.0f;
+}
+
+// ceil(x) for |x| < 2^22: x + 1.5 * 2^23 rounded up, less 1.5 * 2^23 (two
+// adds: FRND issues at a quarter of the FMA rate). It equals ceilf(x) but
+// for the sign of a zero, which no use of the march index sees (it enters
+// comparisons and cfb = j - jreal only).
+__device__ __forceinline__ float ceil_small(float x) {
+  return __fadd_ru(x, 12582912.0f) - 12582912.0f;
+}
+
+// sample_from with the march index's ceiling jb = ceil(jreal) given: the
+// same sample, the ceiling shared by the branches.
+__device__ __forceinline__ Sample sample_of(const Arc& p, float jb,
+                                            float jreal, float xa, int b,
+                                            int n_steps) {
+  Sample s;
+  s.j = jb + static_cast<float>(b);
+  s.cfb = sub(s.j, jreal);
+  s.fy = mul(p.edy, s.cfb);
+  s.ok = s.j >= 0.0f && s.j < static_cast<float>(n_steps) && s.fy < 1.0f;
+  s.X = add(xa, mul(p.edx, s.cfb));
+  return s;
+}
+
+// floor(q) + 1 for |q| < 2^22 (an add rounded down: no FRND or F2I).
+__device__ __forceinline__ int floor_plus_one(float q) {
+  return __float_as_int(__fadd_rd(q, 12582912.0f)) - 0x4B400000 + 1;
+}
+
+// The most integers that an open interval of width w can hold, at least
+// one and at most cap (NaN: cap).
+__device__ __forceinline__ int candidates(float w, int cap) {
+  const float c = fminf(ceilf(w), static_cast<float>(cap));
+  return max(1, static_cast<int>(c));
+}
+
+// Pass B of one entry (x, v) for the branches b0 .. b0 + nbr - 1: over kC
+// consecutive u from u0 (kC = 0: cu of them; a u off the detector adds
+// zero), T_all[b] += hat(X_b - x) * ok_b * g and T_fy[b] += hat(X_b - x) *
+// ok_b * fy_b * g, one march index for all branches. The loads of g come
+// first, at a clamped u, so that they are in flight together.
+template <int kC>
+__device__ __forceinline__ void pass_b_entry(
+    float (&t_all)[kBMaxBranch], float (&t_fy)[kBMaxBranch],
+    const __nv_bfloat16* __restrict__ gcol, const Arc& p, float r, float cx,
+    const VTerms& vt, float fx, int u0, int nu, int nv, int cu, int b0,
+    int nbr, int n_steps) {
+  const float fu0 = int_to_float(u0);
+  const int n = kC > 0 ? kC : cu;
+  constexpr int kU = kC > 0 ? kC : 1;
+  float gval[kU];
+#pragma unroll
+  for (int i = 0; i < kU; ++i) {
+    const int u = min(max(u0 + i, 0), nu - 1);
+    const float gi = __bfloat162float(gcol[static_cast<size_t>(u) * nv]);
+    gval[i] = static_cast<unsigned>(u0 + i) < static_cast<unsigned>(nu)
+                  ? gi : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < n; ++i) {
+    float gi;
+    if (kC > 0) {
+      gi = gval[kC > 0 ? i % kU : 0];
+    } else {
+      const int u = u0 + i;
+      if (static_cast<unsigned>(u) >= static_cast<unsigned>(nu)) continue;
+      gi = __bfloat162float(gcol[static_cast<size_t>(u) * nv]);
+    }
+    const float fu = fu0 + static_cast<float>(i);
+    const float jreal = jreal_of<true>(p, r, y0_at(p, fu, vt));
+    const float jb = ceil_small(jreal);
+    const float xa = x_affine(cx, mul(fu, p.eux), vt);
+#pragma unroll
+    for (int b = 0; b < kBMaxBranch; ++b) {
+      if (b >= nbr) break;
+      const Sample s = sample_of(p, jb, jreal, xa, b0 + b, n_steps);
+      const float gw = s.ok ? gi : 0.0f;
+      const float w = hat(s.X, fx);
+      t_all[b] = fmaf(w, gw, t_all[b]);
+      t_fy[b] = fmaf(w, s.fy * gw, t_fy[b]);
+    }
+  }
+}
+
+// Pass A of one thread's voxels (column x, z = za + j) for the branches
+// b0 .. b0 + nbr - 1 over a chunk's rows: kC consecutive v from the first
+// past each voxel's window start (kC = 0: cv of them), acc0[j] += hat(zeta_b
+// - z) * round(T_all - T_fy) and acc1[j] += hat(zeta_b - z) * round(T_fy),
+// zeta_b = zeta_at(cf + b, zaff) from the grid; cf, za and pl point at the
+// column's row vc0 of the grid and of the planes.
+template <int kC>
+__device__ __forceinline__ void pass_a_voxels(
+    float (&acc0)[kZR], float (&acc1)[kZR], const float* __restrict__ cf_row,
+    const float* __restrict__ za_row, const __nv_bfloat162* __restrict__ pl,
+    const Arc& p, float q0, float inv_zav, float fzo, int vc0, int smax,
+    int cv, int b0, int nbr) {
+#pragma unroll
+  for (int j = 0; j < kZR; ++j) {
+    const float fz = fzo + static_cast<float>(j);
+    const int v0 = min(max(floor_plus_one(fmaf(static_cast<float>(j),
+                                               inv_zav, q0)), vc0), smax);
+    float a0 = acc0[j], a1 = acc1[j];
+    const int n = kC > 0 ? kC : cv;
+#pragma unroll
+    for (int i = 0; i < n; ++i) {
+      const int k = v0 + i;
+      const float cf = cf_row[k], zaff = za_row[k];
+#pragma unroll
+      for (int b = 0; b < kBMaxBranch; ++b) {
+        if (b >= nbr) break;
+        const int bb = b0 + b;
+        // branch 0's cf + 0 is cf (cf is never -0)
+        const float w = hat(
+            zeta_at(p, bb ? add(cf, static_cast<float>(bb)) : cf, zaff), fz);
+        const float2 t = __bfloat1622float2(pl[b * kTX * kBP + k]);
+        a0 = fmaf(w, t.x, a0);
+        a1 = fmaf(w, t.y, a1);
+      }
+    }
+    acc0[j] = a0;
+    acc1[j] = a1;
+  }
+}
+
+// K4b: grid (z tiles, x tiles, source slabs r = -1 .. ny-1); g (V, nu, nv)
+// in bf16 into side0 (slab r) and side1 (slab r + 1), as K4. Both
+// transposes are gathers with the weight hat(position - tap), so a
+// candidate outside a window adds zero and no thread branches on a tap:
+//   pass B: T_all(x, v) and T_fy(x, v) of each branch b sum, over cu
+//     consecutive u from the window of the union of the branches, the
+//     sample's ok*g and ok*fy*g times hat(X_b(u, v) - x); the samples
+//     (jreal_of<true>, then sample_of: sample_from's arithmetic, K3b's
+//     decisions to the bit) take one march index for all branches;
+//   pass A: each voxel sums, over cv consecutive v, hat(zeta_b(x, v) - z)
+//     times the rounded planes T_all - T_fy (side 0) and T_fy (side 1),
+//     zeta_b from grid_at<true> as K3b's tables.
+// Every voxel of both sides is written once, every sum runs in one fixed
+// order (no atomics).
+__global__ void __launch_bounds__(kAdjThreads, 3)
+arc_adj_bf16_kernel(const __nv_bfloat16* __restrict__ g,
+                    const float* __restrict__ scalars,
+                    float* __restrict__ side0, float* __restrict__ side1,
+                    int V, int nx, int ny, int nz, int nu, int nv,
+                    int n_steps, int n_branch) {
+  extern __shared__ __align__(16) float sm[];
+  float* const sCf = sm;                           // [xl][vl] grid sawtooth
+  float* const sZa = sCf + kTX * kBP;              // [xl][vl] zeta's affine
+  __nv_bfloat162* const sP =                       // [b][xl][vl]
+      reinterpret_cast<__nv_bfloat162*>(sZa + kTX * kBP);
+  const int tid = threadIdx.x;
+  const int z0 = blockIdx.x * kTZ, x0 = blockIdx.y * kTX;
+  const int ri = static_cast<int>(blockIdx.z) - 1;
+  const float r = static_cast<float>(ri);
+  const int ntx = min(kTX, nx - x0), ntz = min(kTZ, nz - z0);
+  const float fxa = static_cast<float>(x0);
+  const float fxb = static_cast<float>(x0 + ntx - 1);
+  const float fza = static_cast<float>(z0);
+  const float fzb = static_cast<float>(z0 + ntz - 1);
+  // this thread's pass-A voxels: column xa_l, z in [za_o, zb_o]
+  const int xa_l = tid % kTX;
+  const int za_o = z0 + (tid / kTX) * kZR;
+  const int zb_o = min(za_o + kZR, z0 + ntz) - 1;
+  const bool owns_a = xa_l < ntx && za_o <= zb_o;
+  const float fxo = static_cast<float>(x0 + xa_l);
+  const float fzo = static_cast<float>(za_o);
+  // this thread's pass-B entries: row vb, columns xg + kBRows*q (q < nqb)
+  const int vb = tid % kBVC, xg = tid / kBVC;
+  const bool owns_b = tid < kBRows * kBVC && xg < ntx;
+  const int nqb = (ntx - xg + kBRows - 1) / kBRows;
+  const float fxg = static_cast<float>(x0 + xg);
+  float acc0[kZR], acc1[kZR];
+#pragma unroll
+  for (int s = 0; s < kZR; ++s) acc0[s] = acc1[s] = 0.0f;
+  const float fnb = static_cast<float>(n_branch);
+
+  for (int view = 0; view < V; ++view) {
+    const Arc p = load_arc(scalars + view * NS);
+    const __nv_bfloat16* gv = g + static_cast<size_t>(view) * nu * nv;
+    const float cx = slab_cx(p, r);
+    const float cz = slab_cz(p, r);
+    // zeta's affine part in v: za(x) + zav*v; X's: (cx + evx*v) + eux*u;
+    // the sawtooth terms over all branches: edz*(cf + b) and edx*cfb
+    // in edz*[0, n_branch] and edx*[0, n_branch]
+    const float zav = p.evz - p.gzx * p.evx;
+    const float inv_zav = 1.0f / zav;
+    const float ezmax = fmaxf(0.0f, p.edz * fnb);
+    const float ezmin = fminf(0.0f, p.edz * fnb);
+    const float exmax = fmaxf(0.0f, p.edx * fnb);
+    const float exmin = fminf(0.0f, p.edx * fnb);
+    int vlo, vhi;
+    range_union(fmaf(p.gzx, fxa - cx, cz), fmaf(p.gzx, fxb - cx, cz), zav,
+                inv_zav, fza - 1.0f - ezmax, fzb + 1.0f - ezmin, nv, &vlo,
+                &vhi);
+    const int cu = candidates((2.0f + exmax - exmin) * fabsf(p.inv_eux), 64);
+    const int cv = candidates((2.0f + ezmax - ezmin) * fabsf(inv_zav), kBVC);
+    // the windows' lower ends: x - 1 - exmax (eux > 0), z - 1 - ezmax
+    const float lo_x = p.eux > 0.0f ? -1.0f - exmax : 1.0f - exmin;
+    const float lo_z = zav > 0.0f ? -1.0f - ezmax : 1.0f - ezmin;
+    for (int vc0 = vlo; vc0 <= vhi; vc0 += kBVC) {
+      const int nvw = min(vhi - vc0 + 1, kBVC);
+      // the branches in rounds of kBMaxBranch (one round below 3)
+      for (int b0 = 0; b0 < n_branch; b0 += kBMaxBranch) {
+        const int nbr = min(n_branch - b0, kBMaxBranch);
+        // 1. per entry (x, v) of this thread's row: the grid (first
+        // round), then pass B of the round's branches
+        if (owns_b) {
+          const bool row_in = vb < nvw;
+          const int v = vc0 + vb;
+          const float fv = int_to_float(v);
+          const VTerms vt = v_terms(p, fv);
+          const float q0 =
+              (fxg + lo_x - fmaf(p.evx, fv, cx)) * p.inv_eux;
+          const float step = static_cast<float>(kBRows) * p.inv_eux;
+#pragma unroll 1
+          for (int q = 0; q < nqb; ++q) {
+            const int xl = xg + kBRows * q;
+            float t_all[kBMaxBranch], t_fy[kBMaxBranch];
+#pragma unroll
+            for (int b = 0; b < kBMaxBranch; ++b) t_all[b] = t_fy[b] = 0.0f;
+            if (row_in) {
+              const float fx = fxg + static_cast<float>(kBRows * q);
+              if (b0 == 0) {
+                float cf, zaff;
+                grid_at<true>(p, r, cx, cz, fx, vt, &cf, &zaff);
+                sCf[xl * kBP + vb] = cf;
+                sZa[xl * kBP + vb] = zaff;
+              }
+              const int u0 =
+                  floor_plus_one(fmaf(static_cast<float>(q), step, q0));
+              const __nv_bfloat16* const gcol = gv + v;
+#define K4B_PASS_B(C)                                                     \
+  pass_b_entry<C>(t_all, t_fy, gcol, p, r, cx, vt, fx, u0, nu, nv, cu, b0, \
+                  nbr, n_steps)
+              switch (cu) {
+                case 1: K4B_PASS_B(1); break;
+                case 2: K4B_PASS_B(2); break;
+                case 3: K4B_PASS_B(3); break;
+                case 4: K4B_PASS_B(4); break;
+                default: K4B_PASS_B(0);
+              }
+#undef K4B_PASS_B
+            }
+            // the planes each side reads, rounded; rows past the chunk
+            // zero
+#pragma unroll
+            for (int b = 0; b < kBMaxBranch; ++b) {
+              if (b >= nbr) break;
+              sP[(b * kTX + xl) * kBP + vb] =
+                  __floats2bfloat162_rn(t_all[b] - t_fy[b], t_fy[b]);
+            }
+          }
+        }
+        __syncthreads();
+        // 2. pass A: this thread's voxels gather cv rows each, for the
+        // round's branches
+        if (owns_a) {
+          const int nvs = min(max(nvw, cv), kBVC);
+          const int cvv = min(cv, nvs);
+          const int smax = vc0 + nvs - cvv;
+          const float q0 = (fzo + lo_z - fmaf(p.gzx, fxo - cx, cz)) * inv_zav;
+          const int row = xa_l * kBP - vc0;
+#define K4B_PASS_A(C)                                                      \
+  pass_a_voxels<C>(acc0, acc1, sCf + row, sZa + row, sP + row, p, q0,     \
+                   inv_zav, fzo, vc0, smax, cvv, b0, nbr)
+          switch (cvv) {
+            case 2: K4B_PASS_A(2); break;
+            case 3: K4B_PASS_A(3); break;
+            default: K4B_PASS_A(0);
+          }
+#undef K4B_PASS_A
+        }
+        __syncthreads();
+      }
+    }
+  }
+  // every voxel of both sides written once, through shared memory so that
+  // the stores run along z
+  float2* const sA = reinterpret_cast<float2*>(sm);   // [xl][zl]
+  if (owns_a) {
+#pragma unroll
+    for (int s = 0; s < kZR; ++s)
+      if (za_o + s <= zb_o)
+        sA[xa_l * kAP + za_o + s - z0] = make_float2(acc0[s], acc1[s]);
   }
   __syncthreads();
   for (int e = tid; e < ntx * kTZ; e += kAdjThreads) {
@@ -1167,8 +1503,9 @@ int launch_march(const TS* vol, const float* scalars, float* out, int V,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch K4 (TS float) or K4b (TS bf16), then the add: vol receives side 0
-// and then side 1 added; side1 is scratch of vol's shape (nx, ny, nz).
+// Launch K4 (fp32, arc_adj_kernel) or K4b (bf16, arc_adj_bf16_kernel),
+// then the add: vol receives side 0 and then side 1 added; side1 is
+// scratch of vol's shape (nx, ny, nz).
 template <typename TS>
 int launch_adj(const TS* g, const float* scalars, float* vol, float* side1,
                int V, int nx, int ny, int nz, int nu, int nv, int n_steps,
@@ -1176,13 +1513,23 @@ int launch_adj(const TS* g, const float* scalars, float* vol, float* side1,
   const long long n = static_cast<long long>(nx) * ny * nz;
   if (n <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaFuncSetAttribute(
-      arc_adj_kernel<TS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kAdjSmem);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((nz + kTZ - 1) / kTZ, (nx + kTX - 1) / kTX, ny + 1);
-  arc_adj_kernel<TS><<<grid, kAdjThreads, kAdjSmem, s>>>(
-      g, scalars, vol, side1, V, nx, ny, nz, nu, nv, n_steps, n_branch);
+  cudaError_t e;
+  if constexpr (sizeof(TS) == 4) {
+    e = cudaFuncSetAttribute(arc_adj_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kAdjSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    arc_adj_kernel<<<grid, kAdjThreads, kAdjSmem, s>>>(
+        g, scalars, vol, side1, V, nx, ny, nz, nu, nv, n_steps, n_branch);
+  } else {
+    e = cudaFuncSetAttribute(arc_adj_bf16_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kBSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    arc_adj_bf16_kernel<<<grid, kAdjThreads, kBSmem, s>>>(
+        g, scalars, vol, side1, V, nx, ny, nz, nu, nv, n_steps, n_branch);
+  }
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long blocks = (n + 255) / 256;

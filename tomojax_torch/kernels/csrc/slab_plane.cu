@@ -79,25 +79,37 @@
 // The bf16 tier (K1b slab_plane_fwd_bf16, K2b slab_plane_adj_bf16) replaces
 // the bf16=True variants of the same two Pallas kernels (chosen at
 // tomojax/kernels/slab.py:904 and :1015), which feed each pass of the
-// two-pass transform to the MXU as one bf16 operand. It is the same
-// kernels instantiated on the storage type TS = __nv_bfloat16 of what
-// they stage, with the same fp32 arithmetic, rounding (nearest even) at
-// each pass's input:
-//   K1b stages the volume's rows in bf16 (the wrapper casts the oriented
-//     volume once) and holds T in bf16: pass A reads rounded rows, pass B
-//     reads a rounded T; the sums, the positions and the 1/edy scale stay
-//     fp32;
-//   K2b stages the cotangent g in bf16 (the wrapper casts it once) and
-//     rounds each view's pass-B transpose, scale * T[x, v], where pass A
-//     reads it; T accumulates in fp32 over the u chunks and the pass-A
-//     sums and the volume stay fp32.
+// two-pass transform to the MXU as one bf16 operand. Rounding (nearest
+// even) happens at each pass's input:
+//   K1b is K1 instantiated on the storage type TS = __nv_bfloat16: it
+//     stages the volume's rows in bf16 (the wrapper casts the oriented
+//     volume once) and holds T in bf16; the sums, the positions and the
+//     1/edy scale stay fp32;
+//   K2b (adj_bf16_kernel, a design of its own) stages the cotangent g in
+//     bf16 (the wrapper casts it once) and rounds each view's pass-B
+//     transpose T[x, v] once, where the plain version rounds the pass-B
+//     cotangent; the pass-A sums and the volume stay fp32.
 // tomojax rounds the products w*g and its aligned accumulator because
 // those are its matmul operands; a gather has no such operand, so the
 // rounding points are g and T. The difference lies within tomojax's
 // contract for the tier (3e-3 relative per apply, 5e-3 A/A^T mismatch:
-// scripts/tpu_kernel_check.py). 16-byte copies carry 8 bf16 values: they
-// need nz (K1b) or nv (K2b) a multiple of 8; other sizes stage with plain
-// loads. kernels/slab.py's plain bf16 versions round at the same points.
+// scripts/tpu_kernel_check.py). kernels/slab.py's plain bf16 versions round
+// at the same points.
+//
+// K2b owes K1b no bit-for-bit transpose (the tier's contract is 3e-3), so
+// it is not K2: both transposes are gathers over a fixed count of
+// consecutive candidates with the weight hat(p - k) = max(0, 1 - |p - k|),
+// which is the lerp's weight of tap k (1 - w for floor(p), w for the next)
+// and zero for every other candidate. No thread branches on a tap, there
+// are no running sums to flush, and a window may be loose. The positions
+// follow the plain version's operations, each rounded once, and T sums
+// scale * g as the plain vjp does, so T is the plain version's pass-B
+// cotangent to the rounding of its sum and its bf16 rounding falls the
+// same way almost everywhere (K2 took K1's positions, a few ulps from the
+// plain ones, which moved K2b 2e-4 from its plain version). What bounds K2b: the
+// issue rate of the two gathers' arithmetic, as it bounds K1.
+// 16-byte copies carry 8 bf16 values: they need nz (K1b) or nv (K2b) a
+// multiple of 8; other sizes stage with plain loads.
 
 #include <cstdint>
 
@@ -651,26 +663,22 @@ fwd_kernel(const TS* __restrict__ vol, const float* __restrict__ scalars,
 // kVC detector rows v (one chunk per view at 256^3 with a unit pitch: the
 // u window of 32 columns is ~35-50 wide, the v window of 64 z ~70),
 // double-buffered with cp.async across chunks and views. A view's row
-// chunks start at a multiple of per16<TS>() rows, so that rows of whole
-// 16-byte words (nv a multiple of per16<TS>()) are staged with 16-byte
-// copies. kXR = 11 makes
+// chunks start at a multiple of 4 rows, so that rows of whole 16-byte
+// words (nv a multiple of 4) are staged with 16-byte copies. kXR = 11
+// makes
 // the pass-B owners (3 per row v) fit the CTA in one round. A pass-A
 // thread owns kZR voxels z of one column x for the whole call and keeps
 // their sums in registers.
 constexpr int kAdjThreads = 256;
 constexpr int kTX = 32, kTZ = 64;
 constexpr int kUC = 64, kVC = 80;
-static_assert(kVC % per16<float>() == 0 && kVC % per16<__nv_bfloat16>() == 0,
-              "row chunks keep their alignment");
+static_assert(kVC % 4 == 0, "row chunks keep their alignment");
 constexpr int kXR = 11, kZR = 8;               // owned x (pass B), z (pass A)
 constexpr int kXG = (kTX + kXR - 1) / kXR;     // pass-B owners per row v
 constexpr int kVP = kVC + 1;                   // T pitch: pass A's lanes
 constexpr int kStage = kUC * kVC;
-// two staged chunks of TS, then T (fp32)
-template <typename TS>
-constexpr int adj_smem() {
-  return static_cast<int>(sizeof(TS)) * 2 * kStage + 4 * kTX * kVP;
-}
+// two staged chunks, then T
+constexpr int kAdjSmem = 4 * 2 * kStage + 4 * kTX * kVP;
 
 // One view as a tile sees it: its plane, the slab's offsets, the two
 // reciprocals and the v window of the tile.
@@ -721,7 +729,6 @@ __device__ __forceinline__ void u_window(const ViewTile& w, const AdjTile& t,
 
 // Advance c (and w, when the view changes) to the next chunk with work;
 // false when the tile's views are done. Every thread runs the same steps.
-template <typename TS>
 __device__ bool next_chunk(const AdjTile& t, ViewTile* w, Chunk* c) {
   if (c->uc0 + kUC <= c->uhi) {
     c->uc0 += kUC;
@@ -732,7 +739,7 @@ __device__ bool next_chunk(const AdjTile& t, ViewTile* w, Chunk* c) {
     while (vc0 > w->vhi) {
       if (++c->view >= t.V) return false;
       view_tile(t, c->view, w);
-      vc0 = w->vlo / per16<TS>() * per16<TS>();   // vlo >= 0
+      vc0 = w->vlo / 4 * 4;   // vlo >= 0
     }
     const int vc1 = min(w->vhi, vc0 + kVC - 1);
     int l0, h0, l1, h1;
@@ -752,24 +759,21 @@ __device__ bool next_chunk(const AdjTile& t, ViewTile* w, Chunk* c) {
   }
 }
 
-// Stage chunk c of the cotangent g: (V, nu, nv) of TS into dst[ul][vl].
-// Where the chunk's rows start on 16-byte words in g and in dst (nv a
-// multiple of kPer = per16<TS>()), with 16-byte copies: the last word of a
-// row may run past vc1, never past the row's end (vc0 is a multiple of
-// kPer, vc0 + kPer q <= vc1 < nv), into slots that nothing reads. Else
-// fp32 with 4-byte copies, bf16 with plain loads and stores (cp.async has
-// no 2-byte copy; the next chunk's barrier makes them visible, as it does
-// the copies).
-template <typename TS>
-__device__ __forceinline__ void stage_chunk(TS* dst, const TS* g,
+// Stage chunk c of the cotangent g: (V, nu, nv) into dst[ul][vl]. Where
+// the chunk's rows start on 16-byte words in g and in dst (nv a multiple
+// of kPer = 4), with 16-byte copies: the last word of a row may run past
+// vc1, never past the row's end (vc0 is a multiple of kPer, vc0 + kPer q
+// <= vc1 < nv), into slots that nothing reads. Else with 4-byte copies.
+__device__ __forceinline__ void stage_chunk(float* dst, const float* g,
                                             const AdjTile& t,
                                             const Chunk& c) {
-  constexpr int kPer = per16<TS>();
+  constexpr int kPer = 4;
   const int nuw = min(c.uhi - c.uc0 + 1, kUC);
   const int nvw = c.vc1 - c.vc0 + 1;
-  const TS* src = g + (static_cast<size_t>(c.view) * t.nu + c.uc0) * t.nv +
-                  c.vc0;
-  if (((reinterpret_cast<uintptr_t>(src) | (sizeof(TS) * t.nv)) & 15) == 0) {
+  const float* src = g + (static_cast<size_t>(c.view) * t.nu + c.uc0) * t.nv +
+                     c.vc0;
+  if (((reinterpret_cast<uintptr_t>(src) | (sizeof(float) * t.nv)) & 15) ==
+      0) {
     constexpr int kW = kVC / kPer;   // 16-byte words per staged row
     const int nq = (nvw + kPer - 1) / kPer;
     for (int e = threadIdx.x; e < nuw * kW; e += kAdjThreads) {
@@ -783,10 +787,7 @@ __device__ __forceinline__ void stage_chunk(TS* dst, const TS* g,
   for (int e = threadIdx.x; e < nuw * kVC; e += kAdjThreads) {
     const int ul = e / kVC, vl = e - ul * kVC;
     if (vl >= nvw) continue;
-    if constexpr (sizeof(TS) == 4)
-      cp_async4(dst + e, src + static_cast<size_t>(ul) * t.nv + vl);
-    else
-      dst[e] = src[static_cast<size_t>(ul) * t.nv + vl];
+    cp_async4(dst + e, src + static_cast<size_t>(ul) * t.nv + vl);
   }
 }
 
@@ -808,16 +809,14 @@ __device__ __forceinline__ void add_owned(float acc[kZR], int j, float val) {
 //     sweeping their joint v window once with two running sums.
 // (Point scans, and sums in registers selected per candidate, were slower
 // on the H100, as were 2 or 3 CTAs per SM: PERF.md section 6. Four CTAs
-// per SM hold the registers to 64 without spills.) K2b (TS bf16) stages g
-// in bf16 and rounds scale * T[x, v] where pass A reads it.
-template <typename TS>
+// per SM hold the registers to 64 without spills.)
 __global__ void __launch_bounds__(kAdjThreads, 4)
-adj_kernel(const TS* __restrict__ g, const float* __restrict__ scalars,
+adj_kernel(const float* __restrict__ g, const float* __restrict__ scalars,
            float* __restrict__ vol, int V, int nx, int ny, int nz, int nu,
            int nv) {
   extern __shared__ __align__(16) float sm[];
-  TS* const stage = reinterpret_cast<TS*>(sm);   // two chunks [ul][vl]
-  float* const sT = reinterpret_cast<float*>(stage + 2 * kStage);  // [xl][vl]
+  float* const stage = sm;                  // two chunks [ul][vl]
+  float* const sT = stage + 2 * kStage;     // [xl][vl]
   const int tid = threadIdx.x;
   const int z0 = blockIdx.x * kTZ, x0 = blockIdx.y * kTX, ri = blockIdx.z;
   const int ntx = min(kTX, nx - x0), ntz = min(kTZ, nz - z0);
@@ -837,14 +836,14 @@ adj_kernel(const TS* __restrict__ g, const float* __restrict__ scalars,
   ViewTile w;
   w.vhi = -1;
   Chunk c{-1, -kVC, -1, 0, 0, -1};
-  bool have = next_chunk<TS>(t, &w, &c);
+  bool have = next_chunk(t, &w, &c);
   if (have) stage_chunk(stage, g, t, c);
   cp_async_commit();
   int buf = 0;
   while (have) {
     ViewTile wn = w;
     Chunk cn = c;
-    const bool more = next_chunk<TS>(t, &wn, &cn);
+    const bool more = next_chunk(t, &wn, &cn);
     if (more) {
       stage_chunk(stage + (buf ^ 1) * kStage, g, t, cn);
       cp_async_commit();
@@ -853,7 +852,7 @@ adj_kernel(const TS* __restrict__ g, const float* __restrict__ scalars,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const TS* sG = stage + buf * kStage;
+    const float* sG = stage + buf * kStage;
     const int uc1 = min(c.uhi, c.uc0 + kUC - 1);
     const int nvw = c.vc1 - c.vc0 + 1;
     const bool first_u = c.uc0 == c.ulo;
@@ -886,7 +885,7 @@ adj_kernel(const TS* __restrict__ g, const float* __restrict__ scalars,
         const float f = floorf(X);
         const int k = static_cast<int>(f);
         const float wx = X - f;
-        const float gv = val(sG[(u - c.uc0) * kVC + vl]);
+        const float gv = sG[(u - c.uc0) * kVC + vl];
         if (i == 0) cur = k;
         while (cur < k) {   // the sweep has passed column cur
           if (cur >= xa && cur <= xb) col[(cur - xa) * kVP] += s0;
@@ -925,7 +924,7 @@ adj_kernel(const TS* __restrict__ g, const float* __restrict__ scalars,
           const float f = floorf(zeta);
           const int k = static_cast<int>(f);
           const float wz = zeta - f;
-          const float tv = round_ts<TS>(trow[v] * w.p.scale);
+          const float tv = trow[v] * w.p.scale;
           if (i == 0) cur = k;
           while (cur < k) {   // the sweep has passed voxel cur
             add_owned(acc, cur - za_o, s0);
@@ -951,6 +950,444 @@ adj_kernel(const TS* __restrict__ g, const float* __restrict__ scalars,
   // every voxel written once, through shared memory so that the stores run
   // along z
   __syncthreads();
+  float* const sOut = sm;   // [xl][zl], kTX x (kTZ + 1)
+  if (owns_a) {
+#pragma unroll
+    for (int s = 0; s < kZR; ++s)
+      if (za_o + s <= zb_o) sOut[xa_l * (kTZ + 1) + za_o + s - z0] = acc[s];
+  }
+  __syncthreads();
+  for (int e = tid; e < ntx * kTZ; e += kAdjThreads) {
+    const int xl = e / kTZ, zl = e - xl * kTZ;
+    if (zl < ntz)
+      vol[(static_cast<size_t>(x0 + xl) * ny + ri) * nz + z0 + zl] =
+          sOut[xl * (kTZ + 1) + zl];
+  }
+}
+
+// K2b tiling. A CTA owns slab r and the same kTX x kTZ tile of (x, z) as
+// K2. It walks the group's views in chunks (view, v chunk of up to kBVC
+// rows from a multiple of 8, u chunk of up to kBUC columns; one chunk per
+// view at 256^3 and 512^3 with a unit pitch). Phase k, between two
+// barriers: the copies of chunk k + 1 are issued (cp.async into the other
+// of two staged chunks), pass B of chunk k runs, and pass A of chunk k - 1
+// (the tables alternate), so a chunk costs one __syncthreads. For pass B,
+// kBRows * kBVC threads own one row v each and the columns x = xg, xg +
+// kBRows, ... of it (kBEnt entries, their sums waiting in shared slots of
+// the thread's own where a v chunk has several u chunks); for pass A a
+// thread owns kZR voxels z of one column x (their sums stay in registers
+// across the call). Each view's windows and constants are computed once
+// per CTA, by one lane each, kBBatch views at a time, into a ring of three
+// batches in shared memory.
+constexpr int kBUC = 64, kBVC = 80;
+constexpr int kBStage = kBUC * kBVC;                // bf16 values of a chunk
+constexpr int kBTP = kBVC + 2;                      // T pitch: 41 words, odd
+constexpr int kBRows = 3;                           // pass-B threads a row v
+constexpr int kBEnt = (kTX + kBRows - 1) / kBRows;  // pass-B entries a thread
+constexpr int kBBatch = 32;                         // view records per batch
+static_assert(kBRows * kBVC <= kAdjThreads, "a pass-B thread per row part");
+static_assert(kBVC % 8 == 0, "rows of 16-byte words");
+
+// One view as a K2b tile sees it: the slab's offsets, the positions'
+// scalars, the v window [vs, vhi] (vs aligned down to 8 rows for 16-byte
+// copies) in nvc chunks and the u window [ulo, uhi] in nuc chunks (nvc = 0:
+// no tap of the view reaches the tile), and the candidates a pass-B entry
+// (cu) and a pass-A voxel (cv) take: the most integers that an open
+// interval of width 2 / |eux| (2 / |zav|) can hold.
+struct ViewRec {
+  float cx, cz, eux, evx, zav, gzx, scale, inv_eux, inv_zav;
+  int vs, vhi, nvc, ulo, uhi, nuc, cu, cv;
+};
+// two staged chunks and two tables T (bf16), the ring of view records, and
+// the pass-B sums carried across u chunks (fp32, [entry][thread])
+constexpr int kBSmem = 2 * (2 * kBStage) + 2 * (2 * kTX * kBTP) +
+                       3 * kBBatch * static_cast<int>(sizeof(ViewRec)) +
+                       4 * kBEnt * kAdjThreads;
+static_assert(4 * kTX * (kTZ + 1) <= kBSmem, "the output staging fits");
+
+// i as a float, for |i| < 2^22: 1.5 * 2^23 + i in the mantissa, less
+// 1.5 * 2^23 (an integer add and a float add: I2F issues at a quarter of
+// the FMA rate).
+__device__ __forceinline__ float int_to_float(int i) {
+  return __int_as_float(0x4B400000 + i) - 12582912.0f;
+}
+
+// x rounded to bf16 (nearest even) as its 16 bits, for finite x: an
+// integer add (the conversion instruction issues at a quarter of the FMA
+// rate).
+__device__ __forceinline__ unsigned short bf16_bits(float x) {
+  const unsigned u = __float_as_uint(x);
+  return static_cast<unsigned short>((u + 0x7FFFu + ((u >> 16) & 1u)) >> 16);
+}
+
+// The float of a bf16's 16 bits.
+__device__ __forceinline__ float bf16_value(unsigned short b) {
+  return __uint_as_float(static_cast<unsigned>(b) << 16);
+}
+
+// The most integers that an open interval of width w can hold, at least
+// one and at most cap (NaN: cap).
+__device__ __forceinline__ int candidates(float w, int cap) {
+  const float c = fminf(ceilf(w), static_cast<float>(cap));
+  return max(1, static_cast<int>(c));
+}
+
+// View `view`'s record for the tile t. The positions follow the plain
+// version's operations (kernels/slab.py, core/slab_projector.py
+// _forward_chunk), each rounded once: cx = cxb + rx*r, X = (cx + evx*v) +
+// eux*u, zeta = (cz + gzx*(x - cx)) + v*zav. The windows are K2's
+// (window()'s slack), over the tile's extreme columns and the view's
+// extreme rows.
+__device__ void view_rec(const float* __restrict__ scalars, int view,
+                         const AdjTile& t, bool vec, ViewRec* out) {
+  const Plane p = load_plane(scalars + static_cast<size_t>(view) * NS);
+  ViewRec w;
+  w.cx = __fadd_rn(p.cxb, __fmul_rn(p.rx, t.r));
+  w.cz = __fadd_rn(p.czb, __fmul_rn(p.rz, t.r));
+  w.eux = p.eux;
+  w.evx = p.evx;
+  w.zav = p.zav;
+  w.gzx = p.gzx;
+  w.scale = p.scale;
+  w.inv_eux = __frcp_rn(p.eux);
+  w.inv_zav = __frcp_rn(p.zav);
+  int l0, h0, l1, h1;
+  window(fmaf(p.gzx, t.fxa - w.cx, w.cz), p.zav, w.inv_zav, t.fza - 1.0f,
+         t.fzb + 1.0f, 0.0f, t.nv, &l0, &h0);
+  window(fmaf(p.gzx, t.fxb - w.cx, w.cz), p.zav, w.inv_zav, t.fza - 1.0f,
+         t.fzb + 1.0f, 0.0f, t.nv, &l1, &h1);
+  const int vlo = min(l0, l1);
+  w.vhi = max(h0, h1);
+  w.vs = vec ? vlo & ~7 : vlo;
+  const float ext = fabsf(p.evx) * t.nv;
+  window(fmaf(p.evx, static_cast<float>(w.vs), w.cx), p.eux, w.inv_eux,
+         t.fxa - 1.0f, t.fxb + 1.0f, ext, t.nu, &l0, &h0);
+  window(fmaf(p.evx, static_cast<float>(w.vhi), w.cx), p.eux, w.inv_eux,
+         t.fxa - 1.0f, t.fxb + 1.0f, ext, t.nu, &l1, &h1);
+  w.ulo = min(l0, l1);
+  w.uhi = max(h0, h1);
+  const bool empty = vlo > w.vhi || w.ulo > w.uhi;
+  w.nvc = empty ? 0 : (w.vhi - w.vs) / kBVC + 1;
+  w.nuc = empty ? 1 : (w.uhi - w.ulo) / kBUC + 1;
+  w.cu = candidates(2.0f * fabsf(w.inv_eux), kBUC);
+  w.cv = candidates(2.0f * fabsf(w.inv_zav), kBVC);
+  *out = w;
+}
+
+__device__ __forceinline__ const ViewRec& rec(const ViewRec* ring, int view) {
+  return ring[(view / kBBatch) % 3 * kBBatch + view % kBBatch];
+}
+
+// A chunk: view, v chunk vci and u chunk uci packed as vu = vci * kPosU +
+// uci (registers are the scarce resource); an empty view is one chunk.
+constexpr int kPosShift = 12;
+constexpr int kPosU = 1 << kPosShift;
+struct Pos {
+  int view, vu;
+  __device__ int vci() const { return vu >> kPosShift; }
+  __device__ int uci() const { return vu & (kPosU - 1); }
+};
+
+__device__ __forceinline__ void advance(Pos* s, const ViewRec* ring) {
+  const ViewRec& w = rec(ring, s->view);
+  if (s->uci() + 1 < w.nuc) {
+    ++s->vu;
+  } else if (s->vci() + 1 < max(w.nvc, 1)) {
+    s->vu = (s->vci() + 1) * kPosU;
+  } else {
+    s->vu = 0;
+    ++s->view;
+  }
+}
+
+// A chunk's extent: v rows [vc0, vc0 + nvw), u columns [uc0, uc0 + nst)
+// staged (nst >= cu: rows past the u window hold g or, past the detector,
+// zeros, so that every pass-B candidate lies in the buffer).
+struct Extent {
+  int vc0, nvw, uc0, nst;
+};
+
+__device__ __forceinline__ Extent extent(const ViewRec& w, const Pos& s) {
+  Extent e;
+  e.vc0 = w.vs + s.vci() * kBVC;
+  e.nvw = min(w.vhi - e.vc0 + 1, kBVC);
+  e.uc0 = w.ulo + s.uci() * kBUC;
+  e.nst = min(max(min(w.uhi - e.uc0 + 1, kBUC), w.cu), kBUC);
+  return e;
+}
+
+// Issue the copies of chunk s of the cotangent g (V, nu, nv) in bf16 into
+// dst[ul][vl] (one commit group): 16-byte copies where vec (nv a multiple
+// of 8, g 16-byte aligned, vc0 a multiple of 8: the last word of a row
+// may run past the chunk, never past the row's end), zeros for the rows
+// past the detector; else plain loads and stores, which the phase's
+// barrier makes visible as it does the copies.
+__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* g,
+                                           const ViewRec& w, const Pos& s,
+                                           int nu, int nv, bool vec) {
+  if (w.nvc > 0) {
+    const Extent c = extent(w, s);
+    const __nv_bfloat16* src =
+        g + (static_cast<size_t>(s.view) * nu + c.uc0) * nv + c.vc0;
+    if (vec) {
+      constexpr int kW = kBVC / 8;
+      const int nq = (c.nvw + 7) / 8;
+      for (int e = threadIdx.x; e < c.nst * kW; e += kAdjThreads) {
+        const int ul = e / kW, q = e - ul * kW;
+        if (q >= nq) continue;
+        const bool in = c.uc0 + ul < nu;
+        cp_async16_zfill(dst + 8 * e,
+                         in ? src + static_cast<size_t>(ul) * nv + 8 * q : g,
+                         in ? 16 : 0);
+      }
+    } else {
+      for (int e = threadIdx.x; e < c.nst * kBVC; e += kAdjThreads) {
+        const int ul = e / kBVC, vl = e - ul * kBVC;
+        if (vl < c.nvw)
+          dst[e] = c.uc0 + ul < nu ? src[static_cast<size_t>(ul) * nv + vl]
+                                   : __float2bfloat16_rn(0.0f);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// The first of the candidates of a gather whose open window (in index
+// units) starts at q: floor(q) + 1, clamped to [lo, hi], as an int and a
+// float. A window start that rounding moves across an integer drops a tap
+// whose weight is below that rounding; the clamp keeps every read in the
+// staged rows, whose rows outside the chunk hold zeros or belong to no
+// other chunk.
+__device__ __forceinline__ int first_candidate(float q, int lo, int hi,
+                                               float* f) {
+  const int k = min(max(floor_small(q).k + 1, lo), hi);
+  *f = int_to_float(k);
+  return k;
+}
+
+// The lerp weight that position pos gives tap k: 1 - |pos - k| where
+// positive (1 - w for k = floor(pos), w for k + 1: the plain version's
+// weights), else 0.
+__device__ __forceinline__ float hat(float pos, float k) {
+  return fmaxf(0.0f, 1.0f - fabsf(pos - k));
+}
+
+// Pass B of one thread's entries (x = x0 + xg + kBRows*q, v) of a chunk:
+// T[x, v] += hat(X(u, v) - x) * scale * g[u, v] over kC consecutive u (kC
+// = 0: cu of them), X = (cx + evx*v) + eux*u, the sum starting from 0
+// (first u chunk) or this thread's slot in sAcc, and going back there, or
+// after the v chunk's last u chunk, rounded, to the table tb (zero for a
+// row past the chunk, row_in false). scale * g is the plain vjp's
+// cotangent, so T is its pass-B transpose to the rounding of the sum.
+// kOne: the v chunk has one u chunk (first and last).
+template <int kC, bool kOne>
+__device__ __forceinline__ void pass_b_entries(
+    unsigned short* __restrict__ tb, float* __restrict__ slots,
+    const __nv_bfloat16* __restrict__ sG, const ViewRec& w, float base,
+    float q0, float fx0, int nq, int uc0, int smax, int cu, bool row_in,
+    bool first, bool last) {
+  if (kOne) first = last = true;   // the v chunk's only u chunk
+  const float step = static_cast<float>(kBRows) * w.inv_eux;
+#pragma unroll
+  for (int q = 0; q < kBEnt; ++q) {
+    if (q >= nq) break;
+    float t = first ? 0.0f : slots[q * kAdjThreads];
+    if (row_in) {
+      const float fx = fx0 + static_cast<float>(kBRows * q);
+      float fu;
+      const int u0 = first_candidate(fmaf(static_cast<float>(q), step, q0),
+                                     uc0, smax, &fu);
+      const __nv_bfloat16* gp = sG + (u0 - uc0) * kBVC;
+      const int n = kC > 0 ? kC : cu;
+#pragma unroll
+      for (int i = 0; i < (kC > 0 ? kC : 4); ++i) {
+        if (kC == 0 && i >= n) break;
+        const float X =
+            __fadd_rn(base, __fmul_rn(w.eux, fu + static_cast<float>(i)));
+        t = fmaf(hat(X, fx), __fmul_rn(w.scale, __bfloat162float(gp[i * kBVC])),
+                 t);
+      }
+      for (int i = kC > 0 ? kC : 4; i < n; ++i) {
+        const float X =
+            __fadd_rn(base, __fmul_rn(w.eux, fu + static_cast<float>(i)));
+        t = fmaf(hat(X, fx), __fmul_rn(w.scale, __bfloat162float(gp[i * kBVC])),
+                 t);
+      }
+    }
+    if (last)
+      tb[kBRows * q * kBTP] = bf16_bits(t);
+    else
+      slots[q * kAdjThreads] = t;
+  }
+}
+
+// Pass A of one thread's voxels (column x, z = za + j) over a chunk's rows:
+// acc[j] += hat(zeta(x, v) - z) * T[x, v] over kC consecutive v (kC = 0: cv
+// of them), zeta = (cz + gzx*(x - cx)) + v*zav.
+template <int kC>
+__device__ __forceinline__ void pass_a_gather(
+    float (&acc)[kZR], const unsigned short* __restrict__ trow,
+    const ViewRec& w, float a, float q0, float fzo, int vc0, int smax,
+    int cv) {
+#pragma unroll
+  for (int j = 0; j < kZR; ++j) {
+    const float fz = fzo + static_cast<float>(j);
+    float fv;
+    const int v0 = first_candidate(
+        fmaf(static_cast<float>(j), w.inv_zav, q0), vc0, smax, &fv);
+    float t = acc[j];
+    const int n = kC > 0 ? kC : cv;
+#pragma unroll
+    for (int i = 0; i < (kC > 0 ? kC : 4); ++i) {
+      if (kC == 0 && i >= n) break;
+      const float zeta =
+          __fadd_rn(a, __fmul_rn(fv + static_cast<float>(i), w.zav));
+      t = fmaf(hat(zeta, fz), bf16_value(trow[v0 + i]), t);
+    }
+    for (int i = kC > 0 ? kC : 4; i < n; ++i) {
+      const float zeta =
+          __fadd_rn(a, __fmul_rn(fv + static_cast<float>(i), w.zav));
+      t = fmaf(hat(zeta, fz), bf16_value(trow[v0 + i]), t);
+    }
+    acc[j] = t;
+  }
+}
+
+// K2b: grid (z tiles, x tiles, slabs r); g (V, nu, nv) in bf16, scalars
+// (V, NS), vol (nx, ny, nz); vec: nv a multiple of 8 and g 16-byte
+// aligned. Every voxel is written once, and every sum runs in one fixed
+// order (no atomics). Both transposes are gathers: an entry T[x, v] sums
+// hat(X(u, v) - x) * scale * g[u, v] over cu consecutive u from its
+// window's start and is rounded to bf16 once, where the plain version
+// rounds the pass-B cotangent; a voxel sums hat(zeta(x, v) - z) * T[x, v]
+// over cv consecutive v. A candidate outside the window adds zero, and no
+// thread branches on a tap.
+__global__ void __launch_bounds__(kAdjThreads, 4)
+adj_bf16_kernel(const __nv_bfloat16* __restrict__ g,
+                const float* __restrict__ scalars, float* __restrict__ vol,
+                int V, int nx, int ny, int nz, int nu, int nv, bool vec) {
+  extern __shared__ __align__(16) float sm[];
+  __nv_bfloat16* const stage = reinterpret_cast<__nv_bfloat16*>(sm);
+  // 2 x [xl][vl]: T's bf16 bits
+  unsigned short* const sT =
+      reinterpret_cast<unsigned short*>(stage + 2 * kBStage);
+  ViewRec* const ring = reinterpret_cast<ViewRec*>(sT + 2 * kTX * kBTP);
+  float* const sAcc = reinterpret_cast<float*>(ring + 3 * kBBatch);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int z0 = blockIdx.x * kTZ, x0 = blockIdx.y * kTX, ri = blockIdx.z;
+  const int ntx = min(kTX, nx - x0), ntz = min(kTZ, nz - z0);
+  const AdjTile t{scalars, V, nu, nv, static_cast<float>(ri),
+                  static_cast<float>(x0), static_cast<float>(x0 + ntx - 1),
+                  static_cast<float>(z0), static_cast<float>(z0 + ntz - 1)};
+  // this thread's pass-A voxels: column xa_l, z in [za_o, zb_o]
+  const int xa_l = tid % kTX;
+  const int za_o = z0 + (tid / kTX) * kZR;
+  const int zb_o = min(za_o + kZR, z0 + ntz) - 1;
+  const bool owns_a = xa_l < ntx && za_o <= zb_o;
+  const float fxo = static_cast<float>(x0 + xa_l);
+  const float fzo = static_cast<float>(za_o);
+  // this thread's pass-B entries: row vb, columns xg + kBRows*q (q < nqb)
+  const int vb = tid % kBVC, xg = tid / kBVC;
+  const bool owns_b = tid < kBRows * kBVC && xg < ntx;
+  const int nqb = (ntx - xg + kBRows - 1) / kBRows;
+  const float fxb = static_cast<float>(x0 + xg);
+  float acc[kZR];
+#pragma unroll
+  for (int s = 0; s < kZR; ++s) acc[s] = 0.0f;
+
+  // the records of batches 0 and 1
+  if (tid < 2 * kBBatch && tid < V) view_rec(scalars, tid, t, vec, ring + tid);
+  __syncthreads();
+  Pos pa{V, 0}, pb{0, 0}, ps{0, 0};   // pass A, pass B, staging
+  if (V > 0) {
+    stage_bf16(stage, g, rec(ring, 0), pb, nu, nv, vec);
+    advance(&ps, ring);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int k = 0; pb.view < V || pa.view < V; ++k) {
+    if (ps.view < V) {
+      stage_bf16(stage + ((k + 1) & 1) * kBStage, g, rec(ring, ps.view), ps,
+                 nu, nv, vec);
+      // the staging enters batch b >= 1: warp 0 computes batch b + 1 into
+      // the ring slot of batch b - 2, which no phase reads any more
+      const int nb = ps.view + kBBatch + lane;
+      if (ps.view % kBBatch == 0 && ps.view > 0 && ps.vu == 0 && tid < 32 &&
+          nb < V)
+        view_rec(scalars, nb, t, vec,
+                 ring + (nb / kBBatch) % 3 * kBBatch + nb % kBBatch);
+    }
+    if (pb.view < V) {
+      const ViewRec& w = rec(ring, pb.view);
+      if (w.nvc > 0) {
+        // pass B of chunk k: T[x, v] for this thread's entries
+        const Extent c = extent(w, pb);
+        const bool first = pb.uci() == 0, last = pb.uci() == w.nuc - 1;
+        const int cu = min(w.cu, c.nst);
+        const int smax = c.uc0 + c.nst - cu;
+        if (owns_b) {
+          const bool row_in = vb < c.nvw;
+          const float fv = int_to_float(c.vc0 + vb);
+          const float base = __fadd_rn(w.cx, __fmul_rn(w.evx, fv));
+          const float lo = w.eux > 0.0f ? -1.0f : 1.0f;
+          const float q0 = __fmul_rn(__fsub_rn(__fadd_rn(fxb, lo), base),
+                                     w.inv_eux);
+          const __nv_bfloat16* const sG = stage + (k & 1) * kBStage + vb;
+          unsigned short* const tb =
+              sT + (k & 1) * (kTX * kBTP) + xg * kBTP + vb;
+          float* const slots = sAcc + tid;
+#define K2B_PASS_B(C, ONE)                                             \
+  pass_b_entries<C, ONE>(tb, slots, sG, w, base, q0, fxb, nqb, c.uc0,  \
+                         smax, cu, row_in, first, last)
+          if (w.nuc == 1) {
+            switch (cu) {
+              case 1: K2B_PASS_B(1, true); break;
+              case 2: K2B_PASS_B(2, true); break;
+              case 3: K2B_PASS_B(3, true); break;
+              default: K2B_PASS_B(0, true);
+            }
+          } else {
+            K2B_PASS_B(0, false);
+          }
+#undef K2B_PASS_B
+        }
+      }
+    }
+    if (pa.view < V && owns_a) {
+      const ViewRec& w = rec(ring, pa.view);
+      if (w.nvc > 0 && pa.uci() == w.nuc - 1) {
+        // pass A of chunk k - 1: this thread's voxels gather cv rows each
+        const Extent c = extent(w, pa);
+        const int nvs = min(max(c.nvw, w.cv), kBVC);
+        const int cv = min(w.cv, nvs);
+        const int smax = c.vc0 + nvs - cv;
+        const unsigned short* const trow =
+            sT + ((k - 1) & 1) * (kTX * kBTP) + xa_l * kBTP - c.vc0;
+        const float a =
+            __fadd_rn(w.cz, __fmul_rn(w.gzx, __fsub_rn(fxo, w.cx)));
+        const float lo = w.zav > 0.0f ? -1.0f : 1.0f;
+        const float q0 =
+            __fmul_rn(__fsub_rn(__fadd_rn(fzo, lo), a), w.inv_zav);
+#define K2B_PASS_A(C) \
+  pass_a_gather<C>(acc, trow, w, a, q0, fzo, c.vc0, smax, cv)
+        switch (cv) {
+          case 1: K2B_PASS_A(1); break;
+          case 2: K2B_PASS_A(2); break;
+          case 3: K2B_PASS_A(3); break;
+          default: K2B_PASS_A(0);
+        }
+#undef K2B_PASS_A
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    pa = pb;
+    pb = ps;
+    if (ps.view < V) advance(&ps, ring);
+  }
+  // every voxel written once, through shared memory so that the stores run
+  // along z
   float* const sOut = sm;   // [xl][zl], kTX x (kTZ + 1)
   if (owns_a) {
 #pragma unroll
@@ -998,20 +1435,36 @@ int launch_fwd(const TS* vol, const float* scalars, float* out, int V,
   return 0;
 }
 
-// Launch K2 (TS float) or K2b (TS bf16).
-template <typename TS>
-int launch_adj(const TS* g, const float* scalars, float* vol, int V, int nx,
-               int ny, int nz, int nu, int nv, void* stream) {
+// Launch K2.
+int launch_adj(const float* g, const float* scalars, float* vol, int V,
+               int nx, int ny, int nz, int nu, int nv, void* stream) {
   if (static_cast<long long>(nx) * ny * nz <= 0) return 0;
   if (ny > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   const cudaError_t e = cudaFuncSetAttribute(
-      adj_kernel<TS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      adj_smem<TS>());
+      adj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kAdjSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((nz + kTZ - 1) / kTZ, (nx + kTX - 1) / kTX, ny);
-  adj_kernel<TS><<<grid, kAdjThreads, adj_smem<TS>(),
-                   static_cast<cudaStream_t>(stream)>>>(g, scalars, vol, V,
-                                                        nx, ny, nz, nu, nv);
+  adj_kernel<<<grid, kAdjThreads, kAdjSmem,
+               static_cast<cudaStream_t>(stream)>>>(g, scalars, vol, V, nx,
+                                                    ny, nz, nu, nv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch K2b.
+int launch_adj_bf16(const __nv_bfloat16* g, const float* scalars, float* vol,
+                    int V, int nx, int ny, int nz, int nu, int nv,
+                    void* stream) {
+  if (static_cast<long long>(nx) * ny * nz <= 0) return 0;
+  if (ny > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const cudaError_t e = cudaFuncSetAttribute(
+      adj_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const bool vec =
+      nv % 8 == 0 && reinterpret_cast<std::uintptr_t>(g) % 16 == 0;
+  const dim3 grid((nz + kTZ - 1) / kTZ, (nx + kTX - 1) / kTX, ny);
+  adj_bf16_kernel<<<grid, kAdjThreads, kBSmem,
+                    static_cast<cudaStream_t>(stream)>>>(
+      g, scalars, vol, V, nx, ny, nz, nu, nv, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1041,8 +1494,8 @@ int slab_plane_fwd_bf16(const void* vol, const float* scalars, float* out,
 int slab_plane_adj_bf16(const void* g, const float* scalars, float* vol,
                         int V, int nx, int ny, int nz, int nu, int nv,
                         void* stream) {
-  return launch_adj(static_cast<const __nv_bfloat16*>(g), scalars, vol, V,
-                    nx, ny, nz, nu, nv, stream);
+  return launch_adj_bf16(static_cast<const __nv_bfloat16*>(g), scalars, vol,
+                         V, nx, ny, nz, nu, nv, stream);
 }
 
 }  // extern "C"

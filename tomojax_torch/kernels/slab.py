@@ -31,9 +31,10 @@ and :func:`slab_backproject` (K2, K4 and their bf16 variants).
 
 K1/K2 are in ``csrc/slab_plane.cu``, K3/K4/K5 in ``csrc/slab_arc.cu``
 (K3 and K5 are one kernel, ``arc_march_kernel``, templated on the
-Jacobian; the bf16 variants are the same kernels instantiated on the type
-they stage): hand-written CUDA C++ for ``sm_90a``, built by ``_build.py``
-at first use.
+Jacobian; K1b and K3b are K1 and K3 instantiated on the type they stage,
+K2b and K4b kernels of their own, ``adj_bf16_kernel`` and
+``arc_adj_bf16_kernel``): hand-written CUDA C++ for ``sm_90a``, built by
+``_build.py`` at first use.
 A tensor on the CPU takes the plain PyTorch version beside each wrapper
 (``core.slab_projector``'s spec); a CUDA tensor launches the kernel or
 raises.
@@ -239,8 +240,9 @@ def slab_plane_fwd_bf16(vol_or, scalars, geom: Geometry):
 
 
 def slab_plane_adj_bf16(g, scalars, geom: Geometry):
-    """K2b: :func:`slab_plane_adj` in the bf16 tier — the kernel stages a
-    bf16 copy of ``g`` and rounds each view's pass-B transpose."""
+    """K2b: :func:`slab_plane_adj` in the bf16 tier — its own kernel
+    stages a bf16 copy of ``g`` and rounds each view's pass-B transpose
+    once."""
     if g.device.type == "cpu":
         return slab_backproject_plain(g, scalars, geom, prec="bf16")
     out = _adj("slab_plane_adj_bf16", g, scalars, geom)
@@ -260,9 +262,9 @@ def slab_arc_fwd_bf16(vol_or, scalars, geom: Geometry):
 
 
 def slab_arc_adj_bf16(g, scalars, geom: Geometry):
-    """K4b: :func:`slab_arc_adj` in the bf16 tier (bf16 ``g``, each
-    side's pass-B transpose rounded); the scratch volume and the add stay
-    fp32."""
+    """K4b: :func:`slab_arc_adj` in the bf16 tier — its own kernel reads
+    ``g`` in bf16 and rounds each side's pass-B transpose once; the
+    scratch volume and the add stay fp32."""
     if g.device.type == "cpu":
         return slab_backproject_plain(g, scalars, geom, "arc", prec="bf16")
     out = _adj("slab_arc_adj_bf16", g, scalars, geom, *_arc_args(geom),

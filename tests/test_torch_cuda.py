@@ -18,6 +18,7 @@ it to float32 summation rounding (1e-5 relative).
 """
 
 import ctypes
+import hashlib
 
 import numpy as np
 import pytest
@@ -815,6 +816,115 @@ def test_bf16_adjoints_at_odd_sizes(cuda, quad, case):
             fwd_b(vol_or, sc, geom), vol_or, lambda g: adj_b(g, sc, geom),
             tuple(y.shape), rng, 32)
         assert pooled["pooled"] <= 5e-3, pooled
+
+
+def _bf16_fwd_case(device, quad, case):
+    """Groups that drive K1b and K3b (their own designs) down each of their
+    paths: "odd", odd sizes at det_pix 0.7 (nz = 29, not a multiple of 8:
+    the plain-load staging); "coarse", det_pix 2 (T's columns exceed the
+    tables: the direct way per sample); "tilt", 0.35 rad tilts (windows
+    beyond the staged rows for part of the slabs: one march mixes table and
+    direct slabs)."""
+    if case == "odd":
+        geom, views, vol, _ = _plane_odd_case(device)
+    else:
+        rng = np.random.default_rng(3)
+        n, n_proj = 48, 12
+        det_pix, tilt = (2.0, 0.02) if case == "coarse" else (1.0, 0.35)
+        nd = int(np.ceil(n * 1.5 / det_pix))
+        geom = Geometry(n_proj=n_proj, vox_shape=(n,) * 3,
+                        det_shape=(nd, nd + 4), det_pix=(det_pix, det_pix))
+        views = Views.create(
+            n_proj, phi=0.3 + np.linspace(0, 2 * np.pi, n_proj,
+                                          endpoint=False),
+            alpha=rng.uniform(-tilt, tilt, n_proj),
+            beta=rng.uniform(-tilt, tilt, n_proj),
+            t=rng.uniform(-2, 2, (n_proj, 3)))
+        vol = rng.random((n,) * 3).astype(np.float32)
+    return geom, list(_groups(geom, views, vol, device, quad))
+
+
+# K1b's and K3b's bars from their plain bf16 versions per view on these
+# cases: twice the largest reading over the three on an NVIDIA H100 80GB
+# HBM3 at 700 W (plane 9.90e-6, arc 2.12e-6). Fewer rays a view than at
+# 256³, where chip_smoke.py's TOL_BF16_PLAIN holds 1e-5 and 2e-5.
+TOL_BF16_FWD_PLAIN = {"plane": 2e-5, "arc": 5e-6}
+
+
+@pytest.mark.parametrize("quad", ["plane", "arc"])
+@pytest.mark.parametrize("case", ["odd", "coarse", "tilt"])
+def test_bf16_forwards_match_plain_and_repeat(cuda, quad, case):
+    """K1b and K3b on each of their paths: per view within
+    TOL_BF16_FWD_PLAIN of their plain bf16 versions and every ray within
+    5e-4 of its view's largest value (a dropped tap moves a ray by ~1e-3 of
+    it; a table value that rounds the other way, ~1e-4), within 3e-3 and at
+    least 1e-6 of the fp32 kernels, two applies bit-identical."""
+    fwd_b, _, fwd_f, _ = BF16[quad]
+    geom, groups = _bf16_fwd_case(cuda, quad, case)
+    for vol_or, sc in groups:
+        ker = fwd_b(vol_or, sc, geom)
+        assert torch.equal(ker.view(torch.int32),
+                           fwd_b(vol_or, sc, geom).view(torch.int32))
+        ref = slabk.slab_project_plain(vol_or, sc, geom, quad, prec="bf16")
+        rel = float(_per_view_rel(ker, ref).max())
+        assert rel <= TOL_BF16_FWD_PLAIN[quad], rel
+        scale = ref.abs().amax(dim=(-2, -1), keepdim=True)
+        ray = float(((ker - ref).abs() / scale).max())
+        assert ray < 5e-4, ray
+        f32 = fwd_f(vol_or, sc, geom)
+        r = float(torch.linalg.norm(ker - f32) / torch.linalg.norm(f32))
+        assert 1e-6 <= r <= 3e-3, r
+
+
+# SHA-256 of the fp32 kernels' outputs on _problem(48)'s orientation groups
+# (the adjoints on seeded cotangents), from the parent tree's build (c0ab30d)
+# on an NVIDIA H100 80GB HBM3: the bf16 tier's kernels of their own leave
+# K1-K5's bits as they were.
+FP32_ENTRIES = (("slab_plane_fwd", "plane"), ("slab_plane_adj", "plane"),
+                ("slab_arc_fwd", "arc"), ("slab_arc_adj", "arc"),
+                ("slab_arc_jac", "arc"))
+FP32_DIGESTS = {
+    "slab_plane_fwd":
+        "0c51a2f4d986e405472350803eb83b498f54bce573e47ddc4375458605d14cf7",
+    "slab_plane_adj":
+        "93101626908d127d294418254d654d454c39924522057d03efb7b7e1cc33316c",
+    "slab_arc_fwd":
+        "e7119bebf6ed2f95395c200b86c8b1f75616686aa688f390ec9441cc6660a753",
+    "slab_arc_adj":
+        "f2d8e89d91adb65ac1980bf9f10cfebc8e49fda21047b8425436c1ec24e22f3e",
+    "slab_arc_jac":
+        "049049102df4df93d287167b27e0218e40fca45c520ed7f6f6508993911ae7c4",
+}
+
+
+def _fp32_digests(run, device):
+    """Each fp32 entry's SHA-256 over _problem(48)'s groups; ``run(entry,
+    geom, inp, scalars)`` → the entry's output."""
+    geom, views, vol, _ = _problem(n=48)
+    out = {}
+    for entry, quad in FP32_ENTRIES:
+        h = hashlib.sha256()
+        gen = np.random.default_rng(21)
+        for vol_or, sc in _groups(geom, views, vol, device, quad):
+            inp = vol_or
+            if "_adj" in entry:
+                inp = torch.as_tensor(gen.standard_normal(
+                    (sc.shape[0],) + geom.det_shape), dtype=torch.float32,
+                    device=device)
+            h.update(run(entry, geom, inp, sc).cpu().numpy().tobytes())
+        out[entry] = h.hexdigest()
+    return out
+
+
+def test_fp32_kernels_keep_their_bits(cuda):
+    """K1-K5 through their wrappers give the parent build's bits."""
+    fns = {"slab_plane_fwd": slabk.slab_plane_fwd,
+           "slab_plane_adj": slabk.slab_plane_adj,
+           "slab_arc_fwd": slabk.slab_arc_fwd,
+           "slab_arc_adj": slabk.slab_arc_adj,
+           "slab_arc_jac": slabk.slab_project_jac}
+    got = _fp32_digests(lambda e, geom, inp, sc: fns[e](inp, sc, geom), cuda)
+    assert got == FP32_DIGESTS
 
 
 def test_bf16_wrappers_raise_on_bad_input(cuda):

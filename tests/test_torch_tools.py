@@ -63,8 +63,9 @@ def test_k1_split_variants_apply_to_the_kernel_source():
 
 @pytest.mark.parametrize("kernel", sorted(adj_split.KERNELS))
 def test_adj_split_variants_apply_to_the_kernel_source(kernel):
-    """Each of tools/adj_split's variants of K2b and K4b matches its text
-    in the source exactly once and changes it; the occupancy entry the
+    """Each of tools/adj_split's variants of the bf16 kernels (K1b-K4b)
+    matches its text in the source exactly once and changes it; the
+    occupancy entry the
     tool appends names the kernel that the source defines (the tool itself
     needs the card)."""
     k = adj_split.KERNELS[kernel]
@@ -75,6 +76,17 @@ def test_adj_split_variants_apply_to_the_kernel_source(kernel):
         assert out != src, name
         assert k["kernel"] in out
     assert "adj_split_occupancy" in adj_split.with_occupancy(k, src)
+
+
+def test_adj_split_counting_build_applies():
+    """tools/adj_split's counting build: each of its edits matches
+    slab_plane.cu exactly once, one counter per (kernel, step kind), and
+    the entry that reads them is appended."""
+    out = adj_split.count_source()
+    assert out.count("atomicAdd(&split_steps[") == 2
+    assert "split_steps[6]" in out
+    assert 'extern "C" int split_step_counts(' in out
+    assert "split_steps" not in adj_split.PLANE.read_text()
 
 
 BASELINE_RUNS = {

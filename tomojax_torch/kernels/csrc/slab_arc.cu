@@ -108,11 +108,19 @@
 // bf16=True variants of _fwd_kernel and _adj_kernel in arc quadrature
 // (chosen at tomojax/kernels/slab.py:904 and :1015), with K3's and K4's
 // samples to the bit and rounding (nearest even) at each pass's input:
-//   K3b is K3 instantiated on the storage type TS = __nv_bfloat16: it
-//     stages the volume's rows in bf16 (the wrapper casts the oriented
-//     volume once) and holds the pass-A tables in bf16: each branch's
-//     z-lerps of both sides are rounded before the (1 - fy)/fy blend reads
-//     them (the direct path rounds the same values);
+//   K3b (arc_fwd_bf16_kernel, a design of its own) stages the volume's rows
+//     in bf16 (the wrapper casts the oriented volume once) and keeps K3's
+//     windows, step order (two barriers a step: pass A beside the previous
+//     step's pass B measured slower), grid and pass-A taps; each branch's
+//     z-lerps h0, h1 of both sides are rounded into one pair word before
+//     the (1 - fy)/fy blend reads them (the direct path rounds the same
+//     values). Its tables carry a zero column before T's window and two
+//     after it, so pass B clamps X into the window and reads both taps
+//     without a test (a tap outside the window lies outside the volume);
+//     one march index per pixel (jreal_of<true>, its ceil by adds) serves
+//     every branch, and floor(X) folds into the table address. What bounds
+//     it: the issue rate of pass A's exact grid and z-lerps, and of pass
+//     B's samples, as K3;
 //   K4b (arc_adj_bf16_kernel, a design of its own) reads the cotangent g in
 //     bf16 (the wrapper casts it once) and rounds the two planes of each
 //     view's and branch's pass-B transpose once, one per target side:
@@ -145,47 +153,10 @@
 
 namespace {
 
-// The storage types of staged values: a value as fp32 (val), fp32 rounded
-// to TS (to_ts, nearest even), and fp32 rounded to TS and back (round_ts).
-__device__ __forceinline__ float val(float x) { return x; }
-__device__ __forceinline__ float val(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename TS>
-__device__ __forceinline__ TS to_ts(float x);
-template <>
-__device__ __forceinline__ float to_ts<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 to_ts<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-template <typename TS>
-__device__ __forceinline__ float round_ts(float x) {
-  return val(to_ts<TS>(x));
-}
-
-// Values of TS per 16-byte copy.
+// Values of a staged type per 16-byte copy.
 template <typename TS>
 __host__ __device__ constexpr int per16() {
   return 16 / static_cast<int>(sizeof(TS));
-}
-
-// A table entry of two values (sides r and r + 1) of TS, as fp32.
-__device__ __forceinline__ float2 load2(const float* q) {
-  return *reinterpret_cast<const float2*>(q);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* q) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(q));
-}
-__device__ __forceinline__ void store2(float* q, float a, float b) {
-  *reinterpret_cast<float2*>(q) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* q, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(q) = __floats2bfloat162_rn(a, b);
 }
 
 // Per-view scalar layout: tomojax_torch/core/slab_projector.py S_*.
@@ -403,11 +374,10 @@ struct ArcStage {
   static_assert(kSZ % per16<TS>() == 0, "staged rows of 16-byte copies");
 };
 
-// The ring and the tables in TS (K5's cf in fp32), then the windows.
-template <bool kJac, typename TS>
+// K3/K5: the ring and the tables (fp32), then the windows.
+template <bool kJac>
 constexpr int fwd_smem() {
-  return static_cast<int>(sizeof(TS)) *
-             (kRing * kSX * ArcStage<TS>::kSZ + tab_width<kJac>() * kTab) +
+  return 4 * (kRing * kSX * ArcStage<float>::kSZ + tab_width<kJac>() * kTab) +
          kChunk * (2 * sizeof(short4) + sizeof(unsigned));
 }
 
@@ -668,9 +638,8 @@ __device__ __forceinline__ void accumulate(float (&a)[kJac ? NJP : 1],
 
 // K3 (kJac false): out (V, nu, nv). K5 (kJac true): out (V, NJP, nu, nv),
 // the 12 building blocks in JAC_PASSES order (val, px, py, pz, jx, jy, jz,
-// rx, ry, rz, zm, zc). grid (v tiles, u tiles, views); vol (nx, ny, nz) of
-// TS (K3b: bf16, its rows and tables held in bf16), scalars (V, NS). Every
-// output is written exactly once.
+// rx, ry, rz, zm, zc). grid (v tiles, u tiles, views); vol (nx, ny, nz),
+// scalars (V, NS). Every output is written exactly once.
 //
 // A step is fast when its tables cover its window, the staged windows hold
 // it and the march has at most two branches: pass A fills the tables from
@@ -679,22 +648,20 @@ __device__ __forceinline__ void accumulate(float (&a)[kJac ? NJP : 1],
 // other step (a window beyond the capacities, a march step below 1/sqrt(2))
 // runs pass B the direct way, grid_at and taps_of on global memory per
 // sample, as a one-thread-per-ray march does.
-template <bool kJac, typename TS>
+template <bool kJac>
 __global__ void __launch_bounds__(kFwdThreads, kJac ? 2 : 4)
-arc_march_kernel(const TS* __restrict__ vol,
+arc_march_kernel(const float* __restrict__ vol,
                  const float* __restrict__ scalars, float* __restrict__ out,
                  int nx, int ny, int nz, int nu, int nv, int n_steps,
                  int n_branch, bool vec) {
-  static_assert(!kJac || sizeof(TS) == 4, "K5 has no bf16 tier");
   constexpr int kF = kJac ? NJP : 1;
   constexpr int kVec = tab_vec<kJac>();
-  constexpr int kSZ = ArcStage<TS>::kSZ;
-  constexpr int kSlots = ArcStage<TS>::kSlots;
+  constexpr int kSZ = ArcStage<float>::kSZ;
+  constexpr int kSlots = ArcStage<float>::kSlots;
   extern __shared__ __align__(16) float sm[];
-  TS* const ring = reinterpret_cast<TS*>(sm);
-  TS* const tab = ring + kRing * kSX * kSZ;   // [branch][xl][v] vectors
-  float* const tab_cf =   // K5: [xl][v]
-      reinterpret_cast<float*>(tab + kVec * kTabBranches * kTab);
+  float* const ring = sm;
+  float* const tab = ring + kRing * kSX * kSZ;   // [branch][xl][v] vectors
+  float* const tab_cf = tab + kVec * kTabBranches * kTab;   // K5: [xl][v]
   short4* const c_step =
       reinterpret_cast<short4*>(tab + tab_width<kJac>() * kTab);
   short4* const c_stage = c_step + kChunk;
@@ -726,11 +693,11 @@ arc_march_kernel(const TS* __restrict__ vol,
 
   int slot[kSlots];
 #pragma unroll
-  for (int i = 0; i < kSlots; ++i) slot[i] = copy_slot<TS>(tid, i);
+  for (int i = 0; i < kSlots; ++i) slot[i] = copy_slot<float>(tid, i);
 
   // staged windows of slabs r and r + 1 (slab 0 staged before step -1)
   short4 st_r = empty_win();
-  short4 st_r1 = stage_window<TS>(p, tile, 0, nx, ny, nz, vec);
+  short4 st_r1 = stage_window<float>(p, tile, 0, nx, ny, nz, vec);
   stage_slab(ring + slab_at(0), vol, 0, st_r1, ny, nz, vec, tid, slot);
 
   for (int ri = -1; ri < ny; ++ri) {
@@ -748,17 +715,17 @@ arc_march_kernel(const TS* __restrict__ vol,
         const bool fast =
             w.y - w.x < kQX && n_branch <= kTabBranches &&
             (rs < 0 ||
-             holds(stage_window<TS>(p, tile, rs, nx, ny, nz, vec), w)) &&
+             holds(stage_window<float>(p, tile, rs, nx, ny, nz, vec), w)) &&
             (rs + 1 >= ny ||
-             holds(stage_window<TS>(p, tile, rs + 1, nx, ny, nz, vec), w));
+             holds(stage_window<float>(p, tile, rs + 1, nx, ny, nz, vec), w));
         const unsigned lb =
             live_branches(p, tile, rs, w, n_branch, n_steps);
         c_step[tid] = w;
         c_live[tid] = lb && fast ? lb | 1u << 31 : lb;
       } else if (tid < 2 * kChunk) {
         c_stage[tid - kChunk] =
-            stage_window<TS>(p, tile, ri + tid - kChunk + 2, nx, ny, nz,
-                             vec);
+            stage_window<float>(p, tile, ri + tid - kChunk + 2, nx, ny, nz,
+                                vec);
       }
       __syncthreads();
     }
@@ -786,8 +753,8 @@ arc_march_kernel(const TS* __restrict__ vol,
             grid_at<true>(p, r, cx, cz, static_cast<float>(x), vt, &cf,
                           &zaff);
             if (kJac) tab_cf[e] = cf;
-            const TS* row0 = ring + base0 + x * kSZ;
-            const TS* row1 = ring + base1 + x * kSZ;
+            const float* row0 = ring + base0 + x * kSZ;
+            const float* row1 = ring + base1 + x * kSZ;
             float a0 = 0.0f, c0 = 0.0f, a1 = 0.0f, c1 = 0.0f;
             int k_prev = 0;
 #pragma unroll
@@ -804,20 +771,20 @@ arc_march_kernel(const TS* __restrict__ vol,
               if (b == 0 || !(live & 1u) || k != k_prev) {
                 const bool ia = static_cast<unsigned>(k) < unz;
                 const bool ic = static_cast<unsigned>(k) + 1u < unz;
-                a0 = side0 && ia ? val(row0[k]) : 0.0f;
-                c0 = side0 && ic ? val(row0[k + 1]) : 0.0f;
-                a1 = side1 && ia ? val(row1[k]) : 0.0f;
-                c1 = side1 && ic ? val(row1[k + 1]) : 0.0f;
+                a0 = side0 && ia ? row0[k] : 0.0f;
+                c0 = side0 && ic ? row0[k + 1] : 0.0f;
+                a1 = side1 && ia ? row1[k] : 0.0f;
+                c1 = side1 && ic ? row1[k + 1] : 0.0f;
                 k_prev = k;
               }
-              TS* t = tab + (b * kTab + e) * kVec;
+              float* t = tab + (b * kTab + e) * kVec;
               const float h0 = (1.0f - w) * a0 + w * c0;
               const float h1 = (1.0f - w) * a1 + w * c1;
               if constexpr (kJac) {
                 *reinterpret_cast<float4*>(t) =
                     make_float4(h0, h1, c0 - a0, c1 - a1);
               } else {
-                store2(t, h0, h1);   // rounded to TS
+                *reinterpret_cast<float2*>(t) = make_float2(h0, h1);
               }
             }
           }
@@ -844,7 +811,7 @@ arc_march_kernel(const TS* __restrict__ vol,
               t[o].in = static_cast<unsigned>(xl + o) <
                         static_cast<unsigned>(nq);
               const int e = t[o].in ? (xl + o) * kFV + lane : lane;
-              const TS* q = tab + (b * kTab + e) * kVec;
+              const float* q = tab + (b * kTab + e) * kVec;
               if constexpr (kJac) {
                 const float4 h = *reinterpret_cast<const float4*>(q);
                 t[o].l = {h.x, h.y, h.z, h.w};
@@ -852,7 +819,7 @@ arc_march_kernel(const TS* __restrict__ vol,
                 t[o].cfg = b ? add(tab_cf[e], static_cast<float>(b))
                              : tab_cf[e];
               } else {
-                const float2 h = load2(q);
+                const float2 h = *reinterpret_cast<const float2*>(q);
                 t[o].l = {h.x, h.y, 0.0f, 0.0f};
                 t[o].cfg = 0.0f;
               }
@@ -887,20 +854,13 @@ arc_march_kernel(const TS* __restrict__ vol,
                             &zaff);
               t[o].cfg = add(cf, static_cast<float>(b));
               const float zeta = zeta_at(p, t[o].cfg, zaff);
-              const TS* col = vol + static_cast<size_t>(xi) * ny * nz;
-              // the z-lerps rounded to TS, as the tables hold them
-              if (side0) {
-                taps_of(
-                    [&](int kz) { return val(__ldg(col + ri * nz + kz)); },
-                    zeta, nz, &t[o].l.h0, &t[o].l.d0);
-                t[o].l.h0 = round_ts<TS>(t[o].l.h0);
-              }
-              if (side1) {
-                taps_of([&](int kz) {
-                  return val(__ldg(col + (ri + 1) * nz + kz));
-                }, zeta, nz, &t[o].l.h1, &t[o].l.d1);
-                t[o].l.h1 = round_ts<TS>(t[o].l.h1);
-              }
+              const float* col = vol + static_cast<size_t>(xi) * ny * nz;
+              if (side0)
+                taps_of([&](int kz) { return __ldg(col + ri * nz + kz); },
+                        zeta, nz, &t[o].l.h0, &t[o].l.d0);
+              if (side1)
+                taps_of([&](int kz) { return __ldg(col + (ri + 1) * nz + kz); },
+                        zeta, nz, &t[o].l.h1, &t[o].l.d1);
             }
             accumulate<kJac>(acc[k], s, r, s.X - xf, t);
           }
@@ -1457,6 +1417,309 @@ arc_adj_bf16_kernel(const __nv_bfloat16* __restrict__ g,
   }
 }
 
+// K3b tiling: K3's CTA (one view, a kFU x kFV tile of (u, v), lane = v,
+// kPix pixels u a thread), ring of kRing staged bf16 slabs, windows and
+// step order (stage slab r + 2, pass A of step r, a barrier, pass B of
+// step r: pass A beside pass B of the step before measured slower, PERF.md
+// section 6). Its tables (per branch b < 2) hold per (x, v) the pair word
+// (h0, h1): the bf16 z-lerps of sides r and r + 1, in column x - x0 + 1 of
+// kHQ; column 0 is T's column x0 - 1 and columns nq + 1, nq + 2 lie past
+// its last: all three hold zeros (a tap outside the window lies outside the
+// volume), so pass B reads both taps of a sample, clamped into [x0 - 1, x1
+// + 1], without a test. The windows of a chunk of kChunk steps are
+// computed at its start: entry e = step e - 1's window and live branches,
+// and slab e's staged window.
+constexpr int kHQ = kQX + 3;
+constexpr int kHTab = kHQ * kFV;
+constexpr int kArcHSmem =
+    2 * kRing * kSX * ArcStage<__nv_bfloat16>::kSZ + 4 * kTabBranches * kHTab +
+    kChunk * (2 * static_cast<int>(sizeof(short4)) +
+              static_cast<int>(sizeof(unsigned)));
+static_assert(4 * (kArcHSmem + 1024) <= 228 * 1024, "4 K3b CTAs an SM");
+
+// A table's word at a 32-bit shared address (its floor bias folded in).
+__device__ __forceinline__ unsigned lds_u32(unsigned a) {
+  unsigned v;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The bias that the floor's sum carries: element floor(q) of an array at
+// byte a with byte stride t lies at a - kFloorBias * t + bits(q + 1.5 *
+// 2^23 rounded down) * t, modulo 2^32.
+constexpr unsigned kFloorBias = 0x4B400000u;
+
+// A value the compiler must take as unknown (a constant folded into an
+// address would be split again, the load offsets being 24-bit).
+__device__ __forceinline__ unsigned opaque(unsigned x) {
+  asm("" : "+r"(x));
+  return x;
+}
+
+// bf16 bits (low half) widened to fp32 by a shift; a pair word's halves by
+// a shift and a mask (no conversion instruction).
+__device__ __forceinline__ float widen_lo(unsigned b) {
+  return __uint_as_float(b << 16);
+}
+
+__device__ __forceinline__ float widen_hi(unsigned b) {
+  return __uint_as_float(b & 0xFFFF0000u);
+}
+
+// (lo, hi) rounded to bf16 (nearest even) by one cvt.rn.bf16x2.f32.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// The lerp (1 - w) * a + w * c of the z-lerps that the bf16 tables round.
+__device__ __forceinline__ float lerp_bf(float a, float c, float w) {
+  return fmaf(w, c, (1.0f - w) * a);
+}
+
+// K3b's window entry e (step e - 1, slab e) into slot e % kChunk: the
+// step's window and live branches with bit 31 set where it is fast (its
+// window fits the tables, the march has at most two branches and the
+// staged windows of both its slabs hold it).
+__device__ __forceinline__ void arc_entry(const Arc& p, const FwdTile& t,
+                                          int e, int nx, int ny, int nz,
+                                          int n_branch, int n_steps,
+                                          bool vec, short4* c_step,
+                                          unsigned* c_live) {
+  const int rs = e - 1;
+  const short4 w = step_window(p, t, rs, nx, ny, nz);
+  using B = __nv_bfloat16;
+  const bool fast =
+      w.y - w.x < kQX && n_branch <= kTabBranches &&
+      (rs < 0 || holds(stage_window<B>(p, t, rs, nx, ny, nz, vec), w)) &&
+      (rs + 1 >= ny ||
+       holds(stage_window<B>(p, t, rs + 1, nx, ny, nz, vec), w));
+  const unsigned lb = live_branches(p, t, rs, w, n_branch, n_steps);
+  c_step[e % kChunk] = w;
+  c_live[e % kChunk] = lb && fast ? lb | 1u << 31 : lb;
+}
+
+// K3b: grid (v tiles, u tiles, views); vol (nx, ny, nz) in bf16, scalars
+// (V, NS), out (V, nu, nv) in fp32. Every output is written exactly once.
+// The samples (one march index jreal_of<true> per pixel, sample_of for
+// every branch) are K3's to the bit; pass A's grid, positions and taps are
+// K3's, its z-lerps rounded to bf16 where the plain version rounds them.
+//
+// Step r (r = -1 .. ny-1): wait for slab r + 1; one barrier (and, at a
+// chunk's start, the chunk's windows and a second); stage slab r + 2; for
+// a fast step pass A into the tables, a barrier, pass B (one march index a
+// pixel, each live branch's sample, both taps from its table); for any
+// other live step the direct way per sample (a window beyond the
+// capacities, or a third branch); nothing where no branch is live.
+__global__ void __launch_bounds__(kFwdThreads, 4)
+arc_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ vol,
+                    const float* __restrict__ scalars,
+                    float* __restrict__ out, int nx, int ny, int nz, int nu,
+                    int nv, int n_steps, int n_branch, bool vec) {
+  using B = __nv_bfloat16;
+  constexpr int kSZ = ArcStage<B>::kSZ;
+  constexpr int kSlots = ArcStage<B>::kSlots;
+  extern __shared__ __align__(16) float sm[];
+  B* const ring = reinterpret_cast<B*>(sm);
+  unsigned* const tabs = reinterpret_cast<unsigned*>(ring + kRing * kSX *
+                                                     kSZ);
+  short4* const c_step =
+      reinterpret_cast<short4*>(tabs + kTabBranches * kHTab);
+  short4* const c_stage = c_step + kChunk;
+  unsigned* const c_live = reinterpret_cast<unsigned*>(c_stage + kChunk);
+  const unsigned tabs_s = smem_addr(tabs);
+  const unsigned short* const ring16 =
+      reinterpret_cast<const unsigned short*>(ring);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int view = blockIdx.z;
+  const int v0 = blockIdx.x * kFV, u0 = blockIdx.y * kFU;
+  const Arc p = load_arc(scalars + static_cast<size_t>(view) * NS);
+  const int v = v0 + lane;
+  const bool v_in = v < nv;
+  const VTerms vt = v_terms(p, static_cast<float>(v));
+  const FwdTile tile = fwd_tile(
+      p, static_cast<float>(u0), static_cast<float>(min(u0 + kFU, nu) - 1),
+      static_cast<float>(v0), static_cast<float>(min(v0 + kFV, nv) - 1),
+      n_branch);
+  auto slab_at = [](int s) { return ((s + 1) % kRing) * kSX * kSZ; };
+  float y0[kPix], ue[kPix], acc[kPix];
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const float fu = static_cast<float>(u0 + warp + kFwdWarps * k);
+    y0[k] = y0_at(p, fu, vt);
+    ue[k] = mul(fu, p.eux);
+    acc[k] = 0.0f;
+  }
+  int slot[kSlots];
+#pragma unroll
+  for (int i = 0; i < kSlots; ++i) slot[i] = copy_slot<B>(tid, i);
+  if (tid < kTabBranches * kFV) tabs[tid / kFV * kHTab + tid % kFV] = 0u;
+  short4 st_r = empty_win();
+  short4 st_r1 = stage_window<B>(p, tile, 0, nx, ny, nz, vec);
+  stage_slab(ring + slab_at(0), vol, 0, st_r1, ny, nz, vec, tid, slot);
+  for (int ri = -1; ri < ny; ++ri) {
+    cp_async_wait_all();
+    __syncthreads();
+    const int ci = (ri + 1) % kChunk;
+    if (ci == 0) {
+      if (tid < kChunk) {
+        arc_entry(p, tile, tid + ri + 1, nx, ny, nz, n_branch, n_steps, vec,
+                  c_step, c_live);
+      } else if (tid < 2 * kChunk) {
+        c_stage[(ri + 2 + tid - kChunk) % kChunk] = stage_window<B>(
+            p, tile, ri + tid - kChunk + 2, nx, ny, nz, vec);
+      }
+      __syncthreads();
+    }
+    const short4 st_r2 = c_stage[(ri + 2) % kChunk];
+    stage_slab(ring + slab_at(ri + 2), vol, ri + 2, st_r2, ny, nz, vec, tid,
+               slot);
+    const short4 w_r = c_step[(ri + 1) % kChunk];
+    const unsigned live = c_live[(ri + 1) % kChunk];
+    if (live) {
+      const float r = static_cast<float>(ri);
+      const float cx = slab_cx(p, r), cz = slab_cz(p, r);
+      const int qx0 = w_r.x, nq = w_r.y - w_r.x + 1;
+      const bool side0 = ri >= 0, side1 = ri + 1 < ny;
+      if (live >> 31) {
+        const int base0 = slab_at(ri) - st_r.x * kSZ - st_r.z;
+        const int base1 = slab_at(ri + 1) - st_r1.x * kSZ - st_r1.z;
+        const unsigned unz = static_cast<unsigned>(nz);
+        unsigned* const tw = tabs + kFV + lane;
+        if (v_in) {
+          for (int xl = warp; xl < nq; xl += kFwdWarps) {
+            const int x = qx0 + xl;
+            float cf, zaff;
+            grid_at<true>(p, r, cx, cz, static_cast<float>(x), vt, &cf,
+                          &zaff);
+            const unsigned short* row0 = ring16 + base0 + x * kSZ;
+            const unsigned short* row1 = ring16 + base1 + x * kSZ;
+            float a0 = 0.0f, c0 = 0.0f, a1 = 0.0f, c1 = 0.0f;
+            int k_prev = 0;
+#pragma unroll
+            for (int b = 0; b < kTabBranches; ++b) {
+              if (!(live >> b & 1u)) continue;
+              const float zeta =
+                  zeta_at(p, b ? add(cf, static_cast<float>(b)) : cf, zaff);
+              const float f = floorf(zeta);
+              const int k = static_cast<int>(f);
+              const float w = zeta - f;
+              if (b == 0 || !(live & 1u) || k != k_prev) {
+                const bool ia = static_cast<unsigned>(k) < unz;
+                const bool ic = static_cast<unsigned>(k) + 1u < unz;
+                a0 = side0 && ia ? widen_lo(row0[k]) : 0.0f;
+                c0 = side0 && ic ? widen_lo(row0[k + 1]) : 0.0f;
+                a1 = side1 && ia ? widen_lo(row1[k]) : 0.0f;
+                c1 = side1 && ic ? widen_lo(row1[k + 1]) : 0.0f;
+                k_prev = k;
+              }
+              tw[b * kHTab + xl * kFV] =
+                  pack_bf16((1.0f - w) * a0 + w * c0, (1.0f - w) * a1 + w * c1);
+            }
+          }
+          if (warp == 0) {
+#pragma unroll
+            for (int b = 0; b < kTabBranches; ++b) {
+              tw[b * kHTab + nq * kFV] = 0u;
+              tw[b * kHTab + (nq + 1) * kFV] = 0u;
+            }
+          }
+        }
+        __syncthreads();
+        const float lo_x = static_cast<float>(w_r.x) - 1.0f;
+        const float hi_x = static_cast<float>(w_r.y) + 1.0f;
+        const unsigned tb = opaque(tabs_s + 4u * lane -
+                                   128u * static_cast<unsigned>(w_r.x - 1) -
+                                   (kFloorBias << 7));
+#pragma unroll
+        for (int k = 0; k < kPix; ++k) {
+          const int u = u0 + warp + kFwdWarps * k;
+          if (!v_in || u >= nu) continue;
+          const float jreal = jreal_of<true>(p, r, y0[k]);
+          const float jb = ceil_small(jreal);
+          const float xa = x_affine(cx, ue[k], vt);
+          float a = acc[k];
+#pragma unroll
+          for (int b = 0; b < kTabBranches; ++b) {
+            if (!(live >> b & 1u)) continue;
+            const Sample s = sample_of(p, jb, jreal, xa, b, n_steps);
+            if (!s.ok) continue;
+            const float X = fminf(fmaxf(s.X, lo_x), hi_x);
+            const float sx = __fadd_rd(X, 12582912.0f);
+            const float wx = X - (sx - 12582912.0f);
+            const unsigned q =
+                tb + 4u * (b * kHTab) + (__float_as_uint(sx) << 7);
+            const unsigned t0 = lds_u32(q), t1 = lds_u32(q + 4u * kFV);
+            const float g = 1.0f - s.fy;
+            const float l0 = fmaf(s.fy, widen_hi(t0), g * widen_lo(t0));
+            const float l1 = fmaf(s.fy, widen_hi(t1), g * widen_lo(t1));
+            a += fmaf(wx, l1, (1.0f - wx) * l0);
+          }
+          acc[k] = a;
+        }
+      } else {
+        const bool s0 = side0, s1 = side1;
+#pragma unroll
+        for (int k = 0; k < kPix; ++k) {
+          const int u = u0 + warp + kFwdWarps * k;
+          if (!v_in || u >= nu) continue;
+          const float jreal = jreal_of<true>(p, r, y0[k]);
+          const float xa = x_affine(cx, ue[k], vt);
+          for (int b = 0; b < n_branch; ++b) {
+            if (!(live >> b & 1u)) continue;
+            const Sample s = sample_from(p, jreal, xa, b, n_steps);
+            if (!s.ok) continue;
+            const float xf = floorf(s.X);
+            const int x0 = static_cast<int>(xf);
+            const float wx = s.X - xf;
+            float val = 0.0f;
+#pragma unroll
+            for (int o = 0; o < 2; ++o) {
+              const int xi = x0 + o;
+              if (xi < 0 || xi >= nx) continue;
+              float cf, zaff;
+              grid_at<true>(p, r, cx, cz, static_cast<float>(xi), vt, &cf,
+                            &zaff);
+              const float zeta =
+                  zeta_at(p, add(cf, static_cast<float>(b)), zaff);
+              const float zf = floorf(zeta);
+              const int kz = static_cast<int>(zf);
+              const float wz = zeta - zf;
+              const B* col = vol + static_cast<size_t>(xi) * ny * nz;
+              auto side = [&](int sl) {
+                const B* row = col + static_cast<size_t>(sl) * nz;
+                const float lo = kz >= 0 && kz < nz
+                                     ? __bfloat162float(__ldg(row + kz)) : 0.0f;
+                const float hi = kz + 1 >= 0 && kz + 1 < nz
+                                     ? __bfloat162float(__ldg(row + kz + 1))
+                                     : 0.0f;
+                return __bfloat162float(__float2bfloat16_rn(lerp_bf(lo, hi,
+                                                                    wz)));
+              };
+              const float h0 = s0 ? side(ri) : 0.0f;
+              const float h1 = s1 ? side(ri + 1) : 0.0f;
+              val += (o ? wx : 1.0f - wx) * ((1.0f - s.fy) * h0 + s.fy * h1);
+            }
+            acc[k] += val;
+          }
+        }
+      }
+    }
+    st_r = st_r1;
+    st_r1 = st_r2;
+  }
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const int u = u0 + warp + kFwdWarps * k;
+    if (!v_in || u >= nu) continue;
+    out[(static_cast<size_t>(view) * nu + u) * nv + v] = acc[k];
+  }
+}
+
 // vol += side1, elementwise: the second half of K4.
 __global__ void __launch_bounds__(256)
 add_kernel(float* __restrict__ vol, const float* __restrict__ side1,
@@ -1480,25 +1743,46 @@ div_check_kernel(const float* __restrict__ a, float* __restrict__ q_rcp,
   }
 }
 
-// Launch the march: K3 (kJac false), K3b (TS bf16) or K5.
-template <bool kJac, typename TS>
-int launch_march(const TS* vol, const float* scalars, float* out, int V,
+// Launch the march: K3 (kJac false) or K5.
+template <bool kJac>
+int launch_march(const float* vol, const float* scalars, float* out, int V,
                  int nx, int ny, int nz, int nu, int nv, int n_steps,
                  int n_branch, void* stream) {
   if (V <= 0 || nu <= 0 || nv <= 0) return 0;
   // grid z holds the views; windows are kept as 16-bit indices
   if (V > 65535 || nx >= 32768 || nz >= 32768)
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  constexpr int kSmem = fwd_smem<kJac, TS>();
+  constexpr int kSmem = fwd_smem<kJac>();
   cudaError_t e = cudaFuncSetAttribute(
-      arc_march_kernel<kJac, TS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      arc_march_kernel<kJac>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const bool vec = nz % per16<TS>() == 0 &&
-                   reinterpret_cast<std::uintptr_t>(vol) % 16 == 0;
+  const bool vec =
+      nz % 4 == 0 && reinterpret_cast<std::uintptr_t>(vol) % 16 == 0;
   const dim3 grid((nv + kFV - 1) / kFV, (nu + kFU - 1) / kFU, V);
-  arc_march_kernel<kJac, TS><<<grid, kFwdThreads, kSmem,
-                               static_cast<cudaStream_t>(stream)>>>(
+  arc_march_kernel<kJac><<<grid, kFwdThreads, kSmem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      vol, scalars, out, nx, ny, nz, nu, nv, n_steps, n_branch, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch K3b.
+int launch_arc_fwd_bf16(const __nv_bfloat16* vol, const float* scalars,
+                        float* out, int V, int nx, int ny, int nz, int nu,
+                        int nv, int n_steps, int n_branch, void* stream) {
+  if (V <= 0 || nu <= 0 || nv <= 0) return 0;
+  // grid z holds the views; windows are kept as 16-bit indices
+  if (V > 65535 || nx >= 32768 || nz >= 32768)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaError_t e = cudaFuncSetAttribute(
+      arc_fwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kArcHSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const bool vec =
+      nz % 8 == 0 && reinterpret_cast<std::uintptr_t>(vol) % 16 == 0;
+  const dim3 grid((nv + kFV - 1) / kFV, (nu + kFU - 1) / kFU, V);
+  arc_fwd_bf16_kernel<<<grid, kFwdThreads, kArcHSmem,
+                        static_cast<cudaStream_t>(stream)>>>(
       vol, scalars, out, nx, ny, nz, nu, nv, n_steps, n_branch, vec);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1560,7 +1844,7 @@ int slab_arc_adj(const float* g, const float* scalars, float* vol,
 int slab_arc_fwd_bf16(const void* vol, const float* scalars, float* out,
                       int V, int nx, int ny, int nz, int nu, int nv,
                       int n_steps, int n_branch, void* stream) {
-  return launch_march<false>(static_cast<const __nv_bfloat16*>(vol), scalars,
+  return launch_arc_fwd_bf16(static_cast<const __nv_bfloat16*>(vol), scalars,
                              out, V, nx, ny, nz, nu, nv, n_steps, n_branch,
                              stream);
 }

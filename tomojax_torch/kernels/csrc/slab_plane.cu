@@ -80,15 +80,25 @@
 // the bf16=True variants of the same two Pallas kernels (chosen at
 // tomojax/kernels/slab.py:904 and :1015), which feed each pass of the
 // two-pass transform to the MXU as one bf16 operand. Rounding (nearest
-// even) happens at each pass's input:
-//   K1b is K1 instantiated on the storage type TS = __nv_bfloat16: it
-//     stages the volume's rows in bf16 (the wrapper casts the oriented
-//     volume once) and holds T in bf16; the sums, the positions and the
-//     1/edy scale stay fp32;
-//   K2b (adj_bf16_kernel, a design of its own) stages the cotangent g in
-//     bf16 (the wrapper casts it once) and rounds each view's pass-B
-//     transpose T[x, v] once, where the plain version rounds the pass-B
-//     cotangent; the pass-A sums and the volume stay fp32.
+// even) happens at each pass's input, and both are kernels of their own:
+//   K1b (fwd_bf16_kernel) stages the volume's rows in bf16 (the wrapper
+//     casts the oriented volume once; 48-value rows, 16-byte copies of 8)
+//     and rounds T once per (x, v); the sums, the positions and the 1/edy
+//     scale stay fp32. Its tables hold pair words, word x = (T[x], T[x +
+//     1]), so pass B reads both taps of a pixel in one 32-bit load and
+//     widens them by a shift and a mask; pass A is K1's, warp-strided,
+//     and stores each rounded T twice (the low half of word x, the high
+//     half of word x - 1). Pass B's X is the plain version's (cx + v*evx)
+//     + u*eux with u*eux kept per pixel, so a position costs one add, and
+//     floor(X) folds into the table address. One slab a barrier, as K1
+//     (two and four measured slower); launch bounds of three CTAs an SM
+//     (the compiler takes 56 registers and four still fit; the bound of
+//     four, 64 registers, gave a slower schedule). What bounds it: the
+//     issue rate of the two passes, as K1, pass A the larger;
+//   K2b (adj_bf16_kernel) stages the cotangent g in bf16 (the wrapper
+//     casts it once) and rounds each view's pass-B transpose T[x, v] once,
+//     where the plain version rounds the pass-B cotangent; the pass-A sums
+//     and the volume stay fp32.
 // tomojax rounds the products w*g and its aligned accumulator because
 // those are its matmul operands; a gather has no such operand, so the
 // rounding points are g and T. The difference lies within tomojax's
@@ -171,35 +181,6 @@ __device__ __forceinline__ float plane_X(const Plane& p, float r, float u,
 __device__ __forceinline__ float plane_zeta(const Plane& p, float r, float x,
                                             float v) {
   return zeta_at(p, slab_cx(p, r), slab_cz(p, r), x, v);
-}
-
-// The storage types of staged values: a value as fp32 (val), fp32 rounded
-// to TS (to_ts, nearest even), and fp32 rounded to TS and back (round_ts).
-__device__ __forceinline__ float val(float x) { return x; }
-__device__ __forceinline__ float val(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename TS>
-__device__ __forceinline__ TS to_ts(float x);
-template <>
-__device__ __forceinline__ float to_ts<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 to_ts<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-template <typename TS>
-__device__ __forceinline__ float round_ts(float x) {
-  return val(to_ts<TS>(x));
-}
-
-// Values of TS per 16-byte copy.
-template <typename TS>
-__host__ __device__ constexpr int per16() {
-  return 16 / static_cast<int>(sizeof(TS));
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -314,30 +295,37 @@ constexpr int kTab = kSX * kFV;
 constexpr int kRing = 3;
 constexpr int kWin = 128;
 
-// The staged slabs and tables of storage type TS. kSZ: the staged rows' z,
-// a multiple of per16<TS>() (16-byte rows); bf16's 48 keeps fp32's
-// capacity once z0 is aligned down to a copy (44 - 3 = 48 - 7). A
-// thread's share of a slab's copies (kVec): 16-byte chunk c = tid %
-// kRowChunks of the ring rows g + k * kCopyRows (g = tid / kRowChunks, k <
-// kCopyIters); fixed over the march.
-template <typename TS>
-struct FwdStage {
-  static constexpr int kSZ = sizeof(TS) == 4 ? 44 : 48;
-  static constexpr int kSlab = kSX * kSZ;
-  static constexpr int kRowChunks = kSZ / per16<TS>();
-  static constexpr int kCopyRows = kFwdThreads / kRowChunks;
-  static constexpr int kCopyIters = (kSX + kCopyRows - 1) / kCopyRows;
-  static constexpr int kSmem =
-      static_cast<int>(sizeof(TS)) * (kRing * kSlab + 2 * kTab) + kWin * 16;
-  static_assert(kSZ % per16<TS>() == 0, "staged rows of 16-byte copies");
-  static_assert(kSmem <= 227 * 1024, "K1 fits an SM's shared memory");
+// K1's staged slabs and tables (fp32). kSZ: the staged rows' z, a multiple
+// of 4 (16-byte rows); K1b's rows (bf16) hold kHSZ, a multiple of 8.
+constexpr int kSZ = 44;
+constexpr int kSlab = kSX * kSZ;
+constexpr int kFwdSmem = 4 * (kRing * kSlab + 2 * kTab) + kWin * 16;
+static_assert(kSZ % 4 == 0, "staged rows of 16-byte copies");
+constexpr int kHSZ = 48;
+constexpr int kHSlab = kSX * kHSZ;
+static_assert(kHSZ % 8 == 0, "staged rows of 16-byte copies");
+
+// Staged rows of values T: kRowZ values z, kPer to a 16-byte copy. A
+// thread's share of a slab's copies (kVec): chunk c = tid % kChunks of the
+// ring rows g + k * kRows (g = tid / kChunks, k < kIters); fixed over the
+// march.
+template <typename T>
+struct Rows {
+  static constexpr int kRowZ = sizeof(T) == 4 ? kSZ : kHSZ;
+  static constexpr int kPer = 16 / static_cast<int>(sizeof(T));
+  static constexpr int kChunks = kRowZ / kPer;
+  static constexpr int kRows = kFwdThreads / kChunks;
+  static constexpr int kIters = (kSX + kRows - 1) / kRows;
 };
+static_assert(kFwdSmem <= 227 * 1024, "K1 fits an SM's shared memory");
+
 // A step's window: int4 (x0, x1, z0, z1): T's columns x in [x0, x1] (the
 // staged rows) and the staged rows' z in [z0, z1], unclamped: a column or z
-// outside the volume holds zeros; z0 a multiple of per16<TS>() for 16-byte
-// copies (kVec). z1 < 0 marks a step without windows:
-// kEmpty (no tap of the tile reaches the volume) or kDirect (the windows
-// exceed the capacities, or a position is out of floor_small's range).
+// outside the volume holds zeros; z0 a multiple of kAlign (a 16-byte copy's
+// values, for the 16-byte copies of kVec). z1 < 0 marks a step without
+// windows: kEmpty (no tap of the tile reaches the volume) or kDirect (the
+// windows exceed the capacities, or a position is out of floor_small's
+// range).
 constexpr int kEmpty = -1, kDirect = -2;
 constexpr float kPosMax = 2097152.0f;   // 2^21: windows within floor_small's
 
@@ -358,13 +346,12 @@ __device__ __forceinline__ float tap_hi(float hi, float mag) {
   return floorf(hi + (1e-3f + 4e-6f * mag)) + 1.0f;
 }
 
-// Step r's window. X - cx_r = eux*u + evx*v and zeta - cz_r = gzx*(x - cx_r)
-// + zav*v are affine, so their extremes over the tile lie at its corners
-// (and at T's extreme columns).
-template <typename TS, bool kVec>
+// Step r's window for staged rows of kRowZ values z. X - cx_r = eux*u +
+// evx*v and zeta - cz_r = gzx*(x - cx_r) + zav*v are affine, so their
+// extremes over the tile lie at its corners (and at T's extreme columns).
+template <int kRowZ, int kAlign>
 __device__ int4 step_window(const Plane& p, const Corners& c, int ri, int nx,
                             int ny, int nz) {
-  constexpr int kSZ = FwdStage<TS>::kSZ;
   if (ri >= ny) return make_int4(0, -1, 0, kEmpty);
   const float r = static_cast<float>(ri);
   const float cx = slab_cx(p, r), cz = slab_cz(p, r);
@@ -388,80 +375,78 @@ __device__ int4 step_window(const Plane& p, const Corners& c, int ri, int nx,
       zl > static_cast<float>(nz - 1))
     return make_int4(0, -1, 0, kEmpty);
   const int x0 = static_cast<int>(xl), x1 = static_cast<int>(xh);
-  const int z0 =   // rounds down
-      static_cast<int>(zl) & (kVec ? ~(per16<TS>() - 1) : ~0);
+  const int z0 = static_cast<int>(zl) & ~(kAlign - 1);   // rounds down
   const int z1 = static_cast<int>(zh);
-  if (x1 - x0 >= kSX || z1 - z0 >= kSZ) return make_int4(0, -1, 0, kDirect);
+  if (x1 - x0 >= kSX || z1 - z0 >= kRowZ)
+    return make_int4(0, -1, 0, kDirect);
   return make_int4(x0, x1, z0, z1);
 }
 
 // Issue the copies of slab s's rows x in [w.x, w.y], z in [w.z, w.w]
 // (zeros outside the volume) into buf[x - w.x][z - w.z] as one cp.async
 // commit group (empty for a step without windows): 16-byte copies (kVec:
-// nz and w.z multiples of per16<TS>(), so a copy lies wholly in or out of
-// the volume) or 4-byte ones; bf16 without kVec stages with plain loads
-// and stores (cp.async has no 2-byte copy), which the next barrier makes
-// visible as it does the copies. Offsets are 32-bit (the wrapper keeps the
-// volume below 2^31 elements); a zero fill reads nothing and points at vol.
-template <typename TS, bool kVec>
-__device__ __forceinline__ void stage_slab(TS* buf, const TS* __restrict__ vol,
+// nz and w.z multiples of kPer, so a copy lies wholly in or out of the
+// volume), else 4-byte copies (fp32) or plain loads and stores (bf16:
+// cp.async has no 2-byte copy; the next barrier makes them visible as it
+// does the copies). Offsets are 32-bit (the wrapper keeps the volume below
+// 2^31 elements); a zero fill reads nothing and points at vol.
+template <typename T, bool kVec>
+__device__ __forceinline__ void stage_slab(T* buf, const T* __restrict__ vol,
                                           int s, int4 w, int nx, int ny,
                                           int nz, int tid, int c, int g) {
-  using St = FwdStage<TS>;
-  constexpr int kSZ = St::kSZ, kCopyRows = St::kCopyRows;
-  constexpr int kPer = per16<TS>();
+  using R = Rows<T>;
   if (w.w >= 0) {
     const unsigned unx = static_cast<unsigned>(nx);
     const unsigned unz = static_cast<unsigned>(nz);
     if (kVec) {
-      const int z = w.z + kPer * c;
-      if (g < kCopyRows && kPer * c <= w.w - w.z) {
+      const int z = w.z + R::kPer * c;
+      if (g < R::kRows && R::kPer * c <= w.w - w.z) {
         const bool z_in = static_cast<unsigned>(z) < unz;
-        // rows kCopyRows apart, modulo 2^32 (a row in the volume is exact)
-        const unsigned step = static_cast<unsigned>(kCopyRows) * ny * unz;
+        // rows R::kRows apart, modulo 2^32 (a row in the volume is exact)
+        const unsigned step = static_cast<unsigned>(R::kRows) * ny * unz;
         unsigned off =
             (static_cast<unsigned>(w.x + g) * ny + s) * unz + z;
         int x = w.x + g;
-        TS* const dst = buf + g * kSZ + kPer * c;
+        T* const dst = buf + g * R::kRowZ + R::kPer * c;
         if (w.x >= 0 && w.y < nx) {
           // every row in the volume: a copy needs only its address
-          const TS* src = vol + (z_in ? off : 0);
+          const T* src = vol + (z_in ? off : 0);
           const size_t stride =
-              z_in ? static_cast<size_t>(kCopyRows) * ny * nz : 0;
+              z_in ? static_cast<size_t>(R::kRows) * ny * nz : 0;
 #pragma unroll
-          for (int k = 0; k < St::kCopyIters; ++k) {
-            if (x + k * kCopyRows <= w.y)
-              cp_async16_zfill(dst + k * kCopyRows * kSZ, src,
+          for (int k = 0; k < R::kIters; ++k) {
+            if (x + k * R::kRows <= w.y)
+              cp_async16_zfill(dst + k * R::kRows * R::kRowZ, src,
                                z_in ? 16 : 0);
             src += stride;
           }
         } else {
 #pragma unroll
-          for (int k = 0; k < St::kCopyIters; ++k) {
+          for (int k = 0; k < R::kIters; ++k) {
             if (x <= w.y) {
               const bool in = z_in && static_cast<unsigned>(x) < unx;
-              cp_async16_zfill(dst + k * kCopyRows * kSZ,
+              cp_async16_zfill(dst + k * R::kRows * R::kRowZ,
                                vol + (in ? off : 0), in ? 16 : 0);
             }
-            x += kCopyRows;
+            x += R::kRows;
             off += step;
           }
         }
       }
     } else {
       const int nq = w.y - w.x + 1, nzw = w.w - w.z + 1;
-      for (int e = tid; e < nq * kSZ; e += kFwdThreads) {
-        const int xl = e / kSZ, zl = e - xl * kSZ;
+      for (int e = tid; e < nq * R::kRowZ; e += kFwdThreads) {
+        const int xl = e / R::kRowZ, zl = e - xl * R::kRowZ;
         if (zl < nzw) {
           const int x = w.x + xl, z = w.z + zl;
           const bool in = static_cast<unsigned>(x) < unx &&
                           static_cast<unsigned>(z) < unz;
           const unsigned off = in ? (static_cast<unsigned>(x) * ny + s) * unz
                                         + z : 0;
-          if constexpr (sizeof(TS) == 4)
+          if constexpr (sizeof(T) == 4)
             cp_async4_zfill(buf + e, vol + off, in ? 4 : 0);
           else
-            buf[e] = in ? vol[off] : to_ts<TS>(0.0f);
+            buf[e] = in ? vol[off] : __float2bfloat16_rn(0.0f);
         }
       }
     }
@@ -473,9 +458,9 @@ __device__ __forceinline__ void stage_slab(TS* buf, const TS* __restrict__ vol,
 // x = fx + i * kFwdWarps, of staged row q[i * kFwdWarps][.] into
 // t[i * kFwdWarps][lane]; kGuard: only the rows below nq (counted from
 // the warp's first).
-template <typename TS, int kI0, int kI1, bool kGuard>
-__device__ __forceinline__ void pass_a_rows(TS* __restrict__ t,
-                                            const TS* __restrict__ q,
+template <int kI0, int kI1, bool kGuard>
+__device__ __forceinline__ void pass_a_rows(float* __restrict__ t,
+                                            const float* __restrict__ q,
                                             const Plane& p, float cx,
                                             float cz, float fx, float fv,
                                             int nq) {
@@ -485,9 +470,8 @@ __device__ __forceinline__ void pass_a_rows(TS* __restrict__ t,
     const float zeta =
         zeta_at(p, cx, cz, fx + static_cast<float>(i * kFwdWarps), fv);
     const Floor f = floor_small(zeta);
-    const TS* const row = q + i * kFwdWarps * FwdStage<TS>::kSZ + f.k;
-    t[i * kFwdWarps * kFV] =
-        to_ts<TS>(lerp_pair(val(row[0]), val(row[1]), zeta - f.f));
+    const float* const row = q + i * kFwdWarps * kSZ + f.k;
+    t[i * kFwdWarps * kFV] = lerp_pair(row[0], row[1], zeta - f.f);
   }
 }
 
@@ -495,50 +479,48 @@ __device__ __forceinline__ void pass_a_rows(TS* __restrict__ t,
 // zeta_s(x, v) of T's columns x into tab[x - w.x][lane], warp-strided. A
 // window of at least 4 * kFwdWarps columns (every one at 256^3 with a unit
 // pitch) runs the first 4 rows of each warp without tests.
-template <typename TS>
-__device__ __forceinline__ void pass_a(TS* __restrict__ tab,
-                                       const TS* __restrict__ buf,
+__device__ __forceinline__ void pass_a(float* __restrict__ tab,
+                                       const float* __restrict__ buf,
                                        const Plane& p, int s, int4 w,
                                        int warp, int lane, float fv) {
   const float r = static_cast<float>(s);
   const float cx = slab_cx(p, r), cz = slab_cz(p, r);
   const int nq = w.y - w.x + 1 - warp;   // this warp's rows: i*kFwdWarps < nq
   const float fx = static_cast<float>(w.x + warp);
-  const TS* const q = buf + warp * FwdStage<TS>::kSZ - w.z;   // z at [z]
-  TS* const t = tab + warp * kFV + lane;
+  const float* const q = buf + warp * kSZ - w.z;   // z at [z]
+  float* const t = tab + warp * kFV + lane;
   if (nq > 3 * kFwdWarps) {
-    pass_a_rows<TS, 0, 4, false>(t, q, p, cx, cz, fx, fv, nq);
-    pass_a_rows<TS, 4, kRowsA, true>(t, q, p, cx, cz, fx, fv, nq);
+    pass_a_rows<0, 4, false>(t, q, p, cx, cz, fx, fv, nq);
+    pass_a_rows<4, kRowsA, true>(t, q, p, cx, cz, fx, fv, nq);
   } else {
-    pass_a_rows<TS, 0, kRowsA, true>(t, q, p, cx, cz, fx, fv, nq);
+    pass_a_rows<0, kRowsA, true>(t, q, p, cx, cz, fx, fv, nq);
   }
 }
 
 // Pass B of a fast step: both taps of each owned pixel from the table tab
 // (T's columns hold every tap of the tile), added into acc; kGuard: only
 // the pixels inside the detector.
-template <bool kGuard, typename TS>
+template <bool kGuard>
 __device__ __forceinline__ void pass_b(float (&acc)[kPix],
                                        const bool (&pix)[kPix],
                                        const float (&fu)[kPix],
                                        const Plane& p, float cx, float fv,
-                                       const TS* __restrict__ tab) {
+                                       const float* __restrict__ tab) {
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
     if (kGuard && !pix[k]) continue;
     const float X = x_at(p, cx, fu[k], fv);
     const Floor f = floor_small(X);
     const float wx = X - f.f;
-    const TS* const t = tab + f.k * kFV;
-    acc[k] = fmaf(1.0f - wx, val(t[0]), acc[k]);
-    acc[k] = fmaf(wx, val(t[kFV]), acc[k]);
+    const float* const t = tab + f.k * kFV;
+    acc[k] = fmaf(1.0f - wx, t[0], acc[k]);
+    acc[k] = fmaf(wx, t[kFV], acc[k]);
   }
 }
 
-// K1 (TS float) and K1b (TS bf16): grid (v tiles, u tiles, views); vol
-// (nx, ny, nz) of TS, scalars (V, NS), out (V, nu, nv); kVec: nz a
-// multiple of per16<TS>() and vol 16-byte aligned. Every output is written
-// exactly once.
+// K1: grid (v tiles, u tiles, views); vol (nx, ny, nz), scalars (V, NS),
+// out (V, nu, nv); kVec: nz a multiple of 4 and vol 16-byte aligned. Every
+// output is written exactly once.
 //
 // Iteration r: wait for slab r + 1; one barrier; stage slab r + 3 into the
 // slot of slab r (pass A of r ran last iteration); pass A of slab r + 1
@@ -546,15 +528,13 @@ __device__ __forceinline__ void pass_b(float (&acc)[kPix],
 // step, per sample on global memory (the one-thread-per-ray code) for a
 // direct one, nothing for an empty one (no tap of the tile reaches the
 // volume).
-template <typename TS, bool kVec>
+template <bool kVec>
 __global__ void __launch_bounds__(kFwdThreads, 4)
-fwd_kernel(const TS* __restrict__ vol, const float* __restrict__ scalars,
+fwd_kernel(const float* __restrict__ vol, const float* __restrict__ scalars,
            float* __restrict__ out, int nx, int ny, int nz, int nu, int nv) {
-  using St = FwdStage<TS>;
-  constexpr int kSlab = St::kSlab;
   extern __shared__ __align__(16) float sm[];
-  TS* const ring = reinterpret_cast<TS*>(sm);
-  TS* const tabs = ring + kRing * kSlab;
+  float* const ring = sm;
+  float* const tabs = ring + kRing * kSlab;
   int4* const win = reinterpret_cast<int4*>(tabs + 2 * kTab);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int view = blockIdx.z;
@@ -578,14 +558,15 @@ fwd_kernel(const TS* __restrict__ vol, const float* __restrict__ scalars,
   }
   const bool full = u0 + kFU <= nu && v0 + kFV <= nv;   // every pixel inside
 
-  const int copy_c = tid % St::kRowChunks, copy_g = tid / St::kRowChunks;
+  const int copy_c = tid % Rows<float>::kChunks;
+  const int copy_g = tid / Rows<float>::kChunks;
 
   for (int s = tid; s < kWin; s += kFwdThreads)
-    win[s] = step_window<TS, kVec>(p, corners, s, nx, ny, nz);
+    win[s] = step_window<kSZ, kVec ? 4 : 1>(p, corners, s, nx, ny, nz);
   __syncthreads();
   for (int s = 0; s < kRing; ++s)
-    stage_slab<TS, kVec>(ring + s * kSlab, vol, s, win[s], nx, ny, nz, tid,
-                         copy_c, copy_g);
+    stage_slab<float, kVec>(ring + s * kSlab, vol, s, win[s], nx, ny, nz,
+                            tid, copy_c, copy_g);
   int4 w_a = win[0];   // the window of the step whose pass A runs next
   cp_async_wait<kRing - 1>();   // slab 0
   __syncthreads();
@@ -598,16 +579,16 @@ fwd_kernel(const TS* __restrict__ vol, const float* __restrict__ scalars,
     w_a = win[(ri + 1) % kWin];
     cp_async_wait<kRing - 2>();   // slab r + 1
     __syncthreads();   // ... visible; pass A of r, pass B of r - 1 done
-    stage_slab<TS, kVec>(ring + slot * kSlab, vol, ri + kRing,
-                         win[(ri + kRing) % kWin], nx, ny, nz, tid, copy_c,
-                         copy_g);
+    stage_slab<float, kVec>(ring + slot * kSlab, vol, ri + kRing,
+                            win[(ri + kRing) % kWin], nx, ny, nz, tid,
+                            copy_c, copy_g);
     if (w_a.w >= 0 && v_in)
       pass_a(tabs + ((ri + 1) & 1) * kTab, ring + slot1 * kSlab, p, ri + 1,
              w_a, warp, lane, fv);
     const float r = static_cast<float>(ri);
     const float cx = slab_cx(p, r);
     if (w_b.w >= 0) {
-      const TS* const tab = tabs + (ri & 1) * kTab + lane - w_b.x * kFV;
+      const float* const tab = tabs + (ri & 1) * kTab + lane - w_b.x * kFV;
       if (full)
         pass_b<false>(acc, pix, fu, p, cx, fv, tab);
       else
@@ -628,16 +609,15 @@ fwd_kernel(const TS* __restrict__ vol, const float* __restrict__ scalars,
           const float zeta = zeta_at(p, cx, cz, static_cast<float>(xi), fv);
           const float zf = floorf(zeta);
           const int z0 = static_cast<int>(zf);
-          const TS* row = vol + (static_cast<size_t>(xi) * ny + ri) * nz;
+          const float* row = vol + (static_cast<size_t>(xi) * ny + ri) * nz;
           const unsigned unz = static_cast<unsigned>(nz);
           const float a =
-              static_cast<unsigned>(z0) < unz ? val(__ldg(row + z0)) : 0.0f;
+              static_cast<unsigned>(z0) < unz ? __ldg(row + z0) : 0.0f;
           const float c =
-              static_cast<unsigned>(z0) + 1u < unz ? val(__ldg(row + z0 + 1))
+              static_cast<unsigned>(z0) + 1u < unz ? __ldg(row + z0 + 1)
                                                    : 0.0f;
-          // T rounded to TS, as the table holds it
-          acc[k] = fmaf(o ? wx : 1.0f - wx,
-                        round_ts<TS>(lerp_pair(a, c, zeta - zf)), acc[k]);
+          acc[k] = fmaf(o ? wx : 1.0f - wx, lerp_pair(a, c, zeta - zf),
+                        acc[k]);
         }
       }
     }
@@ -645,9 +625,261 @@ fwd_kernel(const TS* __restrict__ vol, const float* __restrict__ scalars,
     // r - kWin/2 .. r - 1 (read again after kWin/2 - kRing barriers)
     if (ri % (kWin / 2) == 0 && ri > 0 && tid < kWin / 2) {
       const int s = ri + kWin / 2 + tid;
-      win[s % kWin] = step_window<TS, kVec>(p, corners, s, nx, ny, nz);
+      win[s % kWin] = step_window<kSZ, kVec ? 4 : 1>(p, corners, s, nx, ny,
+                                                    nz);
     }
     slot = slot1;
+  }
+
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    if (pix[k])
+      out[(static_cast<size_t>(view) * nu + u0 + warp + kFwdWarps * k) * nv +
+          v] = acc[k] * p.scale;
+  }
+}
+
+// K1b tiling: K1's CTA (one view, a kFU x kFV tile of (u, v), lane = v,
+// kPix pixels u a thread), K1's windows and window slots, one slab a
+// barrier: between two barriers the copies of slab r + 2 are issued, pass
+// A runs for slab r + 1 and pass B for slab r. Shared memory: a ring of two
+// staged slabs (kSX rows x of kHSZ bf16 values z), two pair tables (kSX
+// words x by kFV rows v, word x = (T[x], T[x + 1]) in bf16), and the
+// windows. Launch bounds of three CTAs an SM: the registers the compiler
+// then takes (56) still let four run, and its schedule measured faster
+// than under the cap of four (64 registers).
+constexpr int kFwdHSmem = 2 * (2 * kHSlab + 4 * kTab) + kWin * 16;
+static_assert(kWin / 2 >= 3,
+              "a refill writes no window slot that its iteration reads");
+static_assert(4 * (kFwdHSmem + 1024) <= 228 * 1024, "4 K1b CTAs an SM");
+
+// A pair table's word at a 32-bit shared address.
+__device__ __forceinline__ unsigned lds_u32(unsigned a) {
+  unsigned v;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// bf16 bits b (in the low half) widened to fp32 by a shift, not a
+// conversion; a pair word's halves by a shift and a mask.
+__device__ __forceinline__ float widen_lo(unsigned b) {
+  return __uint_as_float(b << 16);
+}
+
+__device__ __forceinline__ float widen_hi(unsigned b) {
+  return __uint_as_float(b & 0xFFFF0000u);
+}
+
+// One value's bf16 bits (nearest even).
+__device__ __forceinline__ unsigned short bf16_rn_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// The bias that floor_small's sum carries: element floor(q) of an array at
+// byte a with byte stride t lies at a - kFloorBias * t + bits(q + 1.5 *
+// 2^23 rounded down) * t, modulo 2^32.
+constexpr unsigned kFloorBias = 0x4B400000u;
+
+// zeta_r(x, v) = gzx*x + zc with zc = (cz_r - gzx*cx_r) + zav*v, a lane's
+// constant per slab.
+__device__ __forceinline__ float zeta_const(const Plane& p, float cx,
+                                            float cz, float zv) {
+  return __fadd_rn(fmaf(-p.gzx, cx, cz), zv);
+}
+
+// K1b pass A's columns i in [kI0, kI1) of a warp, c = warp + i * kFwdWarps
+// (K1's order; kGuard: only those below nq_w = nq - warp): T[c] = the
+// z-lerp at zeta(x, v) of staged row c, rounded to bf16 once and stored
+// twice, as the low half of pair word c and the high half of word c - 1
+// (word nq - 1 is never read; word -1 does not exist: first marks warp 0).
+template <int kI0, int kI1, bool kGuard>
+__device__ __forceinline__ void pass_a_cols(
+    unsigned short* __restrict__ t, const unsigned short* __restrict__ q,
+    float gzx, float z0, int nq_w, bool first) {
+#pragma unroll
+  for (int i = kI0; i < kI1; ++i) {
+    if (kGuard && i * kFwdWarps >= nq_w) continue;
+    const float zeta = fmaf(gzx, static_cast<float>(i * kFwdWarps), z0);
+    const float s = __fadd_rd(zeta, 12582912.0f);
+    const float w = zeta - (s - 12582912.0f);
+    const unsigned short* row = q + i * kFwdWarps * kHSZ +
+                                (__float_as_int(s) -
+                                 static_cast<int>(kFloorBias));
+    const float lo = widen_lo(row[0]);
+    const unsigned short b = bf16_rn_bits(fmaf(w, widen_lo(row[1]) - lo, lo));
+    t[2 * (i * kFwdWarps * kFV)] = b;
+    if (i > 0 || !first) t[2 * ((i * kFwdWarps - 1) * kFV) + 1] = b;
+  }
+}
+
+// K1b pass A of a slab with window w, staged in buf (bf16 bits [x][z]),
+// into its pair table tab (bf16 halves of [x][v] words); zeta(x, v) =
+// gzx*x + zc. A window of more than 3 * kFwdWarps columns runs the first 4
+// rows of each warp without tests, as K1.
+__device__ __forceinline__ void pass_a_bf16(
+    unsigned short* __restrict__ tab, const unsigned short* __restrict__ buf,
+    float gzx, float zc, int4 w, int warp, int lane) {
+  const int nq_w = w.y - w.x + 1 - warp;
+  const float z0 = fmaf(gzx, static_cast<float>(w.x + warp), zc);
+  const unsigned short* const q = buf + warp * kHSZ - w.z;
+  unsigned short* const t = tab + 2 * (warp * kFV + lane);
+  if (nq_w > 3 * kFwdWarps) {
+    pass_a_cols<0, 4, false>(t, q, gzx, z0, nq_w, warp == 0);
+    pass_a_cols<4, kRowsA, true>(t, q, gzx, z0, nq_w, warp == 0);
+  } else {
+    pass_a_cols<0, kRowsA, true>(t, q, gzx, z0, nq_w, warp == 0);
+  }
+}
+
+// K1b pass B of a fast slab: both taps of each owned pixel as one pair word
+// of the table; tb is the table's address of word floor(X) less its bias;
+// X = xt + u*eux (xt = cx_r + v*evx), the plain version's order.
+template <bool kGuard>
+__device__ __forceinline__ void pass_b_bf16(float (&acc)[kPix],
+                                            const bool (&pix)[kPix],
+                                            const float (&ue)[kPix],
+                                            float xt, unsigned tb) {
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    if (kGuard && !pix[k]) continue;
+    const float X = __fadd_rn(xt, ue[k]);
+    const float s = __fadd_rd(X, 12582912.0f);
+    const float wx = X - (s - 12582912.0f);
+    const unsigned word = lds_u32(tb + (__float_as_uint(s) << 7));
+    acc[k] = fmaf(1.0f - wx, widen_lo(word), acc[k]);
+    acc[k] = fmaf(wx, widen_hi(word), acc[k]);
+  }
+}
+
+// K1b: grid (v tiles, u tiles, views); vol (nx, ny, nz) in bf16, scalars
+// (V, NS), out (V, nu, nv) in fp32; kVec: nz a multiple of 8 and vol
+// 16-byte aligned. Every output is written exactly once.
+//
+// Iteration r: wait for slab r + 1's copies; one barrier; issue slab r +
+// 2's into ring slot r & 1 (pass A of r ran last iteration); pass A of slab
+// r + 1 into table (r + 1) & 1; pass B of slab r from table r & 1 for a
+// fast step, per sample on global memory for a direct one (the rows and T
+// rounded to bf16 as the tables hold them), nothing for an empty one.
+template <bool kVec>
+__global__ void __launch_bounds__(kFwdThreads, 3)
+fwd_bf16_kernel(const __nv_bfloat16* __restrict__ vol,
+                const float* __restrict__ scalars, float* __restrict__ out,
+                int nx, int ny, int nz, int nu, int nv) {
+  extern __shared__ __align__(16) float sm[];
+  __nv_bfloat16* const ring = reinterpret_cast<__nv_bfloat16*>(sm);
+  unsigned* const tabs = reinterpret_cast<unsigned*>(ring + 2 * kHSlab);
+  int4* const win = reinterpret_cast<int4*>(tabs + 2 * kTab);
+  const unsigned tabs_s = smem_addr(tabs);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int view = blockIdx.z;
+  const int v0 = blockIdx.x * kFV, u0 = blockIdx.y * kFU;
+  const Plane p = load_plane(scalars + static_cast<size_t>(view) * NS);
+  const Corners corners{static_cast<float>(u0),
+                        static_cast<float>(min(u0 + kFU, nu) - 1),
+                        static_cast<float>(v0),
+                        static_cast<float>(min(v0 + kFV, nv) - 1)};
+  const int v = v0 + lane;
+  const bool v_in = v < nv;
+  const float fv = static_cast<float>(v);
+  const float xv = __fmul_rn(p.evx, fv), zv = __fmul_rn(fv, p.zav);
+  float ue[kPix], acc[kPix];
+  bool pix[kPix];
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const int u = u0 + warp + kFwdWarps * k;
+    ue[k] = __fmul_rn(p.eux, static_cast<float>(u));
+    pix[k] = v_in && u < nu;
+    acc[k] = 0.0f;
+  }
+  const bool full = u0 + kFU <= nu && v0 + kFV <= nv;   // every pixel inside
+  const int copy_c = tid % Rows<__nv_bfloat16>::kChunks;
+  const int copy_g = tid / Rows<__nv_bfloat16>::kChunks;
+  auto stage_at = [&](int s) {
+    stage_slab<__nv_bfloat16, kVec>(ring + (s & 1) * kHSlab, vol, s,
+                                    win[s % kWin], nx, ny, nz, tid, copy_c,
+                                    copy_g);
+  };
+  auto pass_a_at = [&](int s) {
+    const int4 w = win[s % kWin];
+    if (w.w < 0) return;
+    const float r = static_cast<float>(s);
+    const float cx = __fadd_rn(p.cxb, __fmul_rn(p.rx, r));
+    const float cz = __fadd_rn(p.czb, __fmul_rn(p.rz, r));
+    pass_a_bf16(reinterpret_cast<unsigned short*>(tabs + (s & 1) * kTab),
+                reinterpret_cast<const unsigned short*>(ring) +
+                    (s & 1) * kHSlab,
+                p.gzx, zeta_const(p, cx, cz, zv), w, warp, lane);
+  };
+
+  for (int s = tid; s < kWin; s += kFwdThreads)
+    win[s] = step_window<kHSZ, kVec ? 8 : 1>(p, corners, s, nx, ny, nz);
+  __syncthreads();
+  stage_at(0);
+  stage_at(1);
+  cp_async_wait<1>();   // slab 0
+  __syncthreads();
+  if (v_in) pass_a_at(0);
+
+  for (int ri = 0; ri < ny; ++ri) {
+    cp_async_wait<0>();   // slab r + 1
+    __syncthreads();      // ... visible; pass A of r, pass B of r - 1 done
+    // windows of steps r + kWin/2 .. r + kWin - 1 into the slots of steps
+    // r - kWin/2 .. r - 1 (first read by the staging of a later slab)
+    if (ri % (kWin / 2) == 0 && ri > 0 && tid < kWin / 2) {
+      const int s = ri + kWin / 2 + tid;
+      win[s % kWin] = step_window<kHSZ, kVec ? 8 : 1>(p, corners, s, nx, ny,
+                                                     nz);
+    }
+    stage_at(ri + 2);
+    if (v_in) pass_a_at(ri + 1);
+    const int4 w = win[ri % kWin];
+    const float r = static_cast<float>(ri);
+    const float cx = __fadd_rn(p.cxb, __fmul_rn(p.rx, r));
+    const float xt = __fadd_rn(cx, xv);
+    if (w.w >= 0) {
+      const unsigned tb = tabs_s + 4u * ((ri & 1) * kTab + lane) -
+                          128u * static_cast<unsigned>(w.x) -
+                          (kFloorBias << 7);
+      if (full)
+        pass_b_bf16<false>(acc, pix, ue, xt, tb);
+      else
+        pass_b_bf16<true>(acc, pix, ue, xt, tb);
+    } else if (w.w == kDirect) {
+      const float cz = __fadd_rn(p.czb, __fmul_rn(p.rz, r));
+      const float zc = zeta_const(p, cx, cz, zv);
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        if (!pix[k]) continue;
+        const float X = __fadd_rn(xt, ue[k]);
+        const float xf = floorf(X);
+        const int x0 = static_cast<int>(xf);
+        const float wx = X - xf;
+#pragma unroll
+        for (int o = 0; o < 2; ++o) {
+          const int xi = x0 + o;
+          if (xi < 0 || xi >= nx) continue;
+          const float zeta = fmaf(p.gzx, static_cast<float>(xi), zc);
+          const float zf = floorf(zeta);
+          const int z0 = static_cast<int>(zf);
+          const __nv_bfloat16* row =
+              vol + (static_cast<size_t>(xi) * ny + ri) * nz;
+          const unsigned unz = static_cast<unsigned>(nz);
+          const float a = static_cast<unsigned>(z0) < unz
+                              ? __bfloat162float(__ldg(row + z0)) : 0.0f;
+          const float c = static_cast<unsigned>(z0) + 1u < unz
+                              ? __bfloat162float(__ldg(row + z0 + 1))
+                              : 0.0f;
+          // T rounded to bf16, as the tables hold it
+          const float t = __bfloat162float(
+              __float2bfloat16_rn(fmaf(zeta - zf, c - a, a)));
+          acc[k] = fmaf(o ? wx : 1.0f - wx, t, acc[k]);
+        }
+      }
+    }
   }
 
 #pragma unroll
@@ -1403,36 +1635,49 @@ adj_bf16_kernel(const __nv_bfloat16* __restrict__ g,
   }
 }
 
-// Launch K1 (TS float) or K1b (TS bf16) over the views.
-template <typename TS>
-int launch_fwd(const TS* vol, const float* scalars, float* out, int V,
-               int nx, int ny, int nz, int nu, int nv, void* stream) {
+// Launch a forward kernel (K1 or K1b) over the views: grid (v tiles, u
+// tiles, views), at most 65535 views a launch.
+template <typename T>
+int launch_views(void (*kernel)(const T*, const float*, float*, int, int,
+                                int, int, int),
+                 int smem, const T* vol, const float* scalars, float* out,
+                 int V, int nx, int ny, int nz, int nu, int nv,
+                 void* stream) {
   if (V <= 0 || nu <= 0 || nv <= 0) return 0;
-  constexpr int kSmem = FwdStage<TS>::kSmem;
-  const bool vec = nz % per16<TS>() == 0 &&
-                   reinterpret_cast<std::uintptr_t>(vol) % 16 == 0;
   const cudaError_t attr = cudaFuncSetAttribute(
-      vec ? fwd_kernel<TS, true> : fwd_kernel<TS, false>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tv = (nv + kFV - 1) / kFV, tu = (nu + kFU - 1) / kFU;
-  // grid z holds the views, at most 65535 a launch
   for (int v0 = 0; v0 < V; v0 += 65535) {
     const dim3 grid(tv, tu, V - v0 < 65535 ? V - v0 : 65535);
-    const float* sc = scalars + static_cast<size_t>(v0) * NS;
-    float* o = out + static_cast<size_t>(v0) * nu * nv;
-    if (vec) {
-      fwd_kernel<TS, true><<<grid, kFwdThreads, kSmem, s>>>(vol, sc, o, nx,
-                                                            ny, nz, nu, nv);
-    } else {
-      fwd_kernel<TS, false><<<grid, kFwdThreads, kSmem, s>>>(vol, sc, o, nx,
-                                                             ny, nz, nu, nv);
-    }
+    kernel<<<grid, kFwdThreads, smem, s>>>(
+        vol, scalars + static_cast<size_t>(v0) * NS,
+        out + static_cast<size_t>(v0) * nu * nv, nx, ny, nz, nu, nv);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return 0;
+}
+
+// Launch K1: 16-byte staging where nz is a multiple of 4 and vol aligned.
+int launch_fwd(const float* vol, const float* scalars, float* out, int V,
+               int nx, int ny, int nz, int nu, int nv, void* stream) {
+  const bool vec =
+      nz % 4 == 0 && reinterpret_cast<std::uintptr_t>(vol) % 16 == 0;
+  return launch_views(vec ? fwd_kernel<true> : fwd_kernel<false>, kFwdSmem,
+                      vol, scalars, out, V, nx, ny, nz, nu, nv, stream);
+}
+
+// Launch K1b: 16-byte staging where nz is a multiple of 8 and vol aligned.
+int launch_fwd_bf16(const __nv_bfloat16* vol, const float* scalars,
+                    float* out, int V, int nx, int ny, int nz, int nu,
+                    int nv, void* stream) {
+  const bool vec =
+      nz % 8 == 0 && reinterpret_cast<std::uintptr_t>(vol) % 16 == 0;
+  return launch_views(vec ? fwd_bf16_kernel<true> : fwd_bf16_kernel<false>,
+                      kFwdHSmem, vol, scalars, out, V, nx, ny, nz, nu, nv,
+                      stream);
 }
 
 // Launch K2.
@@ -1486,8 +1731,8 @@ int slab_plane_adj(const float* g, const float* scalars, float* vol, int V,
 int slab_plane_fwd_bf16(const void* vol, const float* scalars, float* out,
                         int V, int nx, int ny, int nz, int nu, int nv,
                         void* stream) {
-  return launch_fwd(static_cast<const __nv_bfloat16*>(vol), scalars, out, V,
-                    nx, ny, nz, nu, nv, stream);
+  return launch_fwd_bf16(static_cast<const __nv_bfloat16*>(vol), scalars,
+                         out, V, nx, ny, nz, nu, nv, stream);
 }
 
 // K2b: g is the cotangent in bf16.

@@ -31,10 +31,11 @@ and :func:`slab_backproject` (K2, K4 and their bf16 variants).
 
 K1/K2 are in ``csrc/slab_plane.cu``, K3/K4/K5 in ``csrc/slab_arc.cu``
 (K3 and K5 are one kernel, ``arc_march_kernel``, templated on the
-Jacobian; K1b and K3b are K1 and K3 instantiated on the type they stage,
-K2b and K4b kernels of their own, ``adj_bf16_kernel`` and
-``arc_adj_bf16_kernel``): hand-written CUDA C++ for ``sm_90a``, built by
-``_build.py`` at first use.
+Jacobian; the bf16 tier's four are kernels of their own,
+``fwd_bf16_kernel`` and ``adj_bf16_kernel`` (K1b, K2b),
+``arc_fwd_bf16_kernel`` and ``arc_adj_bf16_kernel`` (K3b, K4b)):
+hand-written CUDA C++ for ``sm_90a``, built by ``_build.py`` at first
+use.
 A tensor on the CPU takes the plain PyTorch version beside each wrapper
 (``core.slab_projector``'s spec); a CUDA tensor launches the kernel or
 raises.
@@ -230,8 +231,9 @@ def slab_arc_adj(g, scalars, geom: Geometry):
 
 
 def slab_plane_fwd_bf16(vol_or, scalars, geom: Geometry):
-    """K1b: :func:`slab_plane_fwd` in the bf16 tier — the kernel stages a
-    bf16 copy of ``vol_or`` and holds T in bf16; fp32 in and out."""
+    """K1b: :func:`slab_plane_fwd` in the bf16 tier — its own kernel
+    stages a bf16 copy of ``vol_or`` and holds T in bf16 (pairs of
+    neighbouring columns in one word); fp32 in and out."""
     if vol_or.device.type == "cpu":
         return slab_project_plain(vol_or, scalars, geom, prec="bf16")
     out = _fwd("slab_plane_fwd_bf16", vol_or, scalars, geom)
@@ -251,8 +253,8 @@ def slab_plane_adj_bf16(g, scalars, geom: Geometry):
 
 
 def slab_arc_fwd_bf16(vol_or, scalars, geom: Geometry):
-    """K3b: :func:`slab_arc_fwd` in the bf16 tier (bf16 rows and
-    tables)."""
+    """K3b: :func:`slab_arc_fwd` in the bf16 tier — its own kernel, with
+    bf16 rows and tables and K3's samples to the bit."""
     if vol_or.device.type == "cpu":
         return slab_project_plain(vol_or, scalars, geom, "arc", prec="bf16")
     out = _fwd("slab_arc_fwd_bf16", vol_or, scalars, geom, None,

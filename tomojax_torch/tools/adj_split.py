@@ -1,31 +1,38 @@
-"""Where the bf16 tier's adjoints K2b and K4b spend their time, and whether
-the fp32 kernels give another build's bits. Builds ``slab_plane.cu`` and
-``slab_arc.cu`` again with one part of K2b or K4b disabled at a time (text
-substitutions, each its own nvcc run, all started together, into
-``build/kernels/adj_split/``) and times each variant beside the full
-kernel and its fp32 counterpart, in turns:
+"""Where the bf16 tier's four kernels (the forwards K1b and K3b, the
+adjoints K2b and K4b) spend their time, and whether the other kernels give
+another build's bits. Builds ``slab_plane.cu`` and ``slab_arc.cu`` again
+with one part of a kernel disabled at a time (text substitutions, each its
+own nvcc run, all started together, into ``build/kernels/adj_split/``) and
+times each variant beside the full kernel and its fp32 counterpart, in
+turns:
 
-- K2b at ``chip_smoke.py`` phase 3's problem (256³ Shepp phantom, 180
-  views over the full circle, ±0.02 rad tilts, ±4 px shifts) and at 32 of
-  config 5's 1024 views at 512³ (phase 12b's views);
-- K4b at phase 5's problem (256³, 90 views, ±0.5° tilts, ±2 px shifts).
+- K1b and K2b at ``chip_smoke.py`` phase 3's problem (256³ Shepp phantom,
+  180 views over the full circle, ±0.02 rad tilts, ±4 px shifts) and at
+  32 of config 5's 1024 views at 512³ (phase 12b's views);
+- K3b and K4b at phase 5's problem (256³, 90 views, ±0.5° tilts, ±2 px
+  shifts).
 
 With ``--parent`` (another tree's root, or the directory holding its
 ``slab_plane.cu`` and ``slab_arc.cu``) it also builds that tree's sources,
-times its K2b and K4b beside this tree's, and compares the bits of the
-fp32 kernels K1-K5 and of K1b and K3b on phase 3's and phase 5's groups.
+times its bf16 kernels beside this tree's, and compares the bits of the
+fp32 kernels K1-K5 and of the kernels listed in ``SAME_BITS`` on phase
+3's and phase 5's groups. A counting build (``split_steps``, in the tool's
+own copy of ``slab_plane.cu`` only) reports which share of K1's and K1b's
+(CTA, slab) steps runs from the tables, the direct way or not at all, on
+each plane problem.
 
     python -m tomojax_torch.tools.adj_split [--size 256] [--parent PATH]
-        [--out split.json]
+        [--kernels k1b,k2b,k3b,k4b] [--out split.json]
 
 A variant with a part disabled gives wrong values; only its time means
 something: the full kernel's time less a variant's is what that part costs
 (parts overlap, so the costs need not add up). Times are CUDA-event means
 of 5 applies after a warm-up, each build timed twice (the builds in
-order, then in reverse). Each full build is compiled with ``-Xptxas -v``;
+order, then in reverse); a bf16 kernel reads bf16 copies made beforehand,
+and the cast that the wrappers make on each call is timed on its own. Each full build is compiled with ``-Xptxas -v``;
 the report carries its registers and spills and, from the CUDA runtime,
-each adjoint kernel's registers and CTAs per SM at its shared memory.
-Needs a CUDA device.
+each kernel's registers and CTAs per SM at its shared memory. Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -52,9 +59,58 @@ ARC = _build.CSRC / "slab_arc.cu"
 OUT_DIR = _build.BUILD_DIR / "adj_split"
 
 # Each kernel: its source, its bf16 entry, its fp32 counterpart's entry,
-# the template instance and dynamic shared memory that the occupancy query
-# names, and its variants: {name: [(text of the source, replacement)]}.
+# the kernel (and the template instance, where it differs) and dynamic
+# shared memory that the occupancy query names, and its variants: {name:
+# [(text of the source, replacement)]}.
+K1B_NO_PASS_A = ("    if (v_in) pass_a_at(ri + 1);",
+                 "    if (v_in && ny < 0) pass_a_at(ri + 1);")
+K1B_NO_PASS_B = ("    if (w.w >= 0) {\n      const unsigned tb = tabs_s",
+                 "    if (w.w >= 0 && ri < 0) {\n"
+                 "      const unsigned tb = tabs_s")
+# every slab staged as a step without windows (its commit group empty)
+K1B_NO_STAGING = ("win[s % kWin], nx, ny, nz, tid, copy_c,",
+                  "make_int4(0, -1, 0, kEmpty), nx, ny, nz, tid, copy_c,")
+K1B_CTAS = ("__global__ void __launch_bounds__(kFwdThreads, 3)\n"
+            "fwd_bf16_kernel(",
+            "__global__ void __launch_bounds__(kFwdThreads, {})\n"
+            "fwd_bf16_kernel(")
+K3B_NO_PASS_A = ("        if (v_in) {\n"
+                 "          for (int xl = warp; xl < nq; xl += kFwdWarps) {\n"
+                 "            const int x = qx0 + xl;\n",
+                 "        if (v_in && ny < 0) {\n"
+                 "          for (int xl = warp; xl < nq; xl += kFwdWarps) {\n"
+                 "            const int x = qx0 + xl;\n")
+K3B_NO_PASS_B = ("          if (!v_in || u >= nu) continue;\n"
+                 "          const float jreal = jreal_of<true>(p, r, y0[k]);\n"
+                 "          const float jb = ceil_small(jreal);",
+                 "          if (!v_in || u >= nu || ny > 0) continue;\n"
+                 "          const float jreal = jreal_of<true>(p, r, y0[k]);\n"
+                 "          const float jb = ceil_small(jreal);")
+K3B_NO_STAGING = ("    const short4 st_r2 = c_stage[(ri + 2) % kChunk];\n"
+                  "    stage_slab(ring + slab_at(ri + 2), vol, ri + 2, st_r2, ny, nz, "
+                  "vec, tid,\n               slot);",
+                  "    const short4 st_r2 = c_stage[(ri + 2) % kChunk];\n"
+                  "    if (ny < 0)\n"
+                  "      stage_slab(ring + slab_at(ri + 2), vol, ri + 2, st_r2, "
+                  "ny, nz,\n                 vec, tid, slot);")
+K3B_ROWS = "\n            const unsigned short* row0 = ring16 + base0 + x * kSZ;"
+K3B_GRID = ("            grid_at<true>(p, r, cx, cz, static_cast<float>(x), vt, "
+            "&cf,\n                          &zaff);" + K3B_ROWS)
 KERNELS = {
+    "k1b": {
+        "source": PLANE, "entry": "slab_plane_fwd_bf16",
+        "fp32": "slab_plane_fwd", "kernel": "fwd_bf16_kernel",
+        "instance": "fwd_bf16_kernel<true>", "smem": "kFwdHSmem",
+        "threads": "kFwdThreads",
+        "variants": {
+            "no_pass_a": [K1B_NO_PASS_A],
+            "no_pass_b": [K1B_NO_PASS_B],
+            "no_staging": [K1B_NO_STAGING],
+            "skeleton_only": [K1B_NO_PASS_A, K1B_NO_PASS_B, K1B_NO_STAGING],
+            # launch bounds of four CTAs per SM (64 registers)
+            "ctas4": [(K1B_CTAS[0], K1B_CTAS[1].format(4))],
+        },
+    },
     "k2b": {
         "source": PLANE, "entry": "slab_plane_adj_bf16",
         "fp32": "slab_plane_adj", "kernel": "adj_bf16_kernel",
@@ -80,6 +136,51 @@ KERNELS = {
                 "  if (w.nvc > 0) {\n    const Extent c = extent(w, s);",
                 "  if (w.nvc > 0 && nu < 0) {\n"
                 "    const Extent c = extent(w, s);")],
+        },
+    },
+    "k3b": {
+        "source": ARC, "entry": "slab_arc_fwd_bf16", "fp32": "slab_arc_fwd",
+        "kernel": "arc_fwd_bf16_kernel", "smem": "kArcHSmem",
+        "threads": "kFwdThreads",
+        "variants": {
+            "no_pass_a": [K3B_NO_PASS_A],
+            "no_pass_b": [K3B_NO_PASS_B],
+            "no_staging": [K3B_NO_STAGING],
+            "skeleton_only": [K3B_NO_PASS_A, K3B_NO_PASS_B, K3B_NO_STAGING],
+            # pass A's grid (the march index's division and sawtooth) left
+            # out: a position near the true one, for the time only
+            "no_grid": [(K3B_GRID, "            cf = 0.0f;\n"
+                         "            zaff = fmaf(p.gzx, static_cast<float>(x)"
+                         " - cx, cz + vt.z);" + K3B_ROWS)],
+            # the grid's ceil and pass A's floor as adds (the values of
+            # ceilf and floorf here), three CTAs per SM
+            "small_ops": [(K3B_GRID, """            {
+              const float d = sub(sub(static_cast<float>(x), cx), vt.x);
+              const float jr =
+                  jreal_of<true>(p, r, y0_at(p, mul(d, p.inv_eux), vt));
+              cf = sub(ceil_small(jr), jr);
+              zaff = add(add(cz, mul(p.gzx, d)), vt.z);
+            }""" + K3B_ROWS), (
+                "              const float f = floorf(zeta);\n"
+                "              const int k = static_cast<int>(f);\n"
+                "              const float w = zeta - f;\n"
+                "              if (b == 0 || !(live & 1u) || k != k_prev) {\n"
+                "                const bool ia = static_cast<unsigned>(k) < unz;\n"
+                "                const bool ic = static_cast<unsigned>(k) + 1u < "
+                "unz;\n                a0 = side0 && ia ? widen_lo(",
+                "              const float fs = __fadd_rd(zeta, 12582912.0f);\n"
+                "              const float f = fs - 12582912.0f;\n"
+                "              const int k = __float_as_int(fs) - 0x4B400000;\n"
+                "              const float w = zeta - f;\n"
+                "              if (b == 0 || !(live & 1u) || k != k_prev) {\n"
+                "                const bool ia = static_cast<unsigned>(k) < unz;\n"
+                "                const bool ic = static_cast<unsigned>(k) + 1u < "
+                "unz;\n                a0 = side0 && ia ? widen_lo(")],
+            "ctas3": [(
+                "__global__ void __launch_bounds__(kFwdThreads, 4)\n"
+                "arc_fwd_bf16_kernel(",
+                "__global__ void __launch_bounds__(kFwdThreads, 3)\n"
+                "arc_fwd_bf16_kernel(")],
         },
     },
     "k4b": {
@@ -121,19 +222,53 @@ KERNELS = {
         },
     },
 }
-# The bf16 adjoints before their own designs (the fp32 kernels instantiated
-# on bf16), for the occupancy query of a parent build of that tree.
+# The bf16 kernels in the parent tree (c0ab30d: the forwards the fp32
+# kernels instantiated on bf16, the adjoints their own designs), for the
+# occupancy query of a parent build.
 PARENT_KERNELS = {
-    "k2b": {"kernel": "adj_kernel<__nv_bfloat16>",
-            "smem": "adj_smem<__nv_bfloat16>()", "threads": "kAdjThreads"},
-    "k4b": {"kernel": "arc_adj_kernel<__nv_bfloat16>", "smem": "kAdjSmem",
+    "k1b": {"kernel": "fwd_kernel<__nv_bfloat16, true>",
+            "smem": "FwdStage<__nv_bfloat16>::kSmem",
+            "threads": "kFwdThreads"},
+    "k2b": {"kernel": "adj_bf16_kernel", "smem": "kBSmem",
+            "threads": "kAdjThreads"},
+    "k3b": {"kernel": "arc_march_kernel<false, __nv_bfloat16>",
+            "smem": "fwd_smem<false, __nv_bfloat16>()",
+            "threads": "kFwdThreads"},
+    "k4b": {"kernel": "arc_adj_bf16_kernel", "smem": "kBSmem",
             "threads": "kAdjThreads"}}
 # The kernels whose bits the parent comparison holds: (entry, quad); the
-# arc Jacobian writes 12 fields.
+# arc Jacobian writes 12 fields. SAME_BITS: the bf16 kernels that this
+# tree leaves as the parent's.
+SAME_BITS = (("slab_plane_adj_bf16", "plane"), ("slab_arc_adj_bf16", "arc"))
 COMPARED = (("slab_plane_fwd", "plane"), ("slab_plane_adj", "plane"),
-            ("slab_plane_fwd_bf16", "plane"), ("slab_arc_fwd", "arc"),
-            ("slab_arc_adj", "arc"), ("slab_arc_jac", "arc"),
-            ("slab_arc_fwd_bf16", "arc"))
+            ("slab_arc_fwd", "arc"), ("slab_arc_adj", "arc"),
+            ("slab_arc_jac", "arc"), *SAME_BITS)
+# The counting build: a device counter per (kernel, step kind) in the
+# tool's copy of slab_plane.cu, bumped once per (CTA, slab) where pass B
+# runs, and an entry that reads (and resets) them; kinds: from the tables,
+# the direct way, nothing (no tap of the tile reaches the volume).
+STEP_KINDS = ("fast", "direct", "empty")
+COUNT_EDITS = [
+    ("namespace {\n",
+     "__device__ unsigned long long split_steps[6];\n\nnamespace {\n"),
+    ("    if (w_b.w >= 0) {\n      const float* const tab",
+     "    if (tid == 0)\n"
+     "      atomicAdd(&split_steps[w_b.w >= 0 ? 0 : w_b.w == kDirect ? 1 : 2],"
+     " 1ull);\n"
+     "    if (w_b.w >= 0) {\n      const float* const tab"),
+    ("    const float xt = __fadd_rn(cx, xv);\n",
+     "    const float xt = __fadd_rn(cx, xv);\n"
+     "    if (tid == 0)\n"
+     "      atomicAdd(&split_steps[w.w >= 0 ? 3 : w.w == kDirect ? 4 : 5],"
+     " 1ull);\n")]
+_COUNT_ENTRY = """
+extern "C" int split_step_counts(unsigned long long* out) {
+  unsigned long long zero[6] = {0, 0, 0, 0, 0, 0};
+  cudaError_t e = cudaMemcpyFromSymbol(out, split_steps, sizeof(zero));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaMemcpyToSymbol(split_steps, zero, sizeof(zero)));
+}
+"""
 _OCCUPANCY = """
 extern "C" int adj_split_occupancy(int* out) {{
   cudaFuncAttributes a;
@@ -153,24 +288,38 @@ extern "C" int adj_split_occupancy(int* out) {{
 """
 
 
+def _apply(edits, s: str, what: str) -> str:
+    for old, new in edits:
+        if s.count(old) != 1:
+            raise ValueError(f"{what}: the text to replace occurs "
+                             f"{s.count(old)} times")
+        s = s.replace(old, new)
+    return s
+
+
 def variant_source(kernel: str, name: str, text: str | None = None) -> str:
     """The kernel's source (or ``text``) with its variant ``name`` applied;
     raises if a substitution does not match exactly once."""
     k = KERNELS[kernel]
     s = k["source"].read_text() if text is None else text
-    for old, new in k["variants"][name]:
-        if s.count(old) != 1:
-            raise ValueError(f"{kernel} {name}: the text to replace occurs "
-                             f"{s.count(old)} times in {k['source'].name}")
-        s = s.replace(old, new)
-    return s
+    return _apply(k["variants"][name], s,
+                  f"{kernel} {name} in {k['source'].name}")
+
+
+def count_source(text: str | None = None) -> str:
+    """``slab_plane.cu`` (or ``text``) with K1's and K1b's step counters
+    and the entry ``split_step_counts`` that reads and resets them."""
+    s = PLANE.read_text() if text is None else text
+    return _apply(COUNT_EDITS, s, "the counting build") + _COUNT_ENTRY
 
 
 def with_occupancy(names: dict, text: str) -> str:
     """``text`` with an entry that reports the registers, local bytes,
     CTAs per SM and shared bytes per CTA of the kernel ``names`` gives
-    (``kernel``, ``smem``, ``threads``)."""
-    return text + _OCCUPANCY.format(**names)
+    (``instance`` or ``kernel``, ``smem``, ``threads``)."""
+    return text + _OCCUPANCY.format(
+        kernel=names.get("instance", names["kernel"]), smem=names["smem"],
+        threads=names["threads"])
 
 
 def build(sources: dict[str, str]) -> tuple[dict, dict]:
@@ -246,13 +395,19 @@ def _views(n_proj, rng, tilt, shift, device):
 
 def _groups(geom, views, vol, quad, device):
     """Per orientation group: the oriented volume, the scalars and a
-    seeded random cotangent, as ``chip_smoke.slab_groups``."""
+    seeded random cotangent, as ``chip_smoke.slab_groups``, then the bf16
+    copies of the volume and the cotangent that the bf16 entries read
+    (made once here, so that a split times the kernels alone)."""
     gstruct, scalars = sp.scalar_groups(geom, views, quad, device=device)
     gen = torch.Generator(device=device).manual_seed(0)
     nu, nv = geom.det_shape
-    return [(sp.orient_volume(vol, geom, sw, yf).contiguous(), sc,
-             torch.randn((len(idx), nu, nv), generator=gen, device=device))
-            for (idx, sw, yf, _), sc in zip(gstruct, scalars)]
+    out = []
+    for (idx, sw, yf, _), sc in zip(gstruct, scalars):
+        vol_or = sp.orient_volume(vol, geom, sw, yf).contiguous()
+        y = torch.randn((len(idx), nu, nv), generator=gen, device=device)
+        out.append((vol_or, sc, y, vol_or.to(torch.bfloat16),
+                    y.to(torch.bfloat16)))
+    return out
 
 
 def problems(n: int, device) -> dict:
@@ -304,47 +459,90 @@ def call(lib, entry, geom, inp, sc):
 
 
 def apply(lib, entry, geom, grps):
-    """One apply of ``entry`` over the groups (the bf16 entries read a
-    bf16 copy of their operand, as the wrappers make it)."""
+    """One apply of ``entry`` over the groups (the bf16 entries read the
+    groups' bf16 copies of their operand)."""
     adj = "_adj" in entry
-    outs = []
-    for vol_or, sc, y in grps:
-        inp = y if adj else vol_or
-        if entry.endswith("_bf16"):
-            inp = inp.to(torch.bfloat16)
-        outs.append(call(lib, entry, geom, inp, sc))
-    return outs
+    if entry.endswith("_bf16"):
+        return [call(lib, entry, geom, y_b if adj else vol_b, sc)
+                for _, sc, _, vol_b, y_b in grps]
+    return [call(lib, entry, geom, y if adj else vol_or, sc)
+            for vol_or, sc, y, _, _ in grps]
+
+
+def cast(kname, grps):
+    """The bf16 copies of the operand of ``kname`` over the groups, as the
+    wrappers make them on each call (timed beside the kernels)."""
+    adj = "_adj" in KERNELS[kname]["entry"]
+    return [(y if adj else vol_or).to(torch.bfloat16)
+            for vol_or, _, y, _, _ in grps]
 
 
 def _rel(a, b):
     return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
 
 
-def errors(libs, kname, geom, grps, quad, parent) -> dict:
-    """The full build's bf16 adjoint against the plain bf16 version and
-    the fp32 kernel (the largest relative L2 over the groups), whether two
+def _view_rel(a, b):
+    """The largest relative L2 over the views of (V, nu, nv) outputs."""
+    return float((torch.linalg.norm(a - b, dim=(1, 2))
+                  / torch.linalg.norm(b, dim=(1, 2))).max())
+
+
+def quad_of(kname: str) -> str:
+    return "plane" if kname in ("k1b", "k2b") else "arc"
+
+
+def errors(libs, kname, geom, grps, parent) -> dict:
+    """The full build's bf16 kernel against its plain bf16 version (a
+    forward's largest per-view relative L2, an adjoint's relative L2, the
+    largest over the groups) and against the fp32 kernel, whether two
     applies give the same bits, and with a parent build the parent's bf16
-    adjoint against the plain bf16 version."""
+    kernel against the plain bf16 version."""
     from tomojax_torch.kernels import slab as slabk
     k = KERNELS[kname]
-    lib = libs[kname]
+    lib, quad = libs[kname], quad_of(kname)
+    adj = "_adj" in k["entry"]
+    rel = _rel if adj else _view_rel
     out = {"vs_plain": [], "vs_fp32": [], "repeat_equal": True}
     if parent:
         out["parent_vs_plain"] = []
-    for vol_or, sc, y in grps:
-        one = [(vol_or, sc, y)]
+    for g in grps:
+        vol_or, sc, y = g[:3]
+        one = [g]
         a = apply(lib, k["entry"], geom, one)[0]
         out["repeat_equal"] &= torch.equal(
             a, apply(lib, k["entry"], geom, one)[0])
-        ref = slabk.slab_backproject_plain(y, sc, geom, quad, prec="bf16")
-        out["vs_plain"].append(_rel(a, ref))
+        if adj:
+            ref = slabk.slab_backproject_plain(y, sc, geom, quad, prec="bf16")
+        else:
+            ref = slabk.slab_project_plain(vol_or, sc, geom, quad,
+                                           prec="bf16")
+        out["vs_plain"].append(rel(a, ref))
         out["vs_fp32"].append(_rel(a, apply(lib, k["fp32"], geom, one)[0]))
         if parent:
             b = apply(libs[f"parent.{kname}"], k["entry"], geom, one)[0]
-            out["parent_vs_plain"].append(_rel(b, ref))
+            out["parent_vs_plain"].append(rel(b, ref))
         del ref
     return {key: max(val) if isinstance(val, list) else val
             for key, val in out.items()}
+
+
+def step_counts(lib, geom, grps) -> dict:
+    """The counting build's share of K1's and K1b's (CTA, slab) steps of
+    each kind over one apply of each on the groups."""
+    buf = (ctypes.c_ulonglong * 6)()
+    lib.split_step_counts(buf)        # reset
+    apply(lib, "slab_plane_fwd", geom, grps)
+    apply(lib, "slab_plane_fwd_bf16", geom, grps)
+    torch.cuda.synchronize()
+    rc = lib.split_step_counts(buf)
+    if rc != 0:
+        raise RuntimeError(f"split_step_counts: CUDA error {rc}")
+    out = {}
+    for i, name in enumerate(("k1", "k1b")):
+        n = [int(buf[3 * i + j]) for j in range(3)]
+        out[name] = {"steps": sum(n), **{
+            kind: c / max(sum(n), 1) for kind, c in zip(STEP_KINDS, n)}}
+    return out
 
 
 def parent_sources(path: str) -> dict[str, str]:
@@ -361,40 +559,52 @@ def main(argv=None):
                     help="the 256³ problems' size (config 5's is twice it)")
     ap.add_argument("--parent", default=None,
                     help="another tree (or its csrc/) to compare with")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="the kernels to build and time, comma-separated")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    names = [k for k in args.kernels.split(",") if k]
+    if not names or not set(names) <= set(KERNELS):
+        raise SystemExit(f"--kernels: choose among {sorted(KERNELS)}")
     if not torch.cuda.is_available():
         raise SystemExit("adj_split needs a CUDA device")
     dev = torch.device("cuda")
     sources = {}
-    for kname, k in KERNELS.items():
+    for kname in names:
+        k = KERNELS[kname]
         sources[kname] = with_occupancy(k, k["source"].read_text())
         for v in k["variants"]:
             sources[f"{kname}.{v}"] = variant_source(kname, v)
+    counting = "k1b" in names
+    if counting:
+        sources["count"] = count_source()
     if args.parent:
         par = parent_sources(args.parent)
-        sources["parent.k2b"] = with_occupancy(PARENT_KERNELS["k2b"],
-                                               par["plane"])
-        sources["parent.k4b"] = with_occupancy(PARENT_KERNELS["k4b"],
-                                               par["arc"])
+        for kname in names:
+            sources[f"parent.{kname}"] = with_occupancy(
+                PARENT_KERNELS[kname], par[quad_of(kname)])
     libs, ptxas = build(sources)
+    full = [n for n in sources if n in KERNELS or n.startswith("parent.")]
     report = {"device": torch.cuda.get_device_name(0), "size": args.size,
-              "ptxas": {name: ptxas_summary(ptxas[name])
-                        for name in ("k2b", "k4b", "parent.k2b",
-                                     "parent.k4b") if name in ptxas},
-              "occupancy": {name: occupancy(libs[name])
-                            for name in ("k2b", "k4b", "parent.k2b",
-                                         "parent.k4b") if name in libs}}
+              "ptxas": {name: ptxas_summary(ptxas[name]) for name in full},
+              "occupancy": {name: occupancy(libs[name]) for name in full}}
     print(json.dumps({"ptxas": report["ptxas"],
                       "occupancy": report["occupancy"]}), flush=True)
     probs = problems(args.size, dev)
+    if counting:
+        report["steps"] = {
+            pname: step_counts(libs["count"], geom, grps)
+            for pname, (pq, geom, grps) in probs.items() if pq == "plane"}
+        print(json.dumps({"steps": report["steps"]}), flush=True)
     if args.parent:
         bits = {}
         for entry, quad in COMPARED:
-            pname = f"{quad}_{args.size}"
-            _, geom, grps = probs[pname]
-            lib = libs["k2b" if quad == "plane" else "k4b"]
-            plib = libs["parent.k2b" if quad == "plane" else "parent.k4b"]
+            lib = next((libs[n] for n in names if quad_of(n) == quad), None)
+            if lib is None:
+                continue
+            plib = libs["parent." + next(n for n in names
+                                         if quad_of(n) == quad)]
+            _, geom, grps = probs[f"{quad}_{args.size}"]
             a, b = apply(lib, entry, geom, grps), apply(plib, entry, geom,
                                                         grps)
             bits[entry] = [torch.equal(x.view(torch.int32),
@@ -403,12 +613,12 @@ def main(argv=None):
         report["bits_equal_parent"] = bits
         print(json.dumps({"bits_equal_parent": bits}), flush=True)
     report["ms"], report["errors"] = {}, {}
-    for kname, k in KERNELS.items():
-        quad = "plane" if kname == "k2b" else "arc"
+    for kname in names:
+        k = KERNELS[kname]
         for pname, (pq, geom, grps) in probs.items():
-            if pq != quad:
+            if pq != quad_of(kname):
                 continue
-            err = errors(libs, kname, geom, grps, quad, bool(args.parent))
+            err = errors(libs, kname, geom, grps, bool(args.parent))
             report["errors"][f"{kname}@{pname}"] = err
             print(f"{kname} at {pname}: " + ", ".join(
                 f"{key} {val:.3e}" if isinstance(val, float) else
@@ -425,15 +635,17 @@ def main(argv=None):
                 lib, entry = runs[name]
                 times[name].append(
                     cuda_ms(lambda: apply(lib, entry, geom, grps), 5))
-            full = float(np.mean(times["full"]))
-            rec = {"views": sum(sc.shape[0] for _, sc, _ in grps),
-                   "ms": times, "full_ms": full,
+            t_full = float(np.mean(times["full"]))
+            rec = {"views": sum(g[1].shape[0] for g in grps),
+                   "ms": times, "full_ms": t_full,
                    "fp32_ms": float(np.mean(times["fp32"])),
-                   "cost_ms": {v: full - float(np.mean(times[v]))
+                   "cast_ms": cuda_ms(lambda: cast(kname, grps), 5),
+                   "cost_ms": {v: t_full - float(np.mean(times[v]))
                                for v in k["variants"]}}
             report["ms"][f"{kname}@{pname}"] = rec
             print(f"{kname} at {pname} ({rec['views']} views): full "
-                  f"{full:.3f} ms, fp32 {rec['fp32_ms']:.3f} ms; "
+                  f"{t_full:.3f} ms, fp32 {rec['fp32_ms']:.3f} ms, cast "
+                  f"{rec['cast_ms']:.3f} ms; "
                   + ", ".join(f"{v} {np.mean(times[v]):.3f}"
                               for v in order[2:]), flush=True)
     print(json.dumps(report))

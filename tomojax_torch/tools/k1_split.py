@@ -40,14 +40,12 @@ VARIANTS = {
         "        zeta_at(p, cx, cz, fx + static_cast<float>(i * kFwdWarps), "
         "fv);\n"
         "    const Floor f = floor_small(zeta);\n"
-        "    const TS* const row = q + i * kFwdWarps * FwdStage<TS>::kSZ + "
-        "f.k;\n"
-        "    t[i * kFwdWarps * kFV] =\n"
-        "        to_ts<TS>(lerp_pair(val(row[0]), val(row[1]), zeta - f.f));",
-        "    t[i * kFwdWarps * kFV] = to_ts<TS>(0.0f);")],
+        "    const float* const row = q + i * kFwdWarps * kSZ + f.k;\n"
+        "    t[i * kFwdWarps * kFV] = lerp_pair(row[0], row[1], zeta - f.f);",
+        "    t[i * kFwdWarps * kFV] = 0.0f;")],
     "no_pass_b": [(
-        "    if (w_b.w >= 0) {\n      const TS* const tab",
-        "    if (w_b.w >= 0 && ri < 0) {\n      const TS* const tab")],
+        "    if (w_b.w >= 0) {\n      const float* const tab",
+        "    if (w_b.w >= 0 && ri < 0) {\n      const float* const tab")],
     "no_staging": [(
         "  if (w.w >= 0) {\n    const unsigned unx",
         "  if (w.w >= 0 && s < 0) {\n    const unsigned unx")],

@@ -58,6 +58,13 @@ STAYS_BEHIND = {
         "What stays behind: lane padding and bucketing)"),
     ("core/slab_projector.py", "slab_scalars_jnp"): _XLA,
     ("core/slab_projector.py", "forward_from_scalars_xla"): _XLA,
+    **{("utils/profiling.py", n): (
+        "a host timer around each iteration: it times the enqueue, not the "
+        "card, and nothing reads it; the port's spans and counters "
+        "(profiling.span, count, records) take its place (ROADMAP.md, What "
+        "stays behind: IterationTimer)")
+       for n in ("IterationTimer", "IterationTimer.__init__",
+                 "IterationTimer.total", "IterationTimer.mean")},
     ("align/cc.py", "align_to_reprojection(folds=)"): (
         "the port clamps folds to n_proj // 2, so as not to copy "
         "tomojax's folds=4 raising for n_proj < 8 (ROADMAP.md Queue 3, "

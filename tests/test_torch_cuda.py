@@ -19,6 +19,7 @@ it to float32 summation rounding (1e-5 relative).
 
 import ctypes
 import hashlib
+import time
 
 import numpy as np
 import pytest
@@ -38,7 +39,7 @@ from tomojax_torch.kernels import resample as rs
 from tomojax_torch.kernels import slab as slabk
 from tomojax_torch.recon import cgls, fista_tv, lasso_fista, tikhonov_gd
 from tomojax_torch.recon.fista_tv import estimate_lipschitz
-from tomojax_torch.tools import bf16_gate
+from tomojax_torch.tools import bf16_gate, trace_cost
 
 pytestmark = pytest.mark.cuda
 
@@ -992,6 +993,44 @@ def test_gd_fast_on_card_tracks_cpu(cuda):
     assert rs.resample_transpose.launches > before
     err = (card.theta6.cpu().double() - cpu.theta6).abs().max()
     assert float(err) <= 1e-3, err
+
+
+def test_host_sync_counters_match_the_sync_debug_mode(cuda):
+    """Every host sync that CUDA's sync debug mode finds in a CGLS init and
+    pair, one CC view and one slab LM step is one the program counts
+    (``host_sync.*``): 6 row copies in the init, the guard and 6 in the
+    pair (3 orientation groups), none in the view; in the LM step (3
+    groups) the mask, 3 row copies, 3 solves, 4 scalar builds' 3 host
+    constants each and 4 swap permutations."""
+    want = {"cgls_init": 6, "cgls_pair": 7, "cc_view": 0, "lm_step": 47}
+    for name, fn in trace_cost.census_jobs(64, 32, cuda).items():
+        sites, counters = trace_cost.sync_census(fn)
+        assert sum(sites.values()) == sum(counters.values()), (
+            name, sites, counters)
+        if name in want:
+            assert sum(counters.values()) == want[name], (name, counters)
+
+
+def test_kernel_times_leave_out_the_programs_spans(cuda, tmp_path):
+    """Under the profiler the program's spans are annotations with device
+    ranges over their kernels; the kernel table counts each kernel once:
+    no span name in it, and its total within the traced wall."""
+    from tomojax_torch.recon.cgls import cgls_init, cgls_steps
+    from tomojax_torch.utils import profiling
+    geom, views, vol, _ = _problem()
+    op = make_operator(geom, views, family="slab_plane", device=cuda)
+    b = op.A(torch.as_tensor(vol, device=cuda))
+    state = cgls_init(op, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profiling.trace(str(tmp_path / "tr")) as prof:
+        cgls_steps(op, b, state, nsteps=2, niter=3)
+    wall_us = 1e6 * (time.perf_counter() - t0)
+    kt = profiling.kernel_times(prof)
+    assert any("fwd_kernel" in k for k in kt)
+    assert not [k for k in kt if k.split(".")[0] in ("op", "cgls",
+                                                      "kernel")]
+    assert sum(kt.values()) < wall_us
 
 
 def test_cc_chain_on_card_tracks_cpu(cuda):

@@ -9,7 +9,8 @@ import torch
 from tomojax_torch import align as ta
 from tomojax_torch.align import pipeline as tp
 from tomojax_torch.tools import (adj_split, config1, config2, config3,
-                                 config4_floor, config4_profile, k1_split)
+                                 config4_floor, config4_profile, k1_split,
+                                 trace_cost)
 
 torch.set_num_threads(1)
 
@@ -36,6 +37,26 @@ def test_config4_profile_splits_each_outer(tmp_path):
         # a CPU run takes the plain versions: no kernel launches
         assert r["launches"] == {"K3": 0, "K4": 0, "K5": 0}
     assert rep["device"] == "cpu" and rep["kernel_s"] == 0
+
+
+def test_trace_cost_times_the_recorder_and_the_chain(tmp_path):
+    out = tmp_path / "cost.json"
+    rep = trace_cost.main(["--device", "cpu", "--size", "16", "--views", "6",
+                           "--chains", "2", "--out", str(out)])
+    assert json.loads(out.read_text()) == rep
+    assert rep["device"] == "cpu" and "census" not in rep
+    assert set(rep["off"]) == {"loop_us", "span_off_us", "count_off_us",
+                               "span_on_us", "count_on_us"}
+    assert all(v > 0 for v in rep["off"].values())
+    ch = rep["chain"]
+    assert ch["views"] == 5
+    for k in ("untraced_view_us", "traced_view_us", "cc_view_span_us"):
+        assert len(ch[k]) == 2 and all(v > 0 for v in ch[k])
+    # a view's stages lie inside its span
+    for i in range(2):
+        assert sum(v[i] for v in ch["stage_us"].values()) <= (
+            ch["cc_view_span_us"][i])
+    assert 0 < rep["off_share_of_view"] < 1
 
 
 def test_config4_floor_prints_both_families(capsys):

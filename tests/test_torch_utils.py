@@ -7,7 +7,6 @@ groups, K3/K4/K5 at 256³ × 90 views), with the bound digits phases 3 and 5
 print."""
 
 import json
-import time
 
 import numpy as np
 import pytest
@@ -38,16 +37,6 @@ def test_timed_counts_warmup_and_reps():
     out, dt = profiling.timed(lambda: calls.append(1) or len(calls),
                               reps=3, warmup=2)
     assert out == 5 and len(calls) == 5 and dt >= 0.0
-
-
-def test_iteration_timer():
-    timer = profiling.IterationTimer()
-    for _ in range(3):
-        with timer:
-            time.sleep(0.01)
-    assert len(timer.times) == 3
-    assert timer.total >= 0.03 and timer.mean == pytest.approx(
-        timer.total / 3)
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

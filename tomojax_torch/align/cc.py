@@ -31,6 +31,7 @@ import torch
 
 from tomojax_torch.core.operators import make_operator, resolve_device
 from tomojax_torch.recon.sirt import sirt
+from tomojax_torch.utils import profiling
 
 # align_to_reprojection's default number of folds (clamped to n_proj // 2)
 DEFAULT_FOLDS = 4
@@ -100,29 +101,31 @@ def phase_cross_correlation(reference, moving, upsample_factor: int = 1,
     """
     reference = _tensor(reference, device)
     moving = _tensor(moving, reference.device)
-    ref_f = torch.fft.fft2(reference)
-    prod = ref_f * torch.fft.fft2(moving).conj()
-    real = prod.real.dtype
-    if normalization == "phase":
-        eps = torch.finfo(real).eps
-        prod = prod / prod.abs().clamp_min(100.0 * eps)
+    with profiling.span("cc.correlate"):
+        ref_f = torch.fft.fft2(reference)
+        prod = ref_f * torch.fft.fft2(moving).conj()
+        real = prod.real.dtype
+        if normalization == "phase":
+            eps = torch.finfo(real).eps
+            prod = prod / prod.abs().clamp_min(100.0 * eps)
 
-    cc = torch.fft.ifft2(prod)
-    shift = torch.stack([torch.where(m > n // 2, m - n, m) for m, n in
-                         zip(_argmax2(cc.abs()), cc.shape[-2:])],
-                        dim=-1).to(real)
+        cc = torch.fft.ifft2(prod)
+        shift = torch.stack([torch.where(m > n // 2, m - n, m) for m, n in
+                             zip(_argmax2(cc.abs()), cc.shape[-2:])],
+                            dim=-1).to(real)
     if upsample_factor == 1:
         return shift
 
     # refine on an upsampled local DFT grid (Guizar-Sicairos matrix DFT)
-    u = float(upsample_factor)
-    shift = torch.round(shift * u) / u
-    region = math.ceil(1.5 * u)
-    dftshift = float(region // 2)
-    offsets = dftshift - shift * u
-    cc_up = _upsampled_dft(prod.conj(), region, u, offsets)
-    maxima_up = torch.stack(_argmax2(cc_up.abs()), dim=-1).to(real)
-    return shift + (maxima_up - dftshift) / u
+    with profiling.span("cc.refine"):
+        u = float(upsample_factor)
+        shift = torch.round(shift * u) / u
+        region = math.ceil(1.5 * u)
+        dftshift = float(region // 2)
+        offsets = dftshift - shift * u
+        cc_up = _upsampled_dft(prod.conj(), region, u, offsets)
+        maxima_up = torch.stack(_argmax2(cc_up.abs()), dim=-1).to(real)
+        return shift + (maxima_up - dftshift) / u
 
 
 def cor_flipping(proj_0, proj_180, upsample_factor: int = 16, *,
@@ -146,18 +149,22 @@ def cross_correlation_chain(projections, upsample_factor: int = 100, *,
         translation.
     """
     p = _tensor(projections, device)
-    prev = p[0]
-    shifts, aligned = [], [prev]
-    for img in p[1:]:
-        s = phase_cross_correlation(prev, img,
-                                    upsample_factor=upsample_factor)
-        prev = fourier_shift(img, s)
-        shifts.append(s)
-        aligned.append(prev)
-    offsets = torch.cat([torch.zeros((1, 2), dtype=p.real.dtype,
-                                     device=p.device),
-                         torch.stack(shifts).reshape(-1, 2)])
-    return offsets, torch.stack(aligned)
+    with profiling.span("cc.chain"):
+        prev = p[0]
+        shifts, aligned = [], [prev]
+        for img in p[1:]:
+            with profiling.span("cc.view"):
+                s = phase_cross_correlation(prev, img,
+                                            upsample_factor=upsample_factor)
+                with profiling.span("cc.shift"):
+                    prev = fourier_shift(img, s)
+            profiling.count("cc.views")
+            shifts.append(s)
+            aligned.append(prev)
+        offsets = torch.cat([torch.zeros((1, 2), dtype=p.real.dtype,
+                                         device=p.device),
+                             torch.stack(shifts).reshape(-1, 2)])
+        return offsets, torch.stack(aligned)
 
 
 def _roll2(img, s0, s1):

@@ -32,6 +32,7 @@ has no counterpart here.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -53,6 +54,7 @@ from tomojax_torch.core.operators import (QUADS, make_operator,
 from tomojax_torch.kernels.slab import resolve_prec
 from tomojax_torch.recon.cgls import cgls, cgls_init, cgls_steps
 from tomojax_torch.recon.sirt import sirt
+from tomojax_torch.utils import profiling
 
 
 class AlignState(NamedTuple):
@@ -219,6 +221,36 @@ def _default_device(device, *tensors):
     return resolve_device(device)
 
 
+def _synced(site: str, x):
+    """``x``, where the caller's ``float``, ``bool`` or ``.cpu()`` makes
+    the host wait on the card: counted as ``host_sync.align.<site>``."""
+    profiling.count(f"host_sync.align.{site}")
+    return x
+
+
+def _host64(site: str, t):
+    """``t`` as a float64 numpy array, the copy counted as
+    ``host_sync.align.<site>``."""
+    return _synced(site, t.cpu()).numpy().astype(np.float64)
+
+
+#: the stages of an outer, as the heartbeat prints them
+_STAGES = ("align.debias", "align.recon", "align.refine", "align.hook")
+
+
+def _stage_seconds(outer, syncs0: int) -> str:
+    """The seconds of each stage of the recorded outer span ``outer``
+    (:data:`_STAGES`) and of the whole outer, and its host syncs (the
+    ``host_sync.*`` counters less ``syncs0``, their sum at its start)."""
+    spans, counters = profiling.records()
+    split = profiling.child_seconds(spans, outer)
+    s = spans[outer]
+    return " ".join([f"{k.split('.')[1]} {split.get(k, 0.0):.2f}s"
+                     for k in _STAGES] + [
+        f"of {s.t1 - s.t0:.2f}s,",
+        f"{profiling.host_syncs(counters) - syncs0} host syncs"])
+
+
 def _refine_exact(volume, projections, geom: Geometry, views: Views, lo, hi,
                   mask, refine_iters, refine_chunk, dtype, hb=None):
     """Exact-family box LM of all views in chunks of ``refine_chunk``
@@ -338,8 +370,8 @@ def align_reconstruct(projections, geom: Geometry, views0: Views, *,
 
     theta_init = _views_on(views0, dtype, device).theta6()
     lo, hi = theta_init + lo_off, theta_init + hi_off
-    lo_np = lo.cpu().numpy().astype(np.float64)
-    hi_np = hi.cpu().numpy().astype(np.float64)
+    lo_np = _host64("bounds", lo)
+    hi_np = _host64("bounds", hi)
     quad = QUADS.get(family)
     gt = (None if ground_truth is None
           else torch.as_tensor(np.asarray(ground_truth)).to(**kw))
@@ -351,12 +383,11 @@ def align_reconstruct(projections, geom: Geometry, views0: Views, *,
     defect_done = -1          # outer of the last defect recompute
     vchunk = refine_chunk or max(1, min(n, (1 << 28)
                                         // max(1, 20 * geom.n_det)))
-    t_hb = time.perf_counter()
+    heartbeat = progress or verbose
 
     def hb(msg):
-        if progress or verbose:
-            print(f"[pipeline] {msg} (t={time.perf_counter() - t_hb:.0f}s)",
-                  flush=True)
+        if heartbeat:
+            print(f"[pipeline] {msg}", flush=True)
 
     def lm_refine(vws, quiet=False):
         nonlocal refine_gs
@@ -412,172 +443,211 @@ def align_reconstruct(projections, geom: Geometry, views0: Views, *,
         return RefineResult(*(torch.cat(x) for x in zip(*parts)))
 
     for it in range(start_iter, outer_iters):
-        if (debias_period and family in QUADS
-                and (defect_done < 0
-                     or (it - start_iter) % debias_period == 0)
-                and bool(torch.any(volume != 0))):
-            d = (_exact_forward(volume, geom, views, dtype, debias_chunk)
-                 - sp.project(volume, geom, views, quad=quad, **kw))
-            proj_work = projections - d
-            defect_done = it
-            rel = torch.linalg.norm(d) / torch.linalg.norm(projections)
-            hb(f"outer {it}: debias defect rel={float(rel):.2e}")
-        if family not in QUADS:
-            op = make_operator(geom, views, family=family, **kw)
-        else:
-            # ---- reconstruction on frozen octant groups ----------------
-            res = (sp.group_scalars_for(geom, views, gstruct, quad, **kw)
-                   if gstruct is not None else None)
-            if res is None:
-                gstruct, scalars = sp.scalar_groups(geom, views, quad, **kw)
-            else:
-                gstruct, scalars = res
-            op = operator_from_scalars(geom, gstruct, scalars,
-                                       family=family, prec=recon_prec, **kw)
-        chunk = recon_chunk or recon_iters
-        rms = 0.0
-        if recon == "cgls":
-            state = cgls_init(op, proj_work, volume)
-            while state.k < recon_iters and state.stop == 0:
-                prev_k = state.k
-                state, _, rms_arr = cgls_steps(
-                    op, proj_work, state, nsteps=chunk, niter=recon_iters,
-                    ground_truth=gt, reinit_tol=rtol)
-                if state.k > prev_k:
-                    rms = float(rms_arr[state.k - prev_k - 1])
-                hb(f"outer {it}: recon {state.k}/{recon_iters}")
-            if state.stop != 0:
-                hb(f"outer {it}: CGLS double-reinit quit at k={state.k}")
-            volume = state.x
-        else:
-            done = 0
-            while done < recon_iters:
-                nit = min(chunk, recon_iters - done)
-                r = sirt(op, proj_work, niter=nit, positivity=positivity,
-                         x0=volume, ground_truth=gt)
-                volume = r.x
-                done += nit
-                rms = float(r.rms_error[max(0, r.n_iter - 1)])
-                hb(f"outer {it}: recon {done}/{recon_iters}")
-                if r.stop_reason != 0:   # semi-convergence: stop here
-                    break
-        history["recon_rms"].append(rms)
+        with (profiling.tracing() if heartbeat
+              else contextlib.nullcontext()), \
+                profiling.span("align.outer") as outer:
+            if heartbeat:
+                syncs0 = profiling.host_syncs(profiling.records()[1])
+            with profiling.span("align.debias"):
+                if (debias_period and family in QUADS
+                        and (defect_done < 0
+                             or (it - start_iter) % debias_period == 0)
+                        and bool(_synced("debias_nonzero",
+                                         torch.any(volume != 0)))):
+                    d = (_exact_forward(volume, geom, views, dtype,
+                                        debias_chunk)
+                         - sp.project(volume, geom, views, quad=quad, **kw))
+                    proj_work = projections - d
+                    defect_done = it
+                    rel = (torch.linalg.norm(d)
+                           / torch.linalg.norm(projections))
+                    hb(f"outer {it}: debias defect "
+                       f"rel={float(_synced('debias_rel', rel)):.2e}")
+            with profiling.span("align.recon"):
+                if family not in QUADS:
+                    op = make_operator(geom, views, family=family, **kw)
+                else:
+                    # ---- reconstruction on frozen octant groups --------
+                    res = (sp.group_scalars_for(geom, views, gstruct, quad,
+                                                **kw)
+                           if gstruct is not None else None)
+                    if res is None:
+                        gstruct, scalars = sp.scalar_groups(geom, views,
+                                                            quad, **kw)
+                    else:
+                        gstruct, scalars = res
+                    op = operator_from_scalars(geom, gstruct, scalars,
+                                               family=family,
+                                               prec=recon_prec, **kw)
+                chunk = recon_chunk or recon_iters
+                rms = 0.0
+                if recon == "cgls":
+                    state = cgls_init(op, proj_work, volume)
+                    while state.k < recon_iters and state.stop == 0:
+                        prev_k = state.k
+                        state, _, rms_arr = cgls_steps(
+                            op, proj_work, state, nsteps=chunk,
+                            niter=recon_iters, ground_truth=gt,
+                            reinit_tol=rtol)
+                        if state.k > prev_k:
+                            rms = float(_synced(
+                                "recon_rms", rms_arr[state.k - prev_k - 1]))
+                        hb(f"outer {it}: recon {state.k}/{recon_iters}")
+                    if state.stop != 0:
+                        hb(f"outer {it}: CGLS double-reinit quit at "
+                           f"k={state.k}")
+                    volume = state.x
+                else:
+                    done = 0
+                    while done < recon_iters:
+                        nit = min(chunk, recon_iters - done)
+                        r = sirt(op, proj_work, niter=nit,
+                                 positivity=positivity, x0=volume,
+                                 ground_truth=gt)
+                        volume = r.x
+                        done += nit
+                        rms = float(_synced(
+                            "recon_rms", r.rms_error[max(0, r.n_iter - 1)]))
+                        hb(f"outer {it}: recon {done}/{recon_iters}")
+                        if r.stop_reason != 0:   # semi-convergence: stop
+                            break
+                history["recon_rms"].append(rms)
 
-        # ---- batched refinement ----------------------------------------
-        if refine_method == "gd_fast":
-            ref = gd_refine(views)
-            ref = ref._replace(theta6=torch.minimum(
-                torch.maximum(ref.theta6, lo), hi))
-        elif refine_method == "lm":
-            ref = _refine_exact(volume, proj_work, geom, views, lo, hi, mask,
-                                refine_iters, refine_chunk, dtype,
-                                lambda msg: hb(f"outer {it}: {msg}"))
-        else:
-            ref = lm_refine(views)
-        if (refine_method == "lm_slab" and accel_period
-                and (it + 1) % accel_period == 0):
-            # flip rescue: re-run LM from sign-flipped tilt inits for every
-            # view; keep a view's flip only where it cuts the cost by 2%
-            # (near-equal basins must not flip on operator noise)
-            flip_rel = 0.02
-            cost_np = ref.cost.cpu().numpy().astype(np.float64)
-            th = ref.theta6.cpu().numpy().astype(np.float64)
-            best = cost_np.copy()
-            n_take = 0
-            all_combos = (((4, 5),) if n * geom.n_det > (1 << 26)
-                          else ((4,), (5,), (4, 5)))
-            for cols in [c for c in all_combos if all(mask[i] for i in c)]:
-                th_alt = th.copy()
-                th_alt[:, list(cols)] *= -1.0
-                th_alt = np.clip(th_alt, lo_np, hi_np)
-                alt = Views.from_theta6(torch.as_tensor(th_alt).to(**kw),
-                                        cor=views.cor)
-                c2 = lm_refine(alt, quiet=True)
-                cost2 = c2.cost.cpu().numpy().astype(np.float64)
-                take = cost2 < best * (1.0 - flip_rel)
-                if take.any():
-                    th[take] = c2.theta6.cpu().numpy().astype(
-                        np.float64)[take]
-                    best[take] = cost2[take]
-                    n_take += int(take.sum())
-            if n_take:
-                hb(f"outer {it}: flip-rescue improved "
-                   f"{int((best < cost_np * (1 - flip_rel)).sum())}/{n} "
-                   "views")
-                ref = ref._replace(theta6=torch.as_tensor(th).to(**kw),
-                                   cost=torch.as_tensor(best).to(**kw))
-        theta = ref.theta6
-        views = Views.from_theta6(theta, cor=views.cor)
-        cost = float(ref.cost.sum())
-        history["refine_cost"].append(cost)
+            # ---- batched refinement ------------------------------------
+            with profiling.span("align.refine"):
+                if refine_method == "gd_fast":
+                    ref = gd_refine(views)
+                    ref = ref._replace(theta6=torch.minimum(
+                        torch.maximum(ref.theta6, lo), hi))
+                elif refine_method == "lm":
+                    ref = _refine_exact(volume, proj_work, geom, views, lo,
+                                        hi, mask, refine_iters, refine_chunk,
+                                        dtype,
+                                        lambda msg: hb(f"outer {it}: {msg}"))
+                else:
+                    ref = lm_refine(views)
+                if (refine_method == "lm_slab" and accel_period
+                        and (it + 1) % accel_period == 0):
+                    # flip rescue: re-run LM from sign-flipped tilt inits
+                    # for every view; keep a view's flip only where it cuts
+                    # the cost by 2% (near-equal basins must not flip on
+                    # operator noise)
+                    flip_rel = 0.02
+                    cost_np = _host64("flip", ref.cost)
+                    th = _host64("flip", ref.theta6)
+                    best = cost_np.copy()
+                    n_take = 0
+                    all_combos = (((4, 5),) if n * geom.n_det > (1 << 26)
+                                  else ((4,), (5,), (4, 5)))
+                    for cols in [c for c in all_combos
+                                 if all(mask[i] for i in c)]:
+                        th_alt = th.copy()
+                        th_alt[:, list(cols)] *= -1.0
+                        th_alt = np.clip(th_alt, lo_np, hi_np)
+                        alt = Views.from_theta6(
+                            torch.as_tensor(th_alt).to(**kw), cor=views.cor)
+                        c2 = lm_refine(alt, quiet=True)
+                        cost2 = _host64("flip", c2.cost)
+                        take = cost2 < best * (1.0 - flip_rel)
+                        if take.any():
+                            th[take] = _host64("flip", c2.theta6)[take]
+                            best[take] = cost2[take]
+                            n_take += int(take.sum())
+                    if n_take:
+                        hb(f"outer {it}: flip-rescue improved "
+                           f"{int((best < cost_np * (1 - flip_rel)).sum())}"
+                           f"/{n} views")
+                        ref = ref._replace(
+                            theta6=torch.as_tensor(th).to(**kw),
+                            cost=torch.as_tensor(best).to(**kw))
+                theta = ref.theta6
+                views = Views.from_theta6(theta, cor=views.cor)
+                cost = float(_synced("refine_cost", ref.cost.sum()))
+                history["refine_cost"].append(cost)
 
-        # ---- moment hook ------------------------------------------------
-        if (moment_period and (mask[0] or mask[2])
-                and (it + 1) % moment_period == 0
-                and bool(torch.any(volume != 0))):
-            if mom_mask is None:
-                mom_mask = torch.as_tensor(
-                    _support_mask(geom, projections.cpu().numpy())).to(**kw)
-            # the slab families reuse the solver's frozen octant groups
-            res = (sp.group_scalars_for(geom, views, gstruct, quad, **kw)
-                   if family in QUADS else None)
-            synth = (sp.project_scalars(volume * mom_mask, geom, *res, quad,
-                                        dtype)
-                     if res is not None else
-                     _family_synth(volume * mom_mask, geom, views, family,
-                                   quad, dtype, debias_chunk))
-            dmom = _project_out_gauge(
-                moment_match(proj_work, synth, geom.det_shape), views.phi)
-            th = theta.to(dmom.dtype).clone()
-            if mask[0]:
-                th[:, 0] += dmom[:, 0]
-            if mask[2]:
-                th[:, 2] += dmom[:, 1]
-            th = torch.minimum(torch.maximum(th, lo.to(th.dtype)),
-                               hi.to(th.dtype))
-            theta = th.to(dtype)
-            views = Views.from_theta6(theta, cor=views.cor)
-            hb(f"outer {it}: moment match "
-               f"|dtx|={float(dmom[:, 0].abs().mean()):.2e} "
-               f"|dtz|={float(dmom[:, 1].abs().mean()):.2e}")
+            # ---- moment hook, Aitken extrapolation ---------------------
+            with profiling.span("align.hook"):
+                if (moment_period and (mask[0] or mask[2])
+                        and (it + 1) % moment_period == 0
+                        and bool(_synced("hook_nonzero",
+                                         torch.any(volume != 0)))):
+                    if mom_mask is None:
+                        mom_mask = torch.as_tensor(_support_mask(
+                            geom, _synced("support",
+                                          projections.cpu()).numpy())
+                        ).to(**kw)
+                    # the slab families reuse the solver's frozen octant
+                    # groups
+                    res = (sp.group_scalars_for(geom, views, gstruct, quad,
+                                                **kw)
+                           if family in QUADS else None)
+                    synth = (sp.project_scalars(volume * mom_mask, geom,
+                                                *res, quad, dtype)
+                             if res is not None else
+                             _family_synth(volume * mom_mask, geom, views,
+                                           family, quad, dtype,
+                                           debias_chunk))
+                    dmom = _project_out_gauge(
+                        moment_match(proj_work, synth, geom.det_shape),
+                        views.phi)
+                    th = theta.to(dmom.dtype).clone()
+                    if mask[0]:
+                        th[:, 0] += dmom[:, 0]
+                    if mask[2]:
+                        th[:, 2] += dmom[:, 1]
+                    th = torch.minimum(torch.maximum(th, lo.to(th.dtype)),
+                                       hi.to(th.dtype))
+                    theta = th.to(dtype)
+                    views = Views.from_theta6(theta, cor=views.cor)
+                    dtx = float(_synced("moment", dmom[:, 0].abs().mean()))
+                    dtz = float(_synced("moment", dmom[:, 1].abs().mean()))
+                    hb(f"outer {it}: moment match |dtx|={dtx:.2e} "
+                       f"|dtz|={dtz:.2e}")
 
-        # ---- Aitken extrapolation --------------------------------------
-        if accel_period:
-            th_hist.append(theta.cpu().numpy().astype(np.float64))
-            if len(th_hist) > 3:
-                th_hist.pop(0)
-            # never extrapolate on the final outer: the next refinement
-            # is what accepts or rejects the jump against the true cost
-            if (len(th_hist) == 3 and (it - last_jump) >= accel_period
-                    and it < outer_iters - 1):
-                th_acc = aitken_extrapolate(*th_hist, lo_np, hi_np, mask)
-                # one-shot corner escape: a masked parameter pinned at its
-                # bound is re-centred once
-                at_edge = ((np.abs(th_acc - lo_np) < 1e-9)
-                           | (np.abs(th_acc - hi_np) < 1e-9)) \
-                    & np.asarray(mask)[None, :] & ~escaped
-                th_acc = np.where(
-                    at_edge, theta_init.cpu().numpy().astype(np.float64),
-                    th_acc)
-                escaped |= at_edge
-                hb(f"outer {it}: aitken jump on "
-                   f"{int(np.sum(np.abs(th_acc - th_hist[-1]) > 1e-12))} "
-                   f"params ({int(at_edge.sum())} corner escapes)")
-                views = Views.from_theta6(torch.as_tensor(th_acc).to(**kw),
-                                          cor=views.cor)
-                th_hist.clear()
-                last_jump = it
+                # ---- Aitken extrapolation ------------------------------
+                if accel_period:
+                    th_hist.append(_host64("aitken", theta))
+                    if len(th_hist) > 3:
+                        th_hist.pop(0)
+                    # never extrapolate on the final outer: the next
+                    # refinement is what accepts or rejects the jump
+                    # against the true cost
+                    if (len(th_hist) == 3
+                            and (it - last_jump) >= accel_period
+                            and it < outer_iters - 1):
+                        th_acc = aitken_extrapolate(*th_hist, lo_np, hi_np,
+                                                    mask)
+                        # one-shot corner escape: a masked parameter pinned
+                        # at its bound is re-centred once
+                        at_edge = ((np.abs(th_acc - lo_np) < 1e-9)
+                                   | (np.abs(th_acc - hi_np) < 1e-9)) \
+                            & np.asarray(mask)[None, :] & ~escaped
+                        th_acc = np.where(
+                            at_edge, _host64("aitken", theta_init), th_acc)
+                        escaped |= at_edge
+                        jumped = np.abs(th_acc - th_hist[-1]) > 1e-12
+                        hb(f"outer {it}: aitken jump on "
+                           f"{int(np.sum(jumped))} params "
+                           f"({int(at_edge.sum())} corner escapes)")
+                        views = Views.from_theta6(
+                            torch.as_tensor(th_acc).to(**kw), cor=views.cor)
+                        th_hist.clear()
+                        last_jump = it
 
-        if verbose:
-            print(f"[align] outer {it:3d}: recon rms={rms:.5f} "
-                  f"refine cost={cost:.5f}", flush=True)
-        if checkpoint_dir:
-            save_checkpoint(
-                os.path.join(checkpoint_dir, f"align_ckpt_{it:04d}.npz"),
-                views=views, volume=volume, history=history, iteration=it,
-                th_hist=th_hist, escaped=escaped, last_jump=last_jump)
-        if callback is not None:
-            callback(it, views, volume, history)
+            if verbose:
+                print(f"[align] outer {it:3d}: recon rms={rms:.5f} "
+                      f"refine cost={cost:.5f}", flush=True)
+            if checkpoint_dir:
+                save_checkpoint(
+                    os.path.join(checkpoint_dir, f"align_ckpt_{it:04d}.npz"),
+                    views=views, volume=volume, history=history,
+                    iteration=it, th_hist=th_hist, escaped=escaped,
+                    last_jump=last_jump)
+            if callback is not None:
+                with profiling.span("align.callback"):
+                    callback(it, views, volume, history)
+        if heartbeat:
+            hb(f"outer {it}: {_stage_seconds(outer, syncs0)}")
 
     residuals = (ref.cost if start_iter < outer_iters
                  else torch.zeros((n,), **kw))

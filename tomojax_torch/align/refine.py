@@ -24,6 +24,7 @@ from tomojax_torch.core import fast_projector as fastp
 from tomojax_torch.core import projector
 from tomojax_torch.core.geometry import Geometry, Views
 from tomojax_torch.recon.linesearch import armijo, brute_backoff, wolfe
+from tomojax_torch.utils import profiling
 
 # Boolean masks over (tx, ty, tz, phi, alpha, beta), one per reference
 # cost/gradient wrapper pair (tomojax/align/refine.py:38).
@@ -104,7 +105,9 @@ def alignment_cost_grad(vol, proj_meas, geom: Geometry, theta6, cor,
 
 
 def _mask(mask, **kw):
-    """Float 0/1 tensor of a 6-bool mask (default "xzab")."""
+    """Float 0/1 tensor of a 6-bool mask (default "xzab"); on a card the
+    copy from host memory makes the host wait."""
+    profiling.count("host_sync.lm.mask")
     return torch.tensor([float(bool(m)) for m in (
         PARAM_SETS["xzab"] if mask is None else mask)], **kw)
 

@@ -15,9 +15,12 @@ Same-orientation views refine together:
    carries its own damping, and the trial costs of the whole group are
    one K3 forward.
 
-The loop is eager torch with no host synchronisation per step: the
-per-view accept/reject is a ``torch.where`` and the 6×6 systems go to one
-batched ``torch.linalg.solve``.
+The loop is eager torch: the per-view accept/reject is a ``torch.where``
+and the 6×6 systems go to one batched ``torch.linalg.solve``. On a card
+the host still waits, per group and step, at the solve's error check
+(``host_sync.lm.solve``) and at each scalar build's copies of host
+constants (``host_sync.geometry.*``); the spans ``lm.step`` (``lm.jac``,
+``lm.solve``, ``lm.cost``) time a step.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from tomojax_torch.align.refine import (PARAM_SETS, RefineResult, _box,
 from tomojax_torch.core import slab_projector as sp
 from tomojax_torch.core.geometry import Geometry, Views
 from tomojax_torch.kernels import slab as slabk
+from tomojax_torch.utils import profiling
 
 
 def _batched_forward(vol_or, scalars, geom: Geometry):
@@ -59,25 +63,34 @@ def _lm_group(vol_or, meas, cor, mask_f, lo, hi, theta, lam, steps: int,
         return 0.5 * torch.sum(r * r, dim=(1, 2))
 
     eye = torch.eye(6, dtype=theta.dtype, device=theta.device)
-    cost = costs(theta)
+    with profiling.span("lm.cost"):
+        cost = costs(theta)
     for _ in range(steps):
-        val, jac = _group_value_jac(vol_or, theta, cor, geom, flags)
-        r = val - meas
-        jm = jac * mask_f[None, :, None, None]
-        g = torch.einsum("vkuw,vuw->vk", jm, r)
-        H = torch.einsum("vkuw,vluw->vkl", jm, jm)
-        damp = lam[:, None] * torch.clamp_min(
-            torch.diagonal(H, dim1=1, dim2=2), 1e-12)
-        Hd = H + eye[None] * (1.0 - mask_f)[None] + torch.diag_embed(damp)
-        delta = -torch.linalg.solve(Hd, (g * mask_f[None])[..., None])[..., 0]
-        theta_new = torch.minimum(torch.maximum(theta + delta * mask_f[None],
-                                                lo), hi)
-        cost_new = costs(theta_new)
-        improved = cost_new < cost
-        theta = torch.where(improved[:, None], theta_new, theta)
-        lam = torch.where(improved, torch.clamp_min(lam / 3.0, 1e-12),
-                          lam * 10.0)
-        cost = torch.where(improved, cost_new, cost)
+        with profiling.span("lm.step"):
+            with profiling.span("lm.jac"):
+                val, jac = _group_value_jac(vol_or, theta, cor, geom, flags)
+            with profiling.span("lm.solve"):
+                r = val - meas
+                jm = jac * mask_f[None, :, None, None]
+                g = torch.einsum("vkuw,vuw->vk", jm, r)
+                H = torch.einsum("vkuw,vluw->vkl", jm, jm)
+                damp = lam[:, None] * torch.clamp_min(
+                    torch.diagonal(H, dim1=1, dim2=2), 1e-12)
+                Hd = (H + eye[None] * (1.0 - mask_f)[None]
+                      + torch.diag_embed(damp))
+                # the solve's error check reads its status on the host
+                profiling.count("host_sync.lm.solve")
+                delta = -torch.linalg.solve(
+                    Hd, (g * mask_f[None])[..., None])[..., 0]
+                theta_new = torch.minimum(
+                    torch.maximum(theta + delta * mask_f[None], lo), hi)
+            with profiling.span("lm.cost"):
+                cost_new = costs(theta_new)
+                improved = cost_new < cost
+                theta = torch.where(improved[:, None], theta_new, theta)
+                lam = torch.where(improved, torch.clamp_min(lam / 3.0, 1e-12),
+                                  lam * 10.0)
+                cost = torch.where(improved, cost_new, cost)
     return theta, cost
 
 
@@ -112,11 +125,14 @@ def refine_views_slab(vol, projections, geom: Geometry, views: Views, *,
     lo, hi = _box(lower, -np.inf, n, **kw), _box(upper, np.inf, n, **kw)
     mask_f = _mask(mask, **kw)
     if groups is None:
+        profiling.count("host_sync.lm.groups")
         groups = [g for g in sp._orient_groups(views.numpy(), geom)]
     vol = vol.reshape(geom.vox_shape).to(**kw)
     theta_out = torch.zeros((n, 6), **kw)
     cost_out = torch.zeros((n,), **kw)
     for idx, sw, yf, uf in groups:
+        # a copy from pageable host memory: the host waits
+        profiling.count("host_sync.lm.rows")
         ix = torch.as_tensor(np.asarray(idx), device=vol.device)
         vol_or = sp.orient_volume(vol, geom, sw, yf).contiguous()
         meas = meas_all[ix]

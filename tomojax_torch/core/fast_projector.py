@@ -29,6 +29,7 @@ from tomojax_torch.core.geometry import Geometry, Views
 from tomojax_torch.core.rotations import ray_rotation, rot_x, rot_y, rot_z
 from tomojax_torch.kernels.resample import (resample_rows,
                                             resample_rows_transpose)
+from tomojax_torch.utils import profiling
 
 # Transient bytes one chunk of views may take (forward intermediates, or
 # with a θ-gradient also the saved rows and the position cotangents).
@@ -60,6 +61,8 @@ def view_affine(geom: Geometry, phi, alpha, beta, t, cor, dtype=None):
     su, sv = geom.det_size
     du, dv = geom.det_pix
     sy = geom.vox_size[1]
+    # three copies from pageable host memory: on a card the host waits
+    profiling.count("host_sync.geometry.affine", 3)
     s0 = (torch.tensor([-su / 2.0 + 0.5, -sy, -sv / 2.0 + 0.5], **kw)
           + cor[..., :1] * torch.tensor([1.0, 0.0, 0.0], **kw))
     origin = torch.as_tensor(geom.vox_origin_np(), **kw)

@@ -46,6 +46,7 @@ import torch
 
 from tomojax_torch.core.fast_projector import view_affine
 from tomojax_torch.core.geometry import Geometry, Views
+from tomojax_torch.utils import profiling
 
 # ---- per-view scalar layout (the kernels read the same columns) ----------
 NS = 21
@@ -237,6 +238,8 @@ def orient_affine(E, B, ny_oriented: int, swap: bool, yflip: bool,
     if dtype is not None:
         E, B = torch.as_tensor(E, dtype=dtype), torch.as_tensor(B, dtype=dtype)
     if swap:
+        # a copy from pageable host memory: on a card the host waits
+        profiling.count("host_sync.geometry.perm")
         perm = torch.as_tensor(_PERM_SWAP, dtype=E.dtype, device=E.device)
         E = perm @ E
         B = (perm @ B.unsqueeze(-1)).squeeze(-1)
@@ -786,17 +789,21 @@ def project_scalars(vol, geom: Geometry, gstruct, scalars,
     fn = slabk.SlabPlane if quad == "plane" else slabk.SlabArc
     n = sum(len(g[0]) for g in gstruct)
     nu, nv = geom.det_shape
-    vol = vol.reshape(geom.vox_shape).to(dtype)
-    out = vol.new_zeros((n, nu, nv))
-    for (idx, sw, yf, uf), sc in zip(gstruct, scalars):
-        vol_or = orient_volume(vol, geom, sw, yf).contiguous()
-        rows = torch.as_tensor(idx, device=out.device)
-        for part in _row_chunks(len(idx), views_chunk):
-            sino = fn.apply(vol_or, sc[part], geom, prec)
-            if uf:
-                sino = sino.flip(1)
-            out[rows[part]] = sino
-    return out.reshape(n, geom.n_det)
+    with profiling.span("op.A"):
+        vol = vol.reshape(geom.vox_shape).to(dtype)
+        out = vol.new_zeros((n, nu, nv))
+        for (idx, sw, yf, uf), sc in zip(gstruct, scalars):
+            with profiling.span("op.group"):
+                vol_or = orient_volume(vol, geom, sw, yf).contiguous()
+                # a copy from pageable host memory: the host waits
+                profiling.count("host_sync.op.rows")
+                rows = torch.as_tensor(idx, device=out.device)
+                for part in _row_chunks(len(idx), views_chunk):
+                    sino = fn.apply(vol_or, sc[part], geom, prec)
+                    if uf:
+                        sino = sino.flip(1)
+                    out[rows[part]] = sino
+        return out.reshape(n, geom.n_det)
 
 
 def backproject_scalars(sino, geom: Geometry, gstruct, scalars,
@@ -810,18 +817,21 @@ def backproject_scalars(sino, geom: Geometry, gstruct, scalars,
     _check_square(geom)
     prec = slabk.resolve_prec(prec)
     nu, nv = geom.det_shape
-    sino = sino.reshape(-1, nu, nv).to(dtype)
-    vol = sino.new_zeros(geom.vox_shape)
-    for (idx, sw, yf, uf), sc in zip(gstruct, scalars):
-        rows = torch.as_tensor(idx, device=sino.device)
-        for part in _row_chunks(len(idx), views_chunk):
-            g = sino[rows[part]]
-            if uf:
-                g = g.flip(1)
-            vb = slabk.slab_backproject(g.contiguous(), sc[part], geom, quad,
-                                        prec)
-            vol += unorient_volume(vb, sw, yf)
-    return vol
+    with profiling.span("op.AT"):
+        sino = sino.reshape(-1, nu, nv).to(dtype)
+        vol = sino.new_zeros(geom.vox_shape)
+        for (idx, sw, yf, uf), sc in zip(gstruct, scalars):
+            with profiling.span("op.group"):
+                profiling.count("host_sync.op.rows")
+                rows = torch.as_tensor(idx, device=sino.device)
+                for part in _row_chunks(len(idx), views_chunk):
+                    g = sino[rows[part]]
+                    if uf:
+                        g = g.flip(1)
+                    vb = slabk.slab_backproject(g.contiguous(), sc[part],
+                                                geom, quad, prec)
+                    vol += unorient_volume(vb, sw, yf)
+        return vol
 
 
 def project(vol, geom: Geometry, views, *, dtype=torch.float32,

@@ -58,6 +58,7 @@ from tomojax_torch.core.slab_projector import (  # noqa: F401 (re-exports)
     NS, S_B1, S_CXB, S_CZB, S_EDX, S_EDY, S_EDZ, S_EUX, S_EUY, S_EUYIEUX,
     S_EVX, S_EVY, S_EVZ, S_GZX, S_INV_EDY, S_INV_EUX, S_RX, S_RZ, S_SCALE,
     S_WAV, S_WAX, S_ZAV)
+from tomojax_torch.utils import profiling
 
 JAC_PASSES = tuple(name for name, *_ in sp.JAC_PASSES)
 NJP = len(JAC_PASSES)
@@ -144,7 +145,8 @@ def _launch(fn, inp, scalars, outs, geom: Geometry, *arc_args):
     _check("scalars", scalars, (V, sp.NS))
     if max(V * nu * nv, nx * ny * nz, *(o.numel() for o in outs)) >= 2 ** 31:
         raise ValueError("problem too large for 32-bit thread indices")
-    with torch.cuda.device(inp.device):
+    with torch.cuda.device(inp.device), \
+            profiling.span(f"kernel.{fn.__name__}"):
         stream = torch.cuda.current_stream(inp.device).cuda_stream
         rc = fn(ctypes.c_void_p(inp.data_ptr()),
                 ctypes.c_void_p(scalars.data_ptr()),

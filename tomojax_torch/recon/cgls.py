@@ -19,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from tomojax_torch.core.operators import TomoOperator
+from tomojax_torch.utils import profiling
 
 
 class CGLSResult(NamedTuple):
@@ -61,15 +62,16 @@ def _initialize(op: TomoOperator, b, x):
 
 def cgls_init(op: TomoOperator, b, x0=None) -> CGLSState:
     """Initialize (or re-initialize) the CG state from iterate ``x0``."""
-    b = _as_b(op, b)
-    x = (torch.zeros(op.vol_shape, dtype=op.dtype, device=op.device)
-         if x0 is None else torch.as_tensor(x0, dtype=op.dtype,
-                                            device=op.device)
-         .reshape(op.vol_shape))
-    r, p, gamma = _initialize(op, b, x)
-    return CGLSState(x=x, r=r, p=p, gamma=gamma,
-                     conv_prev=torch.zeros((), dtype=op.dtype,
-                                           device=op.device))
+    with profiling.span("cgls.init"):
+        b = _as_b(op, b)
+        x = (torch.zeros(op.vol_shape, dtype=op.dtype, device=op.device)
+             if x0 is None else torch.as_tensor(x0, dtype=op.dtype,
+                                                device=op.device)
+             .reshape(op.vol_shape))
+        r, p, gamma = _initialize(op, b, x)
+        return CGLSState(x=x, r=r, p=p, gamma=gamma,
+                         conv_prev=torch.zeros((), dtype=op.dtype,
+                                               device=op.device))
 
 
 @torch.no_grad()
@@ -90,36 +92,44 @@ def cgls_steps(op: TomoOperator, b, state: CGLSState, *, nsteps: int,
     s = dataclasses.replace(state)
     k0 = s.k
     while s.k < niter and s.k < k0 + nsteps and s.stop == 0:
-        k = s.k
-        q = op.A(s.p)
-        alpha = s.gamma / _sqnorm(q)
-        x_new = s.x + alpha * s.p
-        r_new = s.r - alpha * q
-        conv_k = torch.linalg.norm(r_new)
+        with profiling.span("cgls.iter"):
+            k = s.k
+            q = op.A(s.p)
+            alpha = s.gamma / _sqnorm(q)
+            x_new = s.x + alpha * s.p
+            r_new = s.r - alpha * q
+            conv_k = torch.linalg.norm(r_new)
 
-        worse = k > 0 and bool(conv_k > (1.0 + reinit_tol) * s.conv_prev)
-        consecutive = s.reinit_iter + 1 == k
-        stop = 2 if (worse and consecutive) else 0
-        if worse and not consecutive:
-            # revert the update and restart CG from the current iterate
-            r2, p2, gamma2 = _initialize(op, b, s.x)
-            x2 = s.x
-            reinit_iter = k
-        else:
-            p_new = op.AT(r_new)
-            gamma_new = _sqnorm(p_new)
-            beta = gamma_new / s.gamma
-            x2, r2, p2, gamma2 = x_new, r_new, p_new + beta * s.p, gamma_new
-            reinit_iter = s.reinit_iter
+            worse = False
+            if k > 0:
+                # the iteration's one host sync: the guard's bool
+                profiling.count("host_sync.cgls.guard")
+                worse = bool(conv_k > (1.0 + reinit_tol) * s.conv_prev)
+            consecutive = s.reinit_iter + 1 == k
+            stop = 2 if (worse and consecutive) else 0
+            if worse and not consecutive:
+                # revert the update and restart CG from the current iterate
+                r2, p2, gamma2 = _initialize(op, b, s.x)
+                x2 = s.x
+                reinit_iter = k
+            else:
+                p_new = op.AT(r_new)
+                gamma_new = _sqnorm(p_new)
+                beta = gamma_new / s.gamma
+                x2, r2, p2 = x_new, r_new, p_new + beta * s.p
+                gamma2 = gamma_new
+                reinit_iter = s.reinit_iter
 
-        if gt is None:
-            rms_k = torch.linalg.norm(r2) / norm_factor
-        else:
-            rms_k = torch.linalg.norm(x2.reshape(-1) - gt) / norm_factor
-        conv[k - k0] = conv_k
-        rms[k - k0] = rms_k
-        s = CGLSState(x=x2, r=r2, p=p2, gamma=gamma2, k=k + 1, stop=stop,
-                      reinit_iter=reinit_iter, conv_prev=conv_k)
+            if gt is None:
+                rms_k = torch.linalg.norm(r2) / norm_factor
+            else:
+                rms_k = (torch.linalg.norm(x2.reshape(-1) - gt)
+                         / norm_factor)
+            conv[k - k0] = conv_k
+            rms[k - k0] = rms_k
+            s = CGLSState(x=x2, r=r2, p=p2, gamma=gamma2, k=k + 1,
+                          stop=stop, reinit_iter=reinit_iter,
+                          conv_prev=conv_k)
     return s, conv, rms
 
 

@@ -1,7 +1,13 @@
 """Where config 4's time goes: ``cli align`` (BASELINE config 4) for a few
-outers, with host timers around the reconstruction, the refinement and
-the moment hook, the kernels' launch counts per outer, and
+outers, split by the driver's own spans (``align.recon``,
+``align.refine``, ``align.hook``: :mod:`tomojax_torch.utils.profiling`),
+with the LM's seconds per ``lm.*`` span, the host syncs (``host_sync.*``
+counters) and the kernels' launch counts per outer, and
 ``torch.profiler`` over outer 1 (device time per kernel, busy share).
+
+Each stage ends in a host sync of the driver (the solver's residual norm,
+the refinement's cost, the hook's moments or θ copy), so its span holds
+its device work too.
 
     python -m tomojax_torch.tools.config4_profile [--device cuda]
         [--size 256] [--views 90] [--outers 3] [--out profile.json]
@@ -18,15 +24,14 @@ import contextlib
 import json
 import os
 import tempfile
-import time
 from unittest import mock
 
 import torch
 
 import tomojax_torch.align as ta
 from tomojax_torch import cli
-from tomojax_torch.align import pipeline as tp
 from tomojax_torch.kernels import slab as slabk
+from tomojax_torch.utils import profiling
 
 ALIGN_ARGS = [a for kv in (
     "align.pre_align_cc=true", "align.family=slab",
@@ -67,80 +72,73 @@ def main(argv=None):
                     help="an align setting over config 4's (repeatable)")
     args = ap.parse_args(argv)
     cuda = args.device == "cuda"
-
-    def sync():
-        if cuda:
-            torch.cuda.synchronize()
-
-    acc = {}
-
-    def timed(name, fn):
-        def wrapper(*a, **k):
-            sync()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            sync()
-            acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
-            return out
-        return wrapper
-
     acts = [torch.profiler.ProfilerActivity.CPU]
     if cuda:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(activities=acts)
-    # (time, timers, launch counts) where each outer starts and ends; the
-    # profiler's start/stop between them is charged to no outer
-    starts, ends = [], []
+    # the launch counts and host syncs before the first outer and at each
+    # outer's end
+    marks = []
 
-    def mark(marks):
-        sync()
-        marks.append((time.perf_counter(), dict(acc),
-                      {k: f.launches for k, f in COUNTED.items()}))
+    def mark():
+        marks.append(({k: f.launches for k, f in COUNTED.items()},
+                      profiling.host_syncs(profiling.records()[1])))
 
     align = ta.align_reconstruct
 
     def profiled_align(*a, callback=None, **k):
         def cb(it, views, volume, history):
-            mark(ends)
+            mark()
             if it == 0:
                 prof.start()
             elif it == 1:
                 prof.stop()
             if callback is not None:
                 callback(it, views, volume, history)
-            mark(starts)
-        mark(starts)
+        mark()
         return align(*a, callback=cb, **k)
 
+    profiling.reset()
     with contextlib.ExitStack() as stack:
-        # the timers and the profiled driver hold only inside this block
-        for name, stage in (("cgls_init", "recon"), ("cgls_steps", "recon"),
-                            ("refine_views_slab", "refine"),
-                            ("moment_match", "moment_match")):
-            stack.enter_context(mock.patch.object(
-                tp, name, timed(stage, getattr(tp, name))))
+        # the profiled driver holds only inside this block
         stack.enter_context(mock.patch.object(ta, "align_reconstruct",
                                               profiled_align))
+        stack.enter_context(profiling.tracing())
         tmp = stack.enter_context(tempfile.TemporaryDirectory())
         data = simulate(tmp, args.size, args.views, args.device)
         cli.main(["align", "-i", data, "-o", os.path.join(tmp, "vol.npy"),
                   "--device", args.device, *ALIGN_ARGS,
                   "--set", f"align.outer_iters={args.outers}",
                   *(a for kv in args.set for a in ("--set", kv))])
+    spans, _ = profiling.records()
 
     rows = []
-    for i, ((t0, a0, c0), (t1, a1, c1)) in enumerate(zip(starts, ends)):
-        split = {f"{k}_s": a1.get(k, 0.0) - a0.get(k, 0.0)
-                 for k in ("recon", "refine", "moment_match")}
-        rows.append({"outer": i, "wall_s": t1 - t0, **split,
-                     "other_s": t1 - t0 - sum(split.values()),
+    outers = [i for i, s in enumerate(spans) if s.name == "align.outer"]
+    for i, (j, (c0, h0), (c1, h1)) in enumerate(zip(outers, marks,
+                                                    marks[1:])):
+        # the callback (the profiler's start and stop) is charged to no
+        # outer
+        stage = profiling.child_seconds(spans, j)
+        wall = spans[j].t1 - spans[j].t0 - stage.get("align.callback", 0.0)
+        split = {"recon_s": stage.get("align.recon", 0.0),
+                 "refine_s": stage.get("align.refine", 0.0),
+                 "moment_match_s": stage.get("align.hook", 0.0)}
+        rows.append({"outer": i, "wall_s": wall, **split,
+                     "other_s": wall - sum(split.values()),
+                     "lm_s": {k: v for k, v in
+                              profiling.inner_seconds(spans, j).items()
+                              if k.startswith("lm.")},
+                     "host_syncs": h1 - h0,
                      "launches": {k: c1[k] - c0[k] for k in c1},
                      "profiled": i == 1})
         print(json.dumps(rows[-1]))
 
+    # the spans' device ranges (user annotations) would count their
+    # kernels again
     kern = sorted(((e.key, _self_device_us(e), e.count)
                    for e in prof.key_averages()
-                   if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")
+                   and not getattr(e, "is_user_annotation", False)),
                   key=lambda k: -k[1])
     total_us = sum(k[1] for k in kern)
     prof_wall = rows[1]["wall_s"] if len(rows) > 1 else float("nan")

@@ -13,7 +13,6 @@ import numpy as np
 import torch
 
 from tomojax_torch.core.geometry import Geometry, Views
-from tomojax_torch.recon.cgls import CGLSState
 
 
 def _field(obj, name):
@@ -37,6 +36,10 @@ def views(arrays, *, device=None) -> Views:
 
 def cgls_state(s, *, device=None) -> CGLSState:
     """CGLSState from tomojax's CGLSState leaves as numpy arrays."""
+    # imported here: the solver imports the operators, which import this
+    # package (for its profiling spans)
+    from tomojax_torch.recon.cgls import CGLSState
+
     def t(name):
         return torch.as_tensor(np.array(_field(s, name)), device=device)
 

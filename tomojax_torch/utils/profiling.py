@@ -7,8 +7,21 @@
   each call (tomojax's ``block_until_ready``).
 - :func:`event_timed` and :func:`cuda_ms` time device work with CUDA
   events.
-- :class:`IterationTimer` accumulates per-iteration wall times.
 - :func:`kernel_times` reads a finished trace: device time per kernel name.
+- :func:`span` and :func:`count`: the program's own spans and counters at
+  its layer boundaries (CC chain, solver, operator, kernel launch,
+  alignment driver, LM), recorded while a ``torch.profiler`` records or
+  inside :func:`tracing`, and read back with :func:`records`.
+
+The recorder is one per process, for the thread that runs the program. A
+span holds its name, its start and end on the host clock
+(``time.perf_counter``) and the index of its enclosing span, so a layer's
+self time is its duration less its children's (:func:`child_seconds`).
+While the profiler records, each span is also a ``record_function``: it
+shows on the trace's host timeline, the clock the device's kernels are
+on. With the switch off, :func:`span` returns a shared no-op and
+:func:`count` returns at once: neither allocates, calls into torch or
+reads a clock.
 """
 
 from __future__ import annotations
@@ -16,8 +29,10 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+from typing import NamedTuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 def synchronize():
@@ -45,11 +60,14 @@ def trace(log_dir: str):
 
 def kernel_times(prof) -> dict:
     """Device microseconds per kernel name in a finished :func:`trace`,
-    largest first (empty where the trace holds no device time)."""
+    largest first (empty where the trace holds no device time). The spans'
+    own device ranges (user annotations over the kernels they launched)
+    are left out: they would count those kernels again."""
     out = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
-        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+        if (e.device_type == torch.autograd.DeviceType.CUDA and us > 0
+                and not getattr(e, "is_user_annotation", False)):
             out[e.key] = out.get(e.key, 0.0) + us
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
@@ -90,25 +108,130 @@ def cuda_ms(fn, reps: int) -> float:
     return event_timed(fn, reps)[1]
 
 
-class IterationTimer:
-    """Accumulates per-iteration wall times for host-side loops."""
+class Span(NamedTuple):
+    """One recorded span: host seconds on ``time.perf_counter``'s clock
+    and the index of the enclosing span in :func:`records` (-1: none)."""
 
-    def __init__(self):
-        self.times = []
-        self._t0 = None
+    name: str
+    t0: float
+    t1: float
+    parent: int
+
+
+_tracing = 0    # depth of open tracing() blocks
+_spans = []     # [name, t0, t1, parent] per span, in order of entry
+_open = []      # indices of the spans entered and not yet left
+_counters = {}
+
+
+class _Off:
+    """The span of a switched-off recorder: enters and leaves, records
+    nothing. Its enter and exit are builtins, not methods, so a ``with``
+    on it binds no method and runs no Python frame: enter returns None,
+    exit returns ``""`` (false: an exception goes on)."""
+
+    __slots__ = ()
+    __enter__ = type(None)
+    __exit__ = "".format
+
+
+_OFF = _Off()
+
+
+class _On:
+    """A recording span: appended to the records on entry, its end written
+    on exit."""
+
+    __slots__ = ("name", "i", "rf")
+
+    def __init__(self, name):
+        self.name = name
 
     def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
+        i = self.i = len(_spans)
+        _spans.append([self.name, 0.0, 0.0, _open[-1] if _open else -1])
+        _open.append(i)
+        self.rf = None
+        if _autograd_profiler._is_profiler_enabled:
+            self.rf = torch.profiler.record_function(self.name)
+            self.rf.__enter__()
+        _spans[i][1] = time.perf_counter()
+        return i
 
     def __exit__(self, *exc):
-        self.times.append(time.perf_counter() - self._t0)
+        t = time.perf_counter()
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        _spans[self.i][2] = t
+        _open.pop()
         return False
 
-    @property
-    def total(self):
-        return sum(self.times)
 
-    @property
-    def mean(self):
-        return self.total / max(len(self.times), 1)
+def span(name: str):
+    """``with span("cc.view"):`` records the block as a span (and as a
+    ``record_function`` while the profiler records); ``as i`` gives its
+    index in :func:`records`, None with the switch off."""
+    if not (_tracing or _autograd_profiler._is_profiler_enabled):
+        return _OFF
+    return _On(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` (``host_sync.<layer>.<site>``
+    where the host waits on the card), under the same switch as
+    :func:`span`."""
+    if not (_tracing or _autograd_profiler._is_profiler_enabled):
+        return
+    _counters[name] = _counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def tracing():
+    """Record spans and counters inside the block without a profiler."""
+    global _tracing
+    _tracing += 1
+    try:
+        yield
+    finally:
+        _tracing -= 1
+
+
+def records():
+    """``(spans, counters)`` recorded since the last :func:`reset`: a list
+    of :class:`Span` in order of entry (a span still open has ``t1`` 0)
+    and a dict of counts."""
+    return [Span(*s) for s in _spans], dict(_counters)
+
+
+def reset() -> None:
+    """Forget what was recorded; not inside an open span, whose end has
+    yet to be written."""
+    if _open:
+        raise RuntimeError("profiling.reset() inside an open span")
+    _spans.clear()
+    _counters.clear()
+
+
+def host_syncs(counters) -> int:
+    """The sum of the ``host_sync.*`` counters of :func:`records`."""
+    return sum(n for name, n in counters.items()
+               if name.startswith("host_sync."))
+
+
+def inner_seconds(spans, i: int) -> dict:
+    """Seconds per name of the spans inside span ``i`` (at any depth)."""
+    out = {}
+    for s in spans[i + 1:]:
+        if s.t0 > spans[i].t1:
+            break
+        out[s.name] = out.get(s.name, 0.0) + s.t1 - s.t0
+    return out
+
+
+def child_seconds(spans, i: int) -> dict:
+    """Seconds per name of the direct children of span ``i``."""
+    out = {}
+    for s in spans:
+        if s.parent == i:
+            out[s.name] = out.get(s.name, 0.0) + s.t1 - s.t0
+    return out

@@ -647,6 +647,53 @@ def test_k2_matches_plain_vjp_identity_and_repeats(cuda, case):
         assert float(abs(lhs - rhs)) <= float(bound), (lhs, rhs)
 
 
+def _plane_k2_case(device, case):
+    """Plane groups that drive K2's gathers through each candidate count:
+    "coarse", det_pix 2 (one candidate an entry); "tilt", 0.35 rad tilts
+    (evx and gzx ≠ 0: the one more candidate differs between the rows and
+    columns of a warp, and v chunks split); "fine", det_pix 0.02 × 0.015
+    (2/|eux| and 2/|zav| past the chunks' capacities: every entry takes
+    its whole chunk, over many u and v chunks)."""
+    if case != "fine":
+        return _plane_k1_case(device, case)
+    rng = np.random.default_rng(4)
+    n, n_proj = (10, 10, 11), 4
+    geom = Geometry(n_proj=n_proj, vox_shape=n, det_shape=(900, 1000),
+                    det_pix=(0.02, 0.015))
+    views = Views.create(
+        n_proj, phi=0.3 + np.linspace(0, 2 * np.pi, n_proj, endpoint=False),
+        alpha=rng.uniform(-0.02, 0.02, n_proj),
+        beta=rng.uniform(-0.02, 0.02, n_proj),
+        t=rng.uniform(-1, 1, (n_proj, 3)))
+    vol = rng.random(n).astype(np.float32)
+    return geom, list(_groups(geom, views, vol, device))
+
+
+@pytest.mark.parametrize("case", ["coarse", "tilt", "fine"])
+def test_k2_matches_plain_vjp_at_every_candidate_count(cuda, case):
+    """K2 with one candidate an entry, with the one more candidate varying
+    inside a warp, and past the chunks' capacities: within 5e-4 of the
+    plain vjp, two applies bit-identical (no atomics), and the adjoint
+    identity with K1 to 1e-5."""
+    geom, groups = _plane_k2_case(cuda, case)
+    nu, nv = geom.det_shape
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for vol_or, sc in groups:
+        y = torch.randn((sc.shape[0], nu, nv), generator=gen, device=cuda)
+        ker = slabk.slab_plane_adj(y, sc, geom)
+        again = slabk.slab_plane_adj(y, sc, geom)
+        assert torch.equal(ker.view(torch.int32), again.view(torch.int32))
+        ref = slabk.slab_backproject_plain(y, sc, geom)
+        rel = float(torch.linalg.norm(ker - ref) / torch.linalg.norm(ref))
+        assert rel < 5e-4, rel
+        ax = slabk.slab_plane_fwd(vol_or, sc, geom)
+        lhs = torch.dot(ax.double().reshape(-1), y.double().reshape(-1))
+        rhs = torch.dot(vol_or.double().reshape(-1), ker.double().reshape(-1))
+        bound = 1e-5 * torch.linalg.norm(ax.double()) * torch.linalg.norm(
+            y.double())
+        assert float(abs(lhs - rhs)) <= float(bound), (lhs, rhs)
+
+
 def _plane_k1_case(device, case):
     """Plane groups that drive K1 down each of its paths: "odd", odd sizes
     at det_pix 0.7 (every window in the tables, 4-byte staging: nz odd);
@@ -878,9 +925,10 @@ def test_bf16_forwards_match_plain_and_repeat(cuda, quad, case):
 
 
 # SHA-256 of the fp32 kernels' outputs on _problem(48)'s orientation groups
-# (the adjoints on seeded cotangents), from the parent tree's build (c0ab30d)
-# on an NVIDIA H100 80GB HBM3: the bf16 tier's kernels of their own leave
-# K1-K5's bits as they were.
+# (the adjoints on seeded cotangents) on an NVIDIA H100 80GB HBM3: K1 and
+# K3-K5 from c0ab30d's build (the bf16 tier's kernels of their own leave
+# them as they were), K2 from its gather schedule's build (the same matrix
+# entries as the owner sweeps before it, summed in another order).
 FP32_ENTRIES = (("slab_plane_fwd", "plane"), ("slab_plane_adj", "plane"),
                 ("slab_arc_fwd", "arc"), ("slab_arc_adj", "arc"),
                 ("slab_arc_jac", "arc"))
@@ -888,7 +936,7 @@ FP32_DIGESTS = {
     "slab_plane_fwd":
         "0c51a2f4d986e405472350803eb83b498f54bce573e47ddc4375458605d14cf7",
     "slab_plane_adj":
-        "93101626908d127d294418254d654d454c39924522057d03efb7b7e1cc33316c",
+        "94fb1eb29d04d5eeca2e73d860a9afce2717de8185c5d933d999e4f7244cd4d9",
     "slab_arc_fwd":
         "e7119bebf6ed2f95395c200b86c8b1f75616686aa688f390ec9441cc6660a753",
     "slab_arc_adj":
@@ -918,7 +966,7 @@ def _fp32_digests(run, device):
 
 
 def test_fp32_kernels_keep_their_bits(cuda):
-    """K1-K5 through their wrappers give the parent build's bits."""
+    """K1-K5 through their wrappers give the recorded builds' bits."""
     fns = {"slab_plane_fwd": slabk.slab_plane_fwd,
            "slab_plane_adj": slabk.slab_plane_adj,
            "slab_arc_fwd": slabk.slab_arc_fwd,

@@ -84,11 +84,10 @@ def test_k1_split_variants_apply_to_the_kernel_source():
 
 @pytest.mark.parametrize("kernel", sorted(adj_split.KERNELS))
 def test_adj_split_variants_apply_to_the_kernel_source(kernel):
-    """Each of tools/adj_split's variants of the bf16 kernels (K1b-K4b)
-    matches its text in the source exactly once and changes it; the
-    occupancy entry the
-    tool appends names the kernel that the source defines (the tool itself
-    needs the card)."""
+    """Each of tools/adj_split's variants of K2 and the bf16 kernels
+    (K1b-K4b) matches its text in the source exactly once and changes it;
+    the occupancy entry the tool appends names the kernel that the source
+    defines (the tool itself needs the card)."""
     k = adj_split.KERNELS[kernel]
     src = k["source"].read_text()
     assert f"{k['kernel']}(" in src and f"int {k['smem']} =" in src

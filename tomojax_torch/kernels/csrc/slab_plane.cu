@@ -40,11 +40,10 @@
 // detector pitch) runs pass B the direct way for that tile: per sample on
 // global memory, as a one-thread-per-ray march does.
 //
-// Both passes compute the positions with the __device__ functions that K2
-// uses (x_at, zeta_at, with the same fmaf order) and the lerps in the
-// order that nvcc's contraction gave the one-thread-per-ray K1 that this
-// march replaced (lerp_pair, then fmaf into the sum), so K1 gives that
-// kernel's bits and
+// Both passes compute the positions with x_at and zeta_at, whose fmaf
+// order K2 computes them in too, and the lerps in the order that nvcc's
+// contraction gave the one-thread-per-ray K1 that this march replaced
+// (lerp_pair, then fmaf into the sum), so K1 gives that kernel's bits and
 // K2 holds exactly K1's matrix entries. The windows only decide what the
 // tables hold; tests/test_torch_plane_forward_split.py emulates them and
 // counts a tap outside them as a miss. In the table passes floor() is an
@@ -57,22 +56,35 @@
 // K2 uses that the operator is separable (zeta never depends on u), as the
 // arc adjoint K4 does: per view and slab r the transpose is two 1-D
 // transposes,
-//   pass-B transpose  T[x, v] = sum_u w_x(X_r(u, v) -> x) g[u, v],
-//   pass-A transpose  vol[x, r, z] += scale * sum_v w_z(zeta_r(x, v) -> z)
-//                                     T[x, v].
-// A CTA owns slab r and a tile of (x, z); per view it stages the (u, v)
-// window of g whose x-taps reach the tile with cp.async, double-buffered
-// across views, runs pass B into shared memory and pass A into registers
-// that live across all the group's views, and writes each voxel once. No
+//   pass-B transpose  T[x, v] = scale * sum_u w_x(X_r(u, v) -> x) g[u, v],
+//   pass-A transpose  vol[x, r, z] += sum_v w_z(zeta_r(x, v) -> z) T[x, v].
+// A CTA owns slab r and a tile of (x, z) and walks the group's views in
+// chunks of g (K2b's schedule, adj_gather, in fp32): between two barriers
+// the copies of chunk k + 1 are issued (cp.async), pass B of chunk k fills
+// one of two tables T, and pass A of chunk k - 1 reads the other, so a
+// chunk costs one __syncthreads; each view's windows and constants are
+// computed once per CTA into a ring of records. Both transposes are
+// gathers: a pass-B thread owns one row v and its entries T[x, v], each the
+// sum over consecutive candidates u; a pass-A thread owns voxels z of one
+// column x, each the sum over consecutive candidates v, kept in registers
+// across the group's views, and each voxel is written once. A candidate's
+// weight is K1's lerp weight for the tap, from K1's position (x_at,
+// zeta_at, with the same fmaf order): 1 - w for floor(p) = the tap, w for
+// floor(p) = the tap - 1, else 0, picked by selects; no thread branches on
+// a tap and no running sums are kept. So K2 holds exactly K1's matrix
+// entries in float32 and the pair stays an exact transpose (CGLS needs
+// that). An entry's candidates start at the first integer of its window,
+// less a slack above the rounding of K1's positions and of the window's
+// own arithmetic, and number K + 1 with K = floor(2/|slope| + 2 slack),
+// the most such a window holds: every tap K1 takes (where zav = 1 a
+// pass-A thread's voxels share their candidates, 2 a voxel, or 3 where
+// the thread's windows hold them). No
 // atomics, global or shared: every shared slot and register has one
 // writer, and every sum runs in one fixed order, so two applies give the
-// same bits. Windows come from one reciprocal per view of eux and zav
-// (a multiply per point, no division), widened by the rounding; K1's
-// exact tap tests on the same __device__ positions (plane_X,
-// plane_zeta, with the same fmaf order) decide, so K2 holds exactly K1's
-// matrix entries in float32 and the pair stays an exact transpose (CGLS
-// needs that). What bounds K2: the candidate tests and shared-memory
-// traffic of the two transposes, not bytes. Nothing of the TPU design is
+// same bits. What bounds K2: the issue rate of the two gathers' position,
+// floor and select arithmetic (2-3 candidates an entry at a unit pitch),
+// as it bounds K2b; three CTAs an SM (shared memory: fp32 chunks, tables
+// and pass-B carries). Nothing of the TPU design is
 // carried over (one-hot selection matmuls, bf16 hi/lo split, band budget,
 // lane padding, view bucketing): a Hopper thread gathers directly.
 //
@@ -107,17 +119,17 @@
 // at the same points.
 //
 // K2b owes K1b no bit-for-bit transpose (the tier's contract is 3e-3), so
-// it is not K2: both transposes are gathers over a fixed count of
-// consecutive candidates with the weight hat(p - k) = max(0, 1 - |p - k|),
-// which is the lerp's weight of tap k (1 - w for floor(p), w for the next)
-// and zero for every other candidate. No thread branches on a tap, there
-// are no running sums to flush, and a window may be loose. The positions
-// follow the plain version's operations, each rounded once, and T sums
-// scale * g as the plain vjp does, so T is the plain version's pass-B
-// cotangent to the rounding of its sum and its bf16 rounding falls the
-// same way almost everywhere (K2 took K1's positions, a few ulps from the
-// plain ones, which moved K2b 2e-4 from its plain version). What bounds K2b: the
-// issue rate of the two gathers' arithmetic, as it bounds K1.
+// it runs K2's schedule with its own matrix: a fixed count of consecutive
+// candidates, ceil(2/|slope|), from floor(q) + 1, each weighted by the hat
+// max(0, 1 - |p - k|), which is the lerp's weight of tap k (1 - w for
+// floor(p), w for the next) up to rounding and zero for every other
+// candidate. The positions follow the plain version's operations, each
+// rounded once, and T sums scale * g as the plain vjp does, so T is the
+// plain version's pass-B cotangent to the rounding of its sum and its bf16
+// rounding falls the same way almost everywhere (K1's positions, a few
+// ulps from the plain ones, moved K2b 2e-4 from its plain version). What
+// bounds K2b: the issue rate of the two gathers' arithmetic, as it bounds
+// K1.
 // 16-byte copies carry 8 bf16 values: they need nz (K1b) or nv (K2b) a
 // multiple of 8; other sizes stage with plain loads.
 
@@ -173,16 +185,6 @@ __device__ __forceinline__ float zeta_at(const Plane& p, float cx, float cz,
   return fmaf(p.zav, v, fmaf(p.gzx, x - cx, cz));
 }
 
-__device__ __forceinline__ float plane_X(const Plane& p, float r, float u,
-                                         float v) {
-  return x_at(p, slab_cx(p, r), u, v);
-}
-
-__device__ __forceinline__ float plane_zeta(const Plane& p, float r, float x,
-                                            float v) {
-  return zeta_at(p, slab_cx(p, r), slab_cz(p, r), x, v);
-}
-
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
@@ -208,18 +210,18 @@ __device__ __forceinline__ void cp_async_wait() {
 // computed position can have a tap in [lo_val + 1, hi_val - 1], i.e. lies
 // in [lo_val, hi_val), for a position that is a + b * i in exact
 // arithmetic; inv_b = 1/b, so a call costs multiplies, no division. The
-// exact tap tests decide. Slack (u = 2^-24): plane_zeta rounds a + zav*v
-// once (its a is this a to the bit), plane_X three times, with terms of
-// at most |a| + ext + |b| n (ext = |evx| nv bounds the v term that X
-// folds into a), so a computed position is off by at most 3u (2|a| + ext
-// + |b| n + |val|); the inversion rounds val - a once, inv_b carries u and
-// the product and the slack's subtraction u more each: 4.1u (|val| +
-// |a|) |inv_b| in index units. The range is widened by 1e-6 > 16u times
+// exact tap weights decide. Slack (u = 2^-24): zeta_at rounds a + zav*v
+// once (its a is this a to the bit), x_at from slab_cx three times, with
+// terms of at most |a| + ext + |b| n (ext = |evx| nv bounds the v term
+// that X folds into a), so a computed position is off by at most 3u (2|a|
+// + ext + |b| n + |val|); the inversion rounds val - a once, inv_b carries
+// u and the product and the slack's subtraction u more each: 4.1u (|val|
+// + |a|) |inv_b| in index units. The range is widened by 1e-6 > 16u times
 // (2|a| + ext + |b| n + |lo_val| + |hi_val| + 2) |inv_b|, which holds
 // both, so every integer of the exact range lies in [ceil(tl), floor(th)].
-// The result is monotone in a, lo_val and hi_val
-// (the slack is convex in a), so the range of a tile's extreme corners
-// holds the range of every point inside it. |b| < 1e-6 takes [0, n).
+// The result is monotone in a, lo_val and hi_val (the slack is convex in
+// a), so the range of a tile's extreme corners holds the range of every
+// point inside it. |b| < 1e-6 takes [0, n).
 __device__ __forceinline__ void window(float a, float b, float inv_b,
                                        float lo_val, float hi_val, float ext,
                                        int n, int* lo, int* hi) {
@@ -890,333 +892,94 @@ fwd_bf16_kernel(const __nv_bfloat16* __restrict__ vol,
   }
 }
 
-// K2 tiling. A CTA owns slab r and the oriented voxels (x, z) of a kTX x
-// kTZ tile. It stages the cotangent in chunks of kUC detector columns u x
-// kVC detector rows v (one chunk per view at 256^3 with a unit pitch: the
-// u window of 32 columns is ~35-50 wide, the v window of 64 z ~70),
-// double-buffered with cp.async across chunks and views. A view's row
-// chunks start at a multiple of 4 rows, so that rows of whole 16-byte
-// words (nv a multiple of 4) are staged with 16-byte copies. kXR = 11
-// makes
-// the pass-B owners (3 per row v) fit the CTA in one round. A pass-A
-// thread owns kZR voxels z of one column x for the whole call and keeps
-// their sums in registers.
-constexpr int kAdjThreads = 256;
-constexpr int kTX = 32, kTZ = 64;
-constexpr int kUC = 64, kVC = 80;
-static_assert(kVC % 4 == 0, "row chunks keep their alignment");
-constexpr int kXR = 11, kZR = 8;               // owned x (pass B), z (pass A)
-constexpr int kXG = (kTX + kXR - 1) / kXR;     // pass-B owners per row v
-constexpr int kVP = kVC + 1;                   // T pitch: pass A's lanes
-constexpr int kStage = kUC * kVC;
-// two staged chunks, then T
-constexpr int kAdjSmem = 4 * 2 * kStage + 4 * kTX * kVP;
-
-// One view as a tile sees it: its plane, the slab's offsets, the two
-// reciprocals and the v window of the tile.
-struct ViewTile {
-  Plane p;
-  float cx, cz, inv_eux, inv_zav;
-  int vlo, vhi;
-};
-
-// The staged chunk: view, v rows [vc0, vc1], u columns [uc0, uc0 + kUC)
-// of the v chunk's u window [ulo, uhi].
-struct Chunk {
-  int view, vc0, vc1, uc0, ulo, uhi;
-};
-
-struct AdjTile {
-  const float* scalars;
-  int V, nu, nv;
-  float r, fxa, fxb, fza, fzb;   // slab and the tile's corners
-};
-
-__device__ __forceinline__ void view_tile(const AdjTile& t, int view,
-                                          ViewTile* w) {
-  w->p = load_plane(t.scalars + view * NS);
-  w->cx = fmaf(w->p.rx, t.r, w->p.cxb);
-  w->cz = fmaf(w->p.rz, t.r, w->p.czb);
-  w->inv_eux = __fdiv_rn(1.0f, w->p.eux);   // one reciprocal each per view
-  w->inv_zav = __fdiv_rn(1.0f, w->p.zav);
-  // the v whose zeta-taps can reach the tile's z: zeta = a(x) + zav*v with
-  // a(x) = plane_zeta at v = 0, monotone in x
-  int l0, h0, l1, h1;
-  window(plane_zeta(w->p, t.r, t.fxa, 0.0f), w->p.zav, w->inv_zav,
-         t.fza - 1.0f, t.fzb + 1.0f, 0.0f, t.nv, &l0, &h0);
-  window(plane_zeta(w->p, t.r, t.fxb, 0.0f), w->p.zav, w->inv_zav,
-         t.fza - 1.0f, t.fzb + 1.0f, 0.0f, t.nv, &l1, &h1);
-  w->vlo = min(l0, l1);
-  w->vhi = max(h0, h1);
-}
-
-// The pass-B window of u for positions X(u, v) = (cx + evx*v) + eux*u in
-// [lo_val, hi_val).
-__device__ __forceinline__ void u_window(const ViewTile& w, const AdjTile& t,
-                                         float fv, float lo_val, float hi_val,
-                                         int* lo, int* hi) {
-  window(fmaf(w.p.evx, fv, w.cx), w.p.eux, w.inv_eux, lo_val, hi_val,
-         fabsf(w.p.evx) * t.nv, t.nu, lo, hi);
-}
-
-// Advance c (and w, when the view changes) to the next chunk with work;
-// false when the tile's views are done. Every thread runs the same steps.
-__device__ bool next_chunk(const AdjTile& t, ViewTile* w, Chunk* c) {
-  if (c->uc0 + kUC <= c->uhi) {
-    c->uc0 += kUC;
-    return true;
-  }
-  int vc0 = c->vc0 + kVC;
-  for (;;) {
-    while (vc0 > w->vhi) {
-      if (++c->view >= t.V) return false;
-      view_tile(t, c->view, w);
-      vc0 = w->vlo / 4 * 4;   // vlo >= 0
-    }
-    const int vc1 = min(w->vhi, vc0 + kVC - 1);
-    int l0, h0, l1, h1;
-    u_window(*w, t, static_cast<float>(vc0), t.fxa - 1.0f, t.fxb + 1.0f, &l0,
-             &h0);
-    u_window(*w, t, static_cast<float>(vc1), t.fxa - 1.0f, t.fxb + 1.0f, &l1,
-             &h1);
-    c->ulo = min(l0, l1);
-    c->uhi = max(h0, h1);
-    if (c->ulo <= c->uhi) {
-      c->vc0 = vc0;
-      c->vc1 = vc1;
-      c->uc0 = c->ulo;
-      return true;
-    }
-    vc0 += kVC;
-  }
-}
-
-// Stage chunk c of the cotangent g: (V, nu, nv) into dst[ul][vl]. Where
-// the chunk's rows start on 16-byte words in g and in dst (nv a multiple
-// of kPer = 4), with 16-byte copies: the last word of a row may run past
-// vc1, never past the row's end (vc0 is a multiple of kPer, vc0 + kPer q
-// <= vc1 < nv), into slots that nothing reads. Else with 4-byte copies.
-__device__ __forceinline__ void stage_chunk(float* dst, const float* g,
-                                            const AdjTile& t,
-                                            const Chunk& c) {
-  constexpr int kPer = 4;
-  const int nuw = min(c.uhi - c.uc0 + 1, kUC);
-  const int nvw = c.vc1 - c.vc0 + 1;
-  const float* src = g + (static_cast<size_t>(c.view) * t.nu + c.uc0) * t.nv +
-                     c.vc0;
-  if (((reinterpret_cast<uintptr_t>(src) | (sizeof(float) * t.nv)) & 15) ==
-      0) {
-    constexpr int kW = kVC / kPer;   // 16-byte words per staged row
-    const int nq = (nvw + kPer - 1) / kPer;
-    for (int e = threadIdx.x; e < nuw * kW; e += kAdjThreads) {
-      const int ul = e / kW, q = e - ul * kW;
-      if (q < nq)
-        cp_async16(dst + kPer * e,
-                   src + static_cast<size_t>(ul) * t.nv + kPer * q);
-    }
-    return;
-  }
-  for (int e = threadIdx.x; e < nuw * kVC; e += kAdjThreads) {
-    const int ul = e / kVC, vl = e - ul * kVC;
-    if (vl >= nvw) continue;
-    cp_async4(dst + e, src + static_cast<size_t>(ul) * t.nv + vl);
-  }
-}
-
-// acc[j] += val for 0 <= j < kZR (a register picked without an index).
-__device__ __forceinline__ void add_owned(float acc[kZR], int j, float val) {
-#pragma unroll
-  for (int q = 0; q < kZR; ++q)
-    if (j == q) acc[q] += val;
-}
-
-// K2: grid (z tiles, x tiles, slabs r). For each staged chunk:
-//   pass-B transpose T[x, v] = sum_u w_x(X_r(u, v) -> x) g[u, v] over the
-//     chunk's u (added over the u chunks of one v chunk), into shared
-//     memory, as owner sweeps: a thread owns kXR columns x of one row v
-//     and sweeps their joint u window once with two running sums;
-//   after a v chunk's last u chunk, pass-A transpose: each owned voxel
-//     (x, z) adds scale * sum_v w_z(zeta_r(x, v) -> z) T[x, v] over the
-//     chunk's v to its register, the owner of kZR voxels of a column
-//     sweeping their joint v window once with two running sums.
-// (Point scans, and sums in registers selected per candidate, were slower
-// on the H100, as were 2 or 3 CTAs per SM: PERF.md section 6. Four CTAs
-// per SM hold the registers to 64 without spills.)
-__global__ void __launch_bounds__(kAdjThreads, 4)
-adj_kernel(const float* __restrict__ g, const float* __restrict__ scalars,
-           float* __restrict__ vol, int V, int nx, int ny, int nz, int nu,
-           int nv) {
-  extern __shared__ __align__(16) float sm[];
-  float* const stage = sm;                  // two chunks [ul][vl]
-  float* const sT = stage + 2 * kStage;     // [xl][vl]
-  const int tid = threadIdx.x;
-  const int z0 = blockIdx.x * kTZ, x0 = blockIdx.y * kTX, ri = blockIdx.z;
-  const int ntx = min(kTX, nx - x0), ntz = min(kTZ, nz - z0);
-  const AdjTile t{scalars, V, nu, nv, static_cast<float>(ri),
-                  static_cast<float>(x0), static_cast<float>(x0 + ntx - 1),
-                  static_cast<float>(z0), static_cast<float>(z0 + ntz - 1)};
-  // this thread's pass-A voxels: column xa_l, z in [za_o, zb_o]
-  const int xa_l = tid % kTX;
-  const int za_o = z0 + (tid / kTX) * kZR;
-  const int zb_o = min(za_o + kZR, z0 + ntz) - 1;
-  const bool owns_a = xa_l < ntx && za_o <= zb_o;
-  const float fxo = static_cast<float>(x0 + xa_l);
-  float acc[kZR];
-#pragma unroll
-  for (int s = 0; s < kZR; ++s) acc[s] = 0.0f;
-
-  ViewTile w;
-  w.vhi = -1;
-  Chunk c{-1, -kVC, -1, 0, 0, -1};
-  bool have = next_chunk(t, &w, &c);
-  if (have) stage_chunk(stage, g, t, c);
-  cp_async_commit();
-  int buf = 0;
-  while (have) {
-    ViewTile wn = w;
-    Chunk cn = c;
-    const bool more = next_chunk(t, &wn, &cn);
-    if (more) {
-      stage_chunk(stage + (buf ^ 1) * kStage, g, t, cn);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* sG = stage + buf * kStage;
-    const int uc1 = min(c.uhi, c.uc0 + kUC - 1);
-    const int nvw = c.vc1 - c.vc0 + 1;
-    const bool first_u = c.uc0 == c.ulo;
-    // pass B: an owner of kXR columns x of one row v sweeps their joint u
-    // window once in the direction in which X grows (eux > 0 after the
-    // groups' u-flip), so each candidate's floor k never falls: it keeps
-    // the running sums of columns k and k + 1 and stores a column's sum
-    // (its u in sweep order) when the sweep has passed it
-    for (int e = tid; e < kXG * nvw; e += kAdjThreads) {
-      const int xr = e / nvw, vl = e - xr * nvw;
-      const int xa = x0 + xr * kXR;
-      const int xb = min(xa + kXR, x0 + ntx) - 1;
-      if (xa > xb) continue;
-      const float fv = static_cast<float>(c.vc0 + vl);
-      int lo, hi;
-      u_window(w, t, fv, static_cast<float>(xa) - 1.0f,
-               static_cast<float>(xb) + 1.0f, &lo, &hi);
-      lo = max(lo, c.uc0);
-      hi = min(hi, uc1);
-      float* const col = sT + (xa - x0) * kVP + vl;
-      if (first_u)
-        for (int x = xa; x <= xb; ++x) col[(x - xa) * kVP] = 0.0f;
-      if (lo > hi) continue;
-      const bool up = w.p.eux > 0.0f;
-      const int du = up ? 1 : -1;
-      float s0 = 0.0f, s1 = 0.0f;   // columns cur and cur + 1
-      int cur = 0;
-      for (int i = 0, u = up ? lo : hi; i <= hi - lo; ++i, u += du) {
-        const float X = plane_X(w.p, t.r, static_cast<float>(u), fv);
-        const float f = floorf(X);
-        const int k = static_cast<int>(f);
-        const float wx = X - f;
-        const float gv = sG[(u - c.uc0) * kVC + vl];
-        if (i == 0) cur = k;
-        while (cur < k) {   // the sweep has passed column cur
-          if (cur >= xa && cur <= xb) col[(cur - xa) * kVP] += s0;
-          s0 = s1;
-          s1 = 0.0f;
-          ++cur;
-        }
-        s0 += (1.0f - wx) * gv;
-        s1 += wx * gv;
-      }
-      if (cur >= xa && cur <= xb) col[(cur - xa) * kVP] += s0;
-      if (cur + 1 >= xa && cur + 1 <= xb) col[(cur + 1 - xa) * kVP] += s1;
-    }
-    __syncthreads();
-    // pass A, after the v chunk's last u chunk
-    if (c.uc0 + kUC > c.uhi && owns_a) {
-      const float* const trow = sT + xa_l * kVP - c.vc0;
-      // the owner of kZR voxels z of column x sweeps their joint v window
-      // once in the direction in which zeta grows, keeping the running
-      // sums of voxels k and k + 1 (k the candidate's floor, which never
-      // falls) and adding a voxel's sum to its register when the sweep
-      // has passed it
-      const float a = plane_zeta(w.p, t.r, fxo, 0.0f);
-      int lo, hi;
-      window(a, w.p.zav, w.inv_zav, static_cast<float>(za_o) - 1.0f,
-             static_cast<float>(zb_o) + 1.0f, 0.0f, nv, &lo, &hi);
-      lo = max(lo, c.vc0);
-      hi = min(hi, c.vc1);
-      if (lo <= hi) {
-        const bool up = w.p.zav > 0.0f;
-        const int dv = up ? 1 : -1;
-        float s0 = 0.0f, s1 = 0.0f;   // voxels cur and cur + 1
-        int cur = 0;
-        for (int i = 0, v = up ? lo : hi; i <= hi - lo; ++i, v += dv) {
-          const float zeta = plane_zeta(w.p, t.r, fxo, static_cast<float>(v));
-          const float f = floorf(zeta);
-          const int k = static_cast<int>(f);
-          const float wz = zeta - f;
-          const float tv = trow[v] * w.p.scale;
-          if (i == 0) cur = k;
-          while (cur < k) {   // the sweep has passed voxel cur
-            add_owned(acc, cur - za_o, s0);
-            s0 = s1;
-            s1 = 0.0f;
-            ++cur;
-          }
-          s0 += (1.0f - wz) * tv;
-          s1 += wz * tv;
-        }
-        add_owned(acc, cur - za_o, s0);
-        add_owned(acc, cur + 1 - za_o, s1);
-      }
-    }
-    // no barrier here: the next chunk's barrier orders this pass A's reads
-    // of T before the next pass B's writes, and this pass B's reads of the
-    // staged buffer before the chunk after next is staged into it
-    buf ^= 1;
-    w = wn;
-    c = cn;
-    have = more;
-  }
-  // every voxel written once, through shared memory so that the stores run
-  // along z
-  __syncthreads();
-  float* const sOut = sm;   // [xl][zl], kTX x (kTZ + 1)
-  if (owns_a) {
-#pragma unroll
-    for (int s = 0; s < kZR; ++s)
-      if (za_o + s <= zb_o) sOut[xa_l * (kTZ + 1) + za_o + s - z0] = acc[s];
-  }
-  __syncthreads();
-  for (int e = tid; e < ntx * kTZ; e += kAdjThreads) {
-    const int xl = e / kTZ, zl = e - xl * kTZ;
-    if (zl < ntz)
-      vol[(static_cast<size_t>(x0 + xl) * ny + ri) * nz + z0 + zl] =
-          sOut[xl * (kTZ + 1) + zl];
-  }
-}
-
-// K2b tiling. A CTA owns slab r and the same kTX x kTZ tile of (x, z) as
-// K2. It walks the group's views in chunks (view, v chunk of up to kBVC
-// rows from a multiple of 8, u chunk of up to kBUC columns; one chunk per
-// view at 256^3 and 512^3 with a unit pitch). Phase k, between two
-// barriers: the copies of chunk k + 1 are issued (cp.async into the other
-// of two staged chunks), pass B of chunk k runs, and pass A of chunk k - 1
-// (the tables alternate), so a chunk costs one __syncthreads. For pass B,
-// kBRows * kBVC threads own one row v each and the columns x = xg, xg +
+// K2 and K2b: one gather schedule (adj_gather), two kernels. A CTA owns
+// slab r and the oriented voxels (x, z) of a kTX x kTZ tile. It walks the
+// group's views in chunks (view, v chunk of up to kVC rows from a multiple
+// of a 16-byte copy's values, u chunk of up to kUC columns; one chunk per
+// view at 256^3 and 512^3 with a unit pitch: the u window of 32 columns is
+// 24-36 wide for |eux| in [1, sqrt 2], the v window of 64 z ~66-70). Phase
+// k, between two barriers: the copies of chunk k + 1 are issued (cp.async
+// into the other of two staged chunks), pass B of chunk k runs, and pass A
+// of chunk k - 1 (the tables alternate), so a chunk costs one
+// __syncthreads. For pass B,
+// kBRows * kVC threads own one row v each and the columns x = xg, xg +
 // kBRows, ... of it (kBEnt entries, their sums waiting in shared slots of
 // the thread's own where a v chunk has several u chunks); for pass A a
 // thread owns kZR voxels z of one column x (their sums stay in registers
 // across the call). Each view's windows and constants are computed once
 // per CTA, by one lane each, kBBatch views at a time, into a ring of three
-// batches in shared memory.
-constexpr int kBUC = 64, kBVC = 80;
-constexpr int kBStage = kBUC * kBVC;                // bf16 values of a chunk
-constexpr int kBTP = kBVC + 2;                      // T pitch: 41 words, odd
+// batches in shared memory. The kernels differ in the element type, the
+// positions, the weights and the chunk sizes (a policy each: AdjF32 for
+// K2, AdjBf16 for K2b).
+constexpr int kAdjThreads = 256;
+constexpr int kTX = 32, kTZ = 64;
+constexpr int kZR = 8;                              // pass-A voxels z a thread
 constexpr int kBRows = 3;                           // pass-B threads a row v
 constexpr int kBEnt = (kTX + kBRows - 1) / kBRows;  // pass-B entries a thread
 constexpr int kBBatch = 32;                         // view records per batch
+
+struct AdjTile {
+  int nu, nv;
+  float r, fxa, fxb, fza, fzb;   // slab and the tile's corners
+};
+
+// i as a float, for |i| < 2^22: 1.5 * 2^23 + i in the mantissa, less
+// 1.5 * 2^23 (an integer add and a float add: I2F issues at a quarter of
+// the FMA rate).
+__device__ __forceinline__ float int_to_float(int i) {
+  return __int_as_float(0x4B400000 + i) - 12582912.0f;
+}
+
+// A chunk: view, v chunk vci and u chunk uci packed as vu = vci * kPosU +
+// uci (registers are the scarce resource); an empty view is one chunk.
+constexpr int kPosShift = 12;
+constexpr int kPosU = 1 << kPosShift;
+struct Pos {
+  int view, vu;
+  __device__ int vci() const { return vu >> kPosShift; }
+  __device__ int uci() const { return vu & (kPosU - 1); }
+};
+
+template <class R>
+__device__ __forceinline__ const R& rec(const R* ring, int view) {
+  return ring[(view / kBBatch) % 3 * kBBatch + view % kBBatch];
+}
+
+template <class R>
+__device__ __forceinline__ void advance(Pos* s, const R* ring) {
+  const R& w = rec(ring, s->view);
+  if (s->uci() + 1 < w.nuc) {
+    ++s->vu;
+  } else if (s->vci() + 1 < max(w.nvc, 1)) {
+    s->vu = (s->vci() + 1) * kPosU;
+  } else {
+    s->vu = 0;
+    ++s->view;
+  }
+}
+
+// A chunk's extent: v rows [vc0, vc0 + nvw), u columns [uc0, uc0 + nst)
+// staged (nst >= cu: rows past the u window hold g or, past the detector,
+// zeros, so that every pass-B candidate lies in the buffer).
+struct Extent {
+  int vc0, nvw, uc0, nst;
+};
+
+template <int kUC, int kVC, class R>
+__device__ __forceinline__ Extent extent(const R& w, const Pos& s) {
+  Extent e;
+  e.vc0 = w.vs + s.vci() * kVC;
+  e.nvw = min(w.vhi - e.vc0 + 1, kVC);
+  e.uc0 = w.ulo + s.uci() * kUC;
+  e.nst = min(max(min(w.uhi - e.uc0 + 1, kUC), w.cu), kUC);
+  return e;
+}
+
+// K2b's chunks: rows of kBVC bf16 values v from a multiple of 8, u chunks
+// of kBUC columns.
+constexpr int kBUC = 64, kBVC = 80;
+constexpr int kBStage = kBUC * kBVC;                // bf16 values of a chunk
+constexpr int kBTP = kBVC + 2;                      // T pitch: 41 words, odd
 static_assert(kBRows * kBVC <= kAdjThreads, "a pass-B thread per row part");
 static_assert(kBVC % 8 == 0, "rows of 16-byte words");
 
@@ -1236,13 +999,6 @@ constexpr int kBSmem = 2 * (2 * kBStage) + 2 * (2 * kTX * kBTP) +
                        3 * kBBatch * static_cast<int>(sizeof(ViewRec)) +
                        4 * kBEnt * kAdjThreads;
 static_assert(4 * kTX * (kTZ + 1) <= kBSmem, "the output staging fits");
-
-// i as a float, for |i| < 2^22: 1.5 * 2^23 + i in the mantissa, less
-// 1.5 * 2^23 (an integer add and a float add: I2F issues at a quarter of
-// the FMA rate).
-__device__ __forceinline__ float int_to_float(int i) {
-  return __int_as_float(0x4B400000 + i) - 12582912.0f;
-}
 
 // x rounded to bf16 (nearest even) as its 16 bits, for finite x: an
 // integer add (the conversion instruction issues at a quarter of the FMA
@@ -1267,9 +1023,8 @@ __device__ __forceinline__ int candidates(float w, int cap) {
 // View `view`'s record for the tile t. The positions follow the plain
 // version's operations (kernels/slab.py, core/slab_projector.py
 // _forward_chunk), each rounded once: cx = cxb + rx*r, X = (cx + evx*v) +
-// eux*u, zeta = (cz + gzx*(x - cx)) + v*zav. The windows are K2's
-// (window()'s slack), over the tile's extreme columns and the view's
-// extreme rows.
+// eux*u, zeta = (cz + gzx*(x - cx)) + v*zav. The windows are window()'s,
+// over the tile's extreme columns and the view's extreme rows.
 __device__ void view_rec(const float* __restrict__ scalars, int view,
                          const AdjTile& t, bool vec, ViewRec* out) {
   const Plane p = load_plane(scalars + static_cast<size_t>(view) * NS);
@@ -1306,48 +1061,6 @@ __device__ void view_rec(const float* __restrict__ scalars, int view,
   *out = w;
 }
 
-__device__ __forceinline__ const ViewRec& rec(const ViewRec* ring, int view) {
-  return ring[(view / kBBatch) % 3 * kBBatch + view % kBBatch];
-}
-
-// A chunk: view, v chunk vci and u chunk uci packed as vu = vci * kPosU +
-// uci (registers are the scarce resource); an empty view is one chunk.
-constexpr int kPosShift = 12;
-constexpr int kPosU = 1 << kPosShift;
-struct Pos {
-  int view, vu;
-  __device__ int vci() const { return vu >> kPosShift; }
-  __device__ int uci() const { return vu & (kPosU - 1); }
-};
-
-__device__ __forceinline__ void advance(Pos* s, const ViewRec* ring) {
-  const ViewRec& w = rec(ring, s->view);
-  if (s->uci() + 1 < w.nuc) {
-    ++s->vu;
-  } else if (s->vci() + 1 < max(w.nvc, 1)) {
-    s->vu = (s->vci() + 1) * kPosU;
-  } else {
-    s->vu = 0;
-    ++s->view;
-  }
-}
-
-// A chunk's extent: v rows [vc0, vc0 + nvw), u columns [uc0, uc0 + nst)
-// staged (nst >= cu: rows past the u window hold g or, past the detector,
-// zeros, so that every pass-B candidate lies in the buffer).
-struct Extent {
-  int vc0, nvw, uc0, nst;
-};
-
-__device__ __forceinline__ Extent extent(const ViewRec& w, const Pos& s) {
-  Extent e;
-  e.vc0 = w.vs + s.vci() * kBVC;
-  e.nvw = min(w.vhi - e.vc0 + 1, kBVC);
-  e.uc0 = w.ulo + s.uci() * kBUC;
-  e.nst = min(max(min(w.uhi - e.uc0 + 1, kBUC), w.cu), kBUC);
-  return e;
-}
-
 // Issue the copies of chunk s of the cotangent g (V, nu, nv) in bf16 into
 // dst[ul][vl] (one commit group): 16-byte copies where vec (nv a multiple
 // of 8, g 16-byte aligned, vc0 a multiple of 8: the last word of a row
@@ -1359,7 +1072,7 @@ __device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
                                            const ViewRec& w, const Pos& s,
                                            int nu, int nv, bool vec) {
   if (w.nvc > 0) {
-    const Extent c = extent(w, s);
+    const Extent c = extent<kBUC, kBVC>(w, s);
     const __nv_bfloat16* src =
         g + (static_cast<size_t>(s.view) * nu + c.uc0) * nv + c.vc0;
     if (vec) {
@@ -1486,30 +1199,452 @@ __device__ __forceinline__ void pass_a_gather(
   }
 }
 
-// K2b: grid (z tiles, x tiles, slabs r); g (V, nu, nv) in bf16, scalars
-// (V, NS), vol (nx, ny, nz); vec: nv a multiple of 8 and g 16-byte
-// aligned. Every voxel is written once, and every sum runs in one fixed
-// order (no atomics). Both transposes are gathers: an entry T[x, v] sums
-// hat(X(u, v) - x) * scale * g[u, v] over cu consecutive u from its
-// window's start and is rounded to bf16 once, where the plain version
-// rounds the pass-B cotangent; a voxel sums hat(zeta(x, v) - z) * T[x, v]
-// over cv consecutive v. A candidate outside the window adds zero, and no
-// thread branches on a tap.
-__global__ void __launch_bounds__(kAdjThreads, 4)
-adj_bf16_kernel(const __nv_bfloat16* __restrict__ g,
-                const float* __restrict__ scalars, float* __restrict__ vol,
-                int V, int nx, int ny, int nz, int nu, int nv, bool vec) {
-  extern __shared__ __align__(16) float sm[];
-  __nv_bfloat16* const stage = reinterpret_cast<__nv_bfloat16*>(sm);
-  // 2 x [xl][vl]: T's bf16 bits
-  unsigned short* const sT =
-      reinterpret_cast<unsigned short*>(stage + 2 * kBStage);
-  ViewRec* const ring = reinterpret_cast<ViewRec*>(sT + 2 * kTX * kBTP);
+// K2b's policy: bf16 g and T, the plain version's positions, hat weights
+// over a fixed count of candidates from floor(q) + 1.
+struct AdjBf16 {
+  using G = __nv_bfloat16;
+  using T = unsigned short;
+  using Rec = ViewRec;
+  static constexpr int kUC = kBUC, kVC = kBVC, kTP = kBTP, kStage = kBStage;
+
+  __device__ __forceinline__ static void record(
+      const float* __restrict__ scalars, int view, const AdjTile& t,
+      bool vec, Rec* out) {
+    view_rec(scalars, view, t, vec, out);
+  }
+
+  __device__ __forceinline__ static void stage(G* dst, const G* g,
+                                               const Rec& w, const Pos& s,
+                                               int nu, int nv, bool vec) {
+    stage_bf16(dst, g, w, s, nu, nv, vec);
+  }
+
+  // Pass B of chunk c for the thread of row vb and columns fxb + kBRows*q
+  // (q < nqb): its T column tb, its slots, the staged rows sG at its row.
+  __device__ __forceinline__ static void pass_b(T* tb, float* slots,
+                                                const G* sG, const Rec& w,
+                                                const Extent& c, int vb,
+                                                float fxb, int nqb,
+                                                bool first, bool last) {
+    const int cu = min(w.cu, c.nst);
+    const int smax = c.uc0 + c.nst - cu;
+    const bool row_in = vb < c.nvw;
+    const float fv = int_to_float(c.vc0 + vb);
+    const float base = __fadd_rn(w.cx, __fmul_rn(w.evx, fv));
+    const float lo = w.eux > 0.0f ? -1.0f : 1.0f;
+    const float q0 =
+        __fmul_rn(__fsub_rn(__fadd_rn(fxb, lo), base), w.inv_eux);
+#define K2B_PASS_B(C, ONE)                                             \
+  pass_b_entries<C, ONE>(tb, slots, sG, w, base, q0, fxb, nqb, c.uc0,  \
+                         smax, cu, row_in, first, last)
+    if (w.nuc == 1) {
+      switch (cu) {
+        case 1: K2B_PASS_B(1, true); break;
+        case 2: K2B_PASS_B(2, true); break;
+        case 3: K2B_PASS_B(3, true); break;
+        default: K2B_PASS_B(0, true);
+      }
+    } else {
+      K2B_PASS_B(0, false);
+    }
+#undef K2B_PASS_B
+  }
+
+  // Pass A of chunk c for the thread of column fxo and voxels z = fzo + j;
+  // trow is its column of T, indexed by v.
+  __device__ __forceinline__ static void pass_a(float (&acc)[kZR],
+                                                const T* trow, const Rec& w,
+                                                const Extent& c, float fxo,
+                                                float fzo) {
+    const int nvs = min(max(c.nvw, w.cv), kBVC);
+    const int cv = min(w.cv, nvs);
+    const int smax = c.vc0 + nvs - cv;
+    const float a = __fadd_rn(w.cz, __fmul_rn(w.gzx, __fsub_rn(fxo, w.cx)));
+    const float lo = w.zav > 0.0f ? -1.0f : 1.0f;
+    const float q0 = __fmul_rn(__fsub_rn(__fadd_rn(fzo, lo), a), w.inv_zav);
+#define K2B_PASS_A(C) \
+  pass_a_gather<C>(acc, trow, w, a, q0, fzo, c.vc0, smax, cv)
+    switch (cv) {
+      case 1: K2B_PASS_A(1); break;
+      case 2: K2B_PASS_A(2); break;
+      case 3: K2B_PASS_A(3); break;
+      default: K2B_PASS_A(0);
+    }
+#undef K2B_PASS_A
+  }
+};
+
+// K2's chunks: rows of kFVC fp32 values v from a multiple of 4 (66-69 rows
+// hold a 64-z tile's window at a unit pitch), u chunks of kFUC columns.
+// With the pass-B slots they keep K2 at three CTAs an SM.
+constexpr int kFUC = 64, kFVC = 72;
+constexpr int kFStage = kFUC * kFVC;                // fp32 values of a chunk
+constexpr int kFTP = kFVC + 1;                      // T pitch: odd
+static_assert(kBRows * kFVC <= kAdjThreads, "a pass-B thread per row part");
+static_assert(kFVC % 4 == 0, "rows of 16-byte words");
+
+// One view as a K2 tile sees it: K1's slab offsets (slab_cx, slab_cz), the
+// scalars, the v window [vs, vhi] (vs aligned down to 4 rows for 16-byte
+// copies) in nvc chunks and the u window [ulo, uhi] in nuc chunks (nvc = 0:
+// no tap of the view reaches the tile); per transpose the slack su (sv) of
+// a window start in index units and the candidates cu (cv) an entry
+// (voxel) takes (exact_candidates); wv = 2/|zav| + 2 sv, a window's width
+// in v.
+struct F32Rec {
+  float cx, cz, eux, evx, zav, gzx, scale, inv_eux, inv_zav, su, sv, wv;
+  int vs, vhi, nvc, ulo, uhi, nuc, cu, cv;
+};
+// two staged chunks and two tables T, the ring of view records and the
+// pass-B sums carried across u chunks ([entry][thread]), all fp32
+constexpr int kAdjSmem = 4 * (2 * kFStage + 2 * kTX * kFTP) +
+                         3 * kBBatch * static_cast<int>(sizeof(F32Rec)) +
+                         4 * kBEnt * kAdjThreads;
+static_assert(4 * kTX * (kTZ + 1) <= kAdjSmem, "the output staging fits");
+static_assert(3 * (kAdjSmem + 1024) <= 228 * 1024, "3 K2 CTAs an SM");
+
+// K2's candidate count for windows [A, A + width] (index units) whose
+// starts lie within `reach` of zero: each holds at most K + 1 integers (K =
+// floor(width)), so an entry takes K + 1 consecutive candidates from
+// floor(A) + 1. Past the cap, or beyond floor_small's range (NaN included):
+// cap + 1, which makes every entry take its whole chunk. So no geometry
+// exceeds what the gathers take: they stay exact for any scalars.
+__device__ __forceinline__ int exact_candidates(float width, float reach,
+                                                int cap) {
+  if (!(reach < kPosMax)) return cap + 1;
+  return min(static_cast<int>(width), cap) + 1;
+}
+
+// View `view`'s record for the tile t, on K1's positions: X = fmaf(evx, v,
+// fmaf(eux, u, cx)) (x_at) and zeta = fmaf(zav, v, fmaf(gzx, x - cx, cz))
+// (zeta_at) with cx, cz = slab_cx, slab_cz. The windows are window()'s
+// (K2's slack), over the tile's extreme columns and the view's extreme
+// rows.
+//
+// The slacks: a computed X is within 2u (|cx| + |eux| nu + |evx| nv) of
+// the exact affine value (u = 2^-24; two roundings), a computed zeta within
+// u (|a| + |zav| nv) (one rounding; a = zeta at v = 0 is computed as K1
+// does), and an entry's window start A (a few roundings of terms below the
+// same magnitudes plus the tile's |x| or |z|, and up to 10 steps of the
+// reciprocal) within ~10u |1/eux| of that magnitude sum m. su = 2e-6 |1/eux|
+// m > 33u |1/eux| m holds both, so every candidate with a nonzero weight
+// lies in [floor(A) + 1, floor(A + 2/|eux| + 2 su)] with A the start less
+// su.
+__device__ void view_rec_f32(const float* __restrict__ scalars, int view,
+                             const AdjTile& t, bool vec, F32Rec* out) {
+  const Plane p = load_plane(scalars + static_cast<size_t>(view) * NS);
+  F32Rec w;
+  w.cx = slab_cx(p, t.r);
+  w.cz = slab_cz(p, t.r);
+  w.eux = p.eux;
+  w.evx = p.evx;
+  w.zav = p.zav;
+  w.gzx = p.gzx;
+  w.scale = p.scale;
+  w.inv_eux = __frcp_rn(p.eux);
+  w.inv_zav = __frcp_rn(p.zav);
+  int l0, h0, l1, h1;
+  const float a0 = fmaf(p.gzx, t.fxa - w.cx, w.cz);
+  const float a1 = fmaf(p.gzx, t.fxb - w.cx, w.cz);
+  window(a0, p.zav, w.inv_zav, t.fza - 1.0f, t.fzb + 1.0f, 0.0f, t.nv, &l0,
+         &h0);
+  window(a1, p.zav, w.inv_zav, t.fza - 1.0f, t.fzb + 1.0f, 0.0f, t.nv, &l1,
+         &h1);
+  const int vlo = min(l0, l1);
+  w.vhi = max(h0, h1);
+  w.vs = vec ? vlo & ~3 : vlo;
+  const float ext = fabsf(p.evx) * t.nv;
+  window(fmaf(p.evx, static_cast<float>(w.vs), w.cx), p.eux, w.inv_eux,
+         t.fxa - 1.0f, t.fxb + 1.0f, ext, t.nu, &l0, &h0);
+  window(fmaf(p.evx, static_cast<float>(w.vhi), w.cx), p.eux, w.inv_eux,
+         t.fxa - 1.0f, t.fxb + 1.0f, ext, t.nu, &l1, &h1);
+  w.ulo = min(l0, l1);
+  w.uhi = max(h0, h1);
+  const bool empty = vlo > w.vhi || w.ulo > w.uhi;
+  w.nvc = empty ? 0 : (w.vhi - w.vs) / kFVC + 1;
+  w.nuc = empty ? 1 : (w.uhi - w.ulo) / kFUC + 1;
+  const float mu = fabsf(w.cx) + fabsf(p.eux) * t.nu + ext +
+                   fmaxf(fabsf(t.fxa), fabsf(t.fxb)) + 4.0f;
+  w.su = 2e-6f * fabsf(w.inv_eux) * mu;
+  const float wu = 2.0f * fabsf(w.inv_eux) + 2.0f * w.su;
+  w.cu = exact_candidates(wu, fabsf(w.inv_eux) * mu + wu, kFUC);
+  const float mv = fmaxf(fabsf(a0), fabsf(a1)) + fabsf(p.zav) * t.nv +
+                   fmaxf(fabsf(t.fza), fabsf(t.fzb)) + 12.0f;
+  w.sv = 2e-6f * fabsf(w.inv_zav) * mv;
+  w.wv = 2.0f * fabsf(w.inv_zav) + 2.0f * w.sv;
+  w.cv = exact_candidates(w.wv, fabsf(w.inv_zav) * mv + w.wv, kFVC);
+  *out = w;
+}
+
+// Issue the copies of chunk s of the cotangent g (V, nu, nv) into
+// dst[ul][vl] (one commit group): 16-byte copies where vec (nv a multiple
+// of 4, g 16-byte aligned, vc0 a multiple of 4: the last word of a row may
+// run past the chunk, never past the row's end), else 4-byte copies; zeros
+// for the rows past the detector.
+__device__ __forceinline__ void stage_f32(float* dst, const float* g,
+                                          const F32Rec& w, const Pos& s,
+                                          int nu, int nv, bool vec) {
+  if (w.nvc > 0) {
+    const Extent c = extent<kFUC, kFVC>(w, s);
+    const float* src =
+        g + (static_cast<size_t>(s.view) * nu + c.uc0) * nv + c.vc0;
+    if (vec) {
+      constexpr int kW = kFVC / 4;
+      const int nq = (c.nvw + 3) / 4;
+      for (int e = threadIdx.x; e < c.nst * kW; e += kAdjThreads) {
+        const int ul = e / kW, q = e - ul * kW;
+        if (q >= nq) continue;
+        const bool in = c.uc0 + ul < nu;
+        cp_async16_zfill(dst + 4 * e,
+                         in ? src + static_cast<size_t>(ul) * nv + 4 * q : g,
+                         in ? 16 : 0);
+      }
+    } else {
+      for (int e = threadIdx.x; e < c.nst * kFVC; e += kAdjThreads) {
+        const int ul = e / kFVC, vl = e - ul * kFVC;
+        if (vl >= c.nvw) continue;
+        const bool in = c.uc0 + ul < nu;
+        cp_async4_zfill(dst + e,
+                        in ? src + static_cast<size_t>(ul) * nv + vl : g,
+                        in ? 4 : 0);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// A position's lerp as K1 computes it: floor_small's sum s = 1.5 * 2^23 +
+// floor(pos) and w = pos - floor(pos).
+struct Lerp {
+  float s, w;
+};
+
+__device__ __forceinline__ Lerp lerp_of(float pos) {
+  const float s = __fadd_rd(pos, 12582912.0f);
+  return {s, pos - (s - 12582912.0f)};
+}
+
+// K1's lerp weight that lerp l gives the tap whose floor_small sum is sx:
+// 1 - w for floor(pos) = tap, w for floor(pos) = tap - 1, else 0; picked
+// by selects, not branches.
+__device__ __forceinline__ float tap_weight(const Lerp& l, float sx) {
+  const float hi = l.s == sx ? 1.0f - l.w : 0.0f;
+  return l.s == sx - 1.0f ? l.w : hi;
+}
+
+// K2's pass B of one thread's entries (x = x0 + xg + kBRows*q, v) of a
+// chunk: T[x, v] = scale * sum_u w_x(X(u, v) -> x) * g[u, v] over kC
+// consecutive u (kC = 0: n of them) from the entry's first candidate
+// (start A less its slack, clamped to [uc0, smax]); X and the weight are
+// K1's (x_at's order, tap_weight). The sum starts from 0 (first u chunk)
+// or this thread's slot in sAcc and goes back there, or after the v
+// chunk's last u chunk, times scale, to the table tb (zero for a row past
+// the chunk, row_in false). kOne: the v chunk has one u chunk (first and
+// last).
+template <int kC, bool kOne>
+__device__ __forceinline__ void pass_b_f32(
+    float* __restrict__ tb, float* __restrict__ slots,
+    const float* __restrict__ sG, const F32Rec& w, float fv, float a0,
+    float sx0, int nq, int uc0, int smax, int n, bool row_in, bool first,
+    bool last) {
+  if (kOne) first = last = true;   // the v chunk's only u chunk
+  const float step = static_cast<float>(kBRows) * w.inv_eux;
+#pragma unroll
+  for (int q = 0; q < kBEnt; ++q) {
+    if (q >= nq) break;
+    float t = first ? 0.0f : slots[q * kAdjThreads];
+    if (row_in) {
+      float fu;
+      const int u0 = first_candidate(fmaf(static_cast<float>(q), step, a0),
+                                     uc0, smax, &fu);
+      const float sx = sx0 + static_cast<float>(kBRows * q);
+      const float* gp = sG + (u0 - uc0) * kFVC;
+      const int m = kC > 0 ? kC : n;
+#pragma unroll
+      for (int i = 0; i < (kC > 0 ? kC : 4); ++i) {
+        if (kC == 0 && i >= m) break;
+        const float X = fmaf(w.evx, fv, fmaf(w.eux, fu + static_cast<float>(i),
+                                             w.cx));
+        t = fmaf(tap_weight(lerp_of(X), sx), gp[i * kFVC], t);
+      }
+      for (int i = kC > 0 ? kC : 4; i < m; ++i) {
+        const float X = fmaf(w.evx, fv, fmaf(w.eux, fu + static_cast<float>(i),
+                                             w.cx));
+        t = fmaf(tap_weight(lerp_of(X), sx), gp[i * kFVC], t);
+      }
+    }
+    if (last)
+      tb[kBRows * q * kFTP] = t * w.scale;
+    else
+      slots[q * kAdjThreads] = t;
+  }
+}
+
+// K2's pass A of one thread's voxels (column x, z = za + j) over a chunk's
+// rows: acc[j] += sum_v w_z(zeta(x, v) -> z) * T[x, v] over kC consecutive
+// v (kC = 0: n of them) from each voxel's first candidate; zeta =
+// fmaf(zav, v, a) with a = K1's zeta at v = 0, the weight K1's.
+template <int kC>
+__device__ __forceinline__ void pass_a_f32(
+    float (&acc)[kZR], const float* __restrict__ trow, const F32Rec& w,
+    float a, float a0, float sz0, int vc0, int smax, int n) {
+#pragma unroll
+  for (int j = 0; j < kZR; ++j) {
+    float fv;
+    const int v0 = first_candidate(fmaf(static_cast<float>(j), w.inv_zav, a0),
+                                   vc0, smax, &fv);
+    const float sz = sz0 + static_cast<float>(j);
+    float t = acc[j];
+    const int m = kC > 0 ? kC : n;
+#pragma unroll
+    for (int i = 0; i < (kC > 0 ? kC : 4); ++i) {
+      if (kC == 0 && i >= m) break;
+      const float zeta = fmaf(w.zav, fv + static_cast<float>(i), a);
+      t = fmaf(tap_weight(lerp_of(zeta), sz), trow[v0 + i], t);
+    }
+    for (int i = kC > 0 ? kC : 4; i < m; ++i) {
+      const float zeta = fmaf(w.zav, fv + static_cast<float>(i), a);
+      t = fmaf(tap_weight(lerp_of(zeta), sz), trow[v0 + i], t);
+    }
+    acc[j] = t;
+  }
+}
+
+// K2's pass A where zav = 1 (a v pitch of one voxel with no tilt, as in
+// configs 2-5): voxel j's window starts exactly j rows after voxel 0's,
+// so the thread's kZR voxels share their kN candidates a voxel: each of
+// the kN + kZR - 1 rows s0 + m is positioned and floored once and weighted
+// for each voxel whose candidates hold it, in the order of v as the
+// per-voxel gather sums (the same bits: a candidate more adds zero). A row
+// outside the chunk's table reads zero. kN = 2 or, where the thread's
+// windows hold one more (one test for all its voxels), 3.
+template <int kN>
+__device__ __forceinline__ void pass_a_unit(float (&acc)[kZR],
+                                            const float* __restrict__ trow,
+                                            const F32Rec& w, float a, int s0,
+                                            float sz0, int vc0) {
+  const float fv0 = int_to_float(s0);
+#pragma unroll
+  for (int m = 0; m < kN + kZR - 1; ++m) {
+    const Lerp l = lerp_of(fmaf(w.zav, fv0 + static_cast<float>(m), a));
+    const bool in = static_cast<unsigned>(s0 + m - vc0) < kFVC;
+    const float tv = in ? trow[s0 + m] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      const int j = m - i;   // row m is voxel j's candidate i
+      if (j < 0 || j >= kZR) continue;
+      acc[j] = fmaf(tap_weight(l, sz0 + static_cast<float>(j)), tv, acc[j]);
+    }
+  }
+}
+
+// K2's policy: fp32 g and T, K1's positions and weights; an entry takes
+// cu (cv) candidates from the start of its slack window (the whole chunk
+// past the cap).
+struct AdjF32 {
+  using G = float;
+  using T = float;
+  using Rec = F32Rec;
+  static constexpr int kUC = kFUC, kVC = kFVC, kTP = kFTP, kStage = kFStage;
+
+  __device__ __forceinline__ static void record(
+      const float* __restrict__ scalars, int view, const AdjTile& t,
+      bool vec, Rec* out) {
+    view_rec_f32(scalars, view, t, vec, out);
+  }
+
+  __device__ __forceinline__ static void stage(G* dst, const G* g,
+                                               const Rec& w, const Pos& s,
+                                               int nu, int nv, bool vec) {
+    stage_f32(dst, g, w, s, nu, nv, vec);
+  }
+
+  __device__ __forceinline__ static void pass_b(T* tb, float* slots,
+                                                const G* sG, const Rec& w,
+                                                const Extent& c, int vb,
+                                                float fxb, int nqb,
+                                                bool first, bool last) {
+    const int n = min(w.cu, c.nst);
+    const int smax = c.uc0 + c.nst - n;
+    const bool row_in = vb < c.nvw;
+    const float fv = int_to_float(c.vc0 + vb);
+    const float lo = w.eux > 0.0f ? -1.0f : 1.0f;
+    // the window start of column fxb less its slack: (x - 1 - X(0, v)) /
+    // eux (x + 1 where eux < 0)
+    const float a0 =
+        fmaf((fxb + lo) - fmaf(w.evx, fv, w.cx), w.inv_eux, -w.su);
+    const float sx0 = fxb + 12582912.0f;
+#define K2_PASS_B(C, ONE)                                                \
+  pass_b_f32<C, ONE>(tb, slots, sG, w, fv, a0, sx0, nqb, c.uc0, smax, n, \
+                     row_in, first, last)
+    if (w.nuc == 1) {
+      switch (n) {
+        case 2: K2_PASS_B(2, true); break;
+        case 3: K2_PASS_B(3, true); break;
+        default: K2_PASS_B(0, true);
+      }
+    } else {
+      K2_PASS_B(0, false);
+    }
+#undef K2_PASS_B
+  }
+
+  __device__ __forceinline__ static void pass_a(float (&acc)[kZR],
+                                                const T* trow, const Rec& w,
+                                                const Extent& c, float fxo,
+                                                float fzo) {
+    const float a = fmaf(w.gzx, fxo - w.cx, w.cz);
+    const float lo = w.zav > 0.0f ? -1.0f : 1.0f;
+    // the window start of voxel fzo less its slack
+    const float a0 = fmaf((fzo + lo) - a, w.inv_zav, -w.sv);
+    const float sz0 = fzo + 12582912.0f;
+    if (w.zav == 1.0f && w.cv == 3) {
+      const int k = floor_small(a0).k;
+      if (floor_small(a0 + w.wv).k - k > 2)
+        pass_a_unit<3>(acc, trow, w, a, k + 1, sz0, c.vc0);
+      else
+        pass_a_unit<2>(acc, trow, w, a, k + 1, sz0, c.vc0);
+      return;
+    }
+    const int nvs = min(max(c.nvw, w.cv), kFVC);
+    const int n = min(w.cv, nvs);
+    const int smax = c.vc0 + nvs - n;
+#define K2_PASS_A(C) \
+  pass_a_f32<C>(acc, trow, w, a, a0, sz0, c.vc0, smax, n)
+    switch (n) {
+      case 2: K2_PASS_A(2); break;
+      case 3: K2_PASS_A(3); break;
+      default: K2_PASS_A(0);
+    }
+#undef K2_PASS_A
+  }
+};
+
+// The gather schedule of K2 and K2b: grid (z tiles, x tiles, slabs r); g
+// (V, nu, nv) in K's element type, scalars (V, NS), vol (nx, ny, nz); vec:
+// g's rows in 16-byte words. Every voxel is written once, and every sum
+// runs in one fixed order (no atomics, global or shared): each shared slot
+// and register has one writer. Both transposes are gathers: an entry T[x,
+// v] sums its weights times g over consecutive candidates u, a voxel its
+// weights times T over consecutive candidates v; a candidate outside the
+// window adds zero, and no thread branches on a tap.
+template <class K>
+__device__ __forceinline__ void adj_gather(float* sm,
+                                           const typename K::G* __restrict__ g,
+                                           const float* __restrict__ scalars,
+                                           float* __restrict__ vol, int V,
+                                           int nx, int ny, int nz, int nu,
+                                           int nv, bool vec) {
+  using Rec = typename K::Rec;
+  typename K::G* const stage = reinterpret_cast<typename K::G*>(sm);
+  // 2 x [xl][vl]: T
+  typename K::T* const sT =
+      reinterpret_cast<typename K::T*>(stage + 2 * K::kStage);
+  Rec* const ring = reinterpret_cast<Rec*>(sT + 2 * kTX * K::kTP);
   float* const sAcc = reinterpret_cast<float*>(ring + 3 * kBBatch);
   const int tid = threadIdx.x, lane = tid & 31;
   const int z0 = blockIdx.x * kTZ, x0 = blockIdx.y * kTX, ri = blockIdx.z;
   const int ntx = min(kTX, nx - x0), ntz = min(kTZ, nz - z0);
-  const AdjTile t{scalars, V, nu, nv, static_cast<float>(ri),
+  const AdjTile t{nu, nv, static_cast<float>(ri),
                   static_cast<float>(x0), static_cast<float>(x0 + ntx - 1),
                   static_cast<float>(z0), static_cast<float>(z0 + ntz - 1)};
   // this thread's pass-A voxels: column xa_l, z in [za_o, zb_o]
@@ -1520,8 +1655,8 @@ adj_bf16_kernel(const __nv_bfloat16* __restrict__ g,
   const float fxo = static_cast<float>(x0 + xa_l);
   const float fzo = static_cast<float>(za_o);
   // this thread's pass-B entries: row vb, columns xg + kBRows*q (q < nqb)
-  const int vb = tid % kBVC, xg = tid / kBVC;
-  const bool owns_b = tid < kBRows * kBVC && xg < ntx;
+  const int vb = tid % K::kVC, xg = tid / K::kVC;
+  const bool owns_b = tid < kBRows * K::kVC && xg < ntx;
   const int nqb = (ntx - xg + kBRows - 1) / kBRows;
   const float fxb = static_cast<float>(x0 + xg);
   float acc[kZR];
@@ -1529,87 +1664,47 @@ adj_bf16_kernel(const __nv_bfloat16* __restrict__ g,
   for (int s = 0; s < kZR; ++s) acc[s] = 0.0f;
 
   // the records of batches 0 and 1
-  if (tid < 2 * kBBatch && tid < V) view_rec(scalars, tid, t, vec, ring + tid);
+  if (tid < 2 * kBBatch && tid < V)
+    K::record(scalars, tid, t, vec, ring + tid);
   __syncthreads();
   Pos pa{V, 0}, pb{0, 0}, ps{0, 0};   // pass A, pass B, staging
   if (V > 0) {
-    stage_bf16(stage, g, rec(ring, 0), pb, nu, nv, vec);
+    K::stage(stage, g, rec(ring, 0), pb, nu, nv, vec);
     advance(&ps, ring);
   }
   cp_async_wait<0>();
   __syncthreads();
   for (int k = 0; pb.view < V || pa.view < V; ++k) {
     if (ps.view < V) {
-      stage_bf16(stage + ((k + 1) & 1) * kBStage, g, rec(ring, ps.view), ps,
-                 nu, nv, vec);
+      K::stage(stage + ((k + 1) & 1) * K::kStage, g, rec(ring, ps.view), ps,
+               nu, nv, vec);
       // the staging enters batch b >= 1: warp 0 computes batch b + 1 into
       // the ring slot of batch b - 2, which no phase reads any more
       const int nb = ps.view + kBBatch + lane;
       if (ps.view % kBBatch == 0 && ps.view > 0 && ps.vu == 0 && tid < 32 &&
           nb < V)
-        view_rec(scalars, nb, t, vec,
-                 ring + (nb / kBBatch) % 3 * kBBatch + nb % kBBatch);
+        K::record(scalars, nb, t, vec,
+                  ring + (nb / kBBatch) % 3 * kBBatch + nb % kBBatch);
     }
     if (pb.view < V) {
-      const ViewRec& w = rec(ring, pb.view);
+      const Rec& w = rec(ring, pb.view);
       if (w.nvc > 0) {
         // pass B of chunk k: T[x, v] for this thread's entries
-        const Extent c = extent(w, pb);
-        const bool first = pb.uci() == 0, last = pb.uci() == w.nuc - 1;
-        const int cu = min(w.cu, c.nst);
-        const int smax = c.uc0 + c.nst - cu;
-        if (owns_b) {
-          const bool row_in = vb < c.nvw;
-          const float fv = int_to_float(c.vc0 + vb);
-          const float base = __fadd_rn(w.cx, __fmul_rn(w.evx, fv));
-          const float lo = w.eux > 0.0f ? -1.0f : 1.0f;
-          const float q0 = __fmul_rn(__fsub_rn(__fadd_rn(fxb, lo), base),
-                                     w.inv_eux);
-          const __nv_bfloat16* const sG = stage + (k & 1) * kBStage + vb;
-          unsigned short* const tb =
-              sT + (k & 1) * (kTX * kBTP) + xg * kBTP + vb;
-          float* const slots = sAcc + tid;
-#define K2B_PASS_B(C, ONE)                                             \
-  pass_b_entries<C, ONE>(tb, slots, sG, w, base, q0, fxb, nqb, c.uc0,  \
-                         smax, cu, row_in, first, last)
-          if (w.nuc == 1) {
-            switch (cu) {
-              case 1: K2B_PASS_B(1, true); break;
-              case 2: K2B_PASS_B(2, true); break;
-              case 3: K2B_PASS_B(3, true); break;
-              default: K2B_PASS_B(0, true);
-            }
-          } else {
-            K2B_PASS_B(0, false);
-          }
-#undef K2B_PASS_B
-        }
+        const Extent c = extent<K::kUC, K::kVC>(w, pb);
+        if (owns_b)
+          K::pass_b(sT + (k & 1) * (kTX * K::kTP) + xg * K::kTP + vb,
+                    sAcc + tid, stage + (k & 1) * K::kStage + vb, w, c, vb,
+                    fxb, nqb, pb.uci() == 0, pb.uci() == w.nuc - 1);
       }
     }
     if (pa.view < V && owns_a) {
-      const ViewRec& w = rec(ring, pa.view);
+      const Rec& w = rec(ring, pa.view);
       if (w.nvc > 0 && pa.uci() == w.nuc - 1) {
-        // pass A of chunk k - 1: this thread's voxels gather cv rows each
-        const Extent c = extent(w, pa);
-        const int nvs = min(max(c.nvw, w.cv), kBVC);
-        const int cv = min(w.cv, nvs);
-        const int smax = c.vc0 + nvs - cv;
-        const unsigned short* const trow =
-            sT + ((k - 1) & 1) * (kTX * kBTP) + xa_l * kBTP - c.vc0;
-        const float a =
-            __fadd_rn(w.cz, __fmul_rn(w.gzx, __fsub_rn(fxo, w.cx)));
-        const float lo = w.zav > 0.0f ? -1.0f : 1.0f;
-        const float q0 =
-            __fmul_rn(__fsub_rn(__fadd_rn(fzo, lo), a), w.inv_zav);
-#define K2B_PASS_A(C) \
-  pass_a_gather<C>(acc, trow, w, a, q0, fzo, c.vc0, smax, cv)
-        switch (cv) {
-          case 1: K2B_PASS_A(1); break;
-          case 2: K2B_PASS_A(2); break;
-          case 3: K2B_PASS_A(3); break;
-          default: K2B_PASS_A(0);
-        }
-#undef K2B_PASS_A
+        // pass A of chunk k - 1: this thread's voxels gather rows of T
+        const Extent c = extent<K::kUC, K::kVC>(w, pa);
+        K::pass_a(acc,
+                  sT + ((k - 1) & 1) * (kTX * K::kTP) + xa_l * K::kTP - c.vc0,
+                  w, c, fxo, fzo);
       }
     }
     cp_async_wait<0>();
@@ -1633,6 +1728,29 @@ adj_bf16_kernel(const __nv_bfloat16* __restrict__ g,
       vol[(static_cast<size_t>(x0 + xl) * ny + ri) * nz + z0 + zl] =
           sOut[xl * (kTZ + 1) + zl];
   }
+}
+
+// K2: g (V, nu, nv) fp32; vec: nv a multiple of 4 and g 16-byte aligned.
+// Three CTAs an SM (kAdjSmem; 80 registers).
+__global__ void __launch_bounds__(kAdjThreads, 3)
+adj_kernel(const float* __restrict__ g, const float* __restrict__ scalars,
+           float* __restrict__ vol, int V, int nx, int ny, int nz, int nu,
+           int nv, bool vec) {
+  extern __shared__ __align__(16) float sm[];
+  adj_gather<AdjF32>(sm, g, scalars, vol, V, nx, ny, nz, nu, nv, vec);
+}
+
+// K2b: g (V, nu, nv) in bf16; vec: nv a multiple of 8 and g 16-byte
+// aligned. An entry T[x, v] sums hat(X(u, v) - x) * scale * g[u, v] over
+// cu consecutive u from its window's start and is rounded to bf16 once,
+// where the plain version rounds the pass-B cotangent; a voxel sums
+// hat(zeta(x, v) - z) * T[x, v] over cv consecutive v.
+__global__ void __launch_bounds__(kAdjThreads, 4)
+adj_bf16_kernel(const __nv_bfloat16* __restrict__ g,
+                const float* __restrict__ scalars, float* __restrict__ vol,
+                int V, int nx, int ny, int nz, int nu, int nv, bool vec) {
+  extern __shared__ __align__(16) float sm[];
+  adj_gather<AdjBf16>(sm, g, scalars, vol, V, nx, ny, nz, nu, nv, vec);
 }
 
 // Launch a forward kernel (K1 or K1b) over the views: grid (v tiles, u
@@ -1688,10 +1806,12 @@ int launch_adj(const float* g, const float* scalars, float* vol, int V,
   const cudaError_t e = cudaFuncSetAttribute(
       adj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kAdjSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
+  const bool vec =
+      nv % 4 == 0 && reinterpret_cast<std::uintptr_t>(g) % 16 == 0;
   const dim3 grid((nz + kTZ - 1) / kTZ, (nx + kTX - 1) / kTX, ny);
   adj_kernel<<<grid, kAdjThreads, kAdjSmem,
                static_cast<cudaStream_t>(stream)>>>(g, scalars, vol, V, nx,
-                                                    ny, nz, nu, nv);
+                                                    ny, nz, nu, nv, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

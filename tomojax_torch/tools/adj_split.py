@@ -1,38 +1,42 @@
-"""Where the bf16 tier's four kernels (the forwards K1b and K3b, the
-adjoints K2b and K4b) spend their time, and whether the other kernels give
-another build's bits. Builds ``slab_plane.cu`` and ``slab_arc.cu`` again
-with one part of a kernel disabled at a time (text substitutions, each its
-own nvcc run, all started together, into ``build/kernels/adj_split/``) and
-times each variant beside the full kernel and its fp32 counterpart, in
-turns:
+"""Where the gather-schedule adjoints (the fp32 plane adjoint K2, the bf16
+tier's K2b and K4b) and the bf16 forwards (K1b, K3b) spend their time, and
+whether the other kernels give another build's bits. Builds
+``slab_plane.cu`` and ``slab_arc.cu`` again with one part of a kernel
+disabled at a time (text substitutions, each its own nvcc run, all started
+together, into ``build/kernels/adj_split/``) and times each variant beside
+the full kernel and the kernel of the other tier (a bf16 kernel's fp32
+counterpart; K2b beside K2), in turns:
 
-- K1b and K2b at ``chip_smoke.py`` phase 3's problem (256³ Shepp phantom,
-  180 views over the full circle, ±0.02 rad tilts, ±4 px shifts) and at
-  32 of config 5's 1024 views at 512³ (phase 12b's views);
+- K2, K1b and K2b at ``chip_smoke.py`` phase 3's problem (256³ Shepp
+  phantom, 180 views over the full circle, ±0.02 rad tilts, ±4 px shifts)
+  and at 32 of config 5's 1024 views at 512³ (phase 12b's views);
 - K3b and K4b at phase 5's problem (256³, 90 views, ±0.5° tilts, ±2 px
   shifts).
 
-With ``--parent`` (another tree's root, or the directory holding its
-``slab_plane.cu`` and ``slab_arc.cu``) it also builds that tree's sources,
-times its bf16 kernels beside this tree's, and compares the bits of the
-fp32 kernels K1-K5 and of the kernels listed in ``SAME_BITS`` on phase
-3's and phase 5's groups. A counting build (``split_steps``, in the tool's
-own copy of ``slab_plane.cu`` only) reports which share of K1's and K1b's
-(CTA, slab) steps runs from the tables, the direct way or not at all, on
-each plane problem.
+K2 and K2b share one schedule (``adj_gather``), so a variant of its
+phases disables the phase in both kernels of its build; each variant is
+timed only for its own kernel. With ``--parent`` (another tree's root, or
+the directory holding its ``slab_plane.cu`` and ``slab_arc.cu``) it also
+builds that tree's sources, times its kernels beside this tree's, and
+compares the bits of the fp32 kernels K1-K5 and of the kernels listed in
+``SAME_BITS`` on phase 3's and phase 5's groups. A counting build
+(``split_steps``, in the tool's own copy of ``slab_plane.cu`` only)
+reports which share of K1's and K1b's (CTA, slab) steps runs from the
+tables, the direct way or not at all, on each plane problem.
 
     python -m tomojax_torch.tools.adj_split [--size 256] [--parent PATH]
-        [--kernels k1b,k2b,k3b,k4b] [--out split.json]
+        [--kernels k2,k1b,k2b,k3b,k4b] [--out split.json]
 
 A variant with a part disabled gives wrong values; only its time means
 something: the full kernel's time less a variant's is what that part costs
 (parts overlap, so the costs need not add up). Times are CUDA-event means
 of 5 applies after a warm-up, each build timed twice (the builds in
 order, then in reverse); a bf16 kernel reads bf16 copies made beforehand,
-and the cast that the wrappers make on each call is timed on its own. Each full build is compiled with ``-Xptxas -v``;
-the report carries its registers and spills and, from the CUDA runtime,
-each kernel's registers and CTAs per SM at its shared memory. Needs a
-CUDA device.
+and the cast that the wrappers make on each call is timed on its own. A
+kernel's errors are against its plain version in its own tier. Each full
+build is compiled with ``-Xptxas -v``; the report carries its registers
+and spills and, from the CUDA runtime, each kernel's registers and CTAs
+per SM at its shared memory. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -58,10 +62,10 @@ PLANE = _build.CSRC / "slab_plane.cu"
 ARC = _build.CSRC / "slab_arc.cu"
 OUT_DIR = _build.BUILD_DIR / "adj_split"
 
-# Each kernel: its source, its bf16 entry, its fp32 counterpart's entry,
-# the kernel (and the template instance, where it differs) and dynamic
-# shared memory that the occupancy query names, and its variants: {name:
-# [(text of the source, replacement)]}.
+# Each kernel: its source, its entry, the entry timed and compared beside
+# it (the other tier's), the kernel (and the template instance, where it
+# differs) and dynamic shared memory that the occupancy query names, and
+# its variants: {name: [(text of the source, replacement)]}.
 K1B_NO_PASS_A = ("    if (v_in) pass_a_at(ri + 1);",
                  "    if (v_in && ny < 0) pass_a_at(ri + 1);")
 K1B_NO_PASS_B = ("    if (w.w >= 0) {\n      const unsigned tb = tabs_s",
@@ -93,13 +97,50 @@ K3B_NO_STAGING = ("    const short4 st_r2 = c_stage[(ri + 2) % kChunk];\n"
                   "    if (ny < 0)\n"
                   "      stage_slab(ring + slab_at(ri + 2), vol, ri + 2, st_r2, "
                   "ny, nz,\n                 vec, tid, slot);")
+# the phases of the gather schedule that K2 and K2b share (adj_gather)
+ADJ_NO_PASS_B = ("      if (w.nvc > 0) {\n        // pass B of chunk k",
+                 "      if (w.nvc > 0 && V < 0) {\n"
+                 "        // pass B of chunk k")
+ADJ_NO_PASS_A = ("      if (w.nvc > 0 && pa.uci() == w.nuc - 1) {",
+                 "      if (w.nvc > 0 && pa.uci() == w.nuc - 1 &&"
+                 " V < 0) {")
+K2_UC40 = ("constexpr int kFUC = 64, kFVC = 72;",
+           "constexpr int kFUC = 40, kFVC = 72;")
+K2_BATCH16 = ("constexpr int kBBatch = 32; ", "constexpr int kBBatch = 16; ")
+K2_CTAS = ("__global__ void __launch_bounds__(kAdjThreads, 3)\nadj_kernel(",
+           "__global__ void __launch_bounds__(kAdjThreads, {})\nadj_kernel(")
 K3B_ROWS = "\n            const unsigned short* row0 = ring16 + base0 + x * kSZ;"
 K3B_GRID = ("            grid_at<true>(p, r, cx, cz, static_cast<float>(x), vt, "
             "&cf,\n                          &zaff);" + K3B_ROWS)
 KERNELS = {
+    "k2": {
+        "source": PLANE, "entry": "slab_plane_adj",
+        "beside": "slab_plane_adj_bf16", "kernel": "adj_kernel",
+        "smem": "kAdjSmem", "threads": "kAdjThreads",
+        "variants": {
+            "no_pass_b": [ADJ_NO_PASS_B],
+            "no_pass_a": [ADJ_NO_PASS_A],
+            "skeleton_only": [ADJ_NO_PASS_B, ADJ_NO_PASS_A],
+            "no_staging": [(
+                "  if (w.nvc > 0) {\n    const Extent c = extent<kFUC, kFVC>",
+                "  if (w.nvc > 0 && nu < 0) {\n"
+                "    const Extent c = extent<kFUC, kFVC>")],
+            # pass A's voxels gather their candidates one by one where zav
+            # = 1 too (the same bits)
+            "no_unit": [("    if (w.zav == 1.0f && w.cv == 3) {",
+                         "    if (w.zav == 1.0f && w.cv == 3 &&"
+                         " c.nvw < 0) {")],
+            # 40-column u chunks and 16-view record batches, launch bounds
+            # of four CTAs an SM (64 registers)
+            "ctas4": [K2_UC40, K2_BATCH16,
+                      (K2_CTAS[0], K2_CTAS[1].format(4))],
+            # launch bounds of two CTAs an SM (up to 128 registers)
+            "ctas2": [(K2_CTAS[0], K2_CTAS[1].format(2))],
+        },
+    },
     "k1b": {
         "source": PLANE, "entry": "slab_plane_fwd_bf16",
-        "fp32": "slab_plane_fwd", "kernel": "fwd_bf16_kernel",
+        "beside": "slab_plane_fwd", "kernel": "fwd_bf16_kernel",
         "instance": "fwd_bf16_kernel<true>", "smem": "kFwdHSmem",
         "threads": "kFwdThreads",
         "variants": {
@@ -113,33 +154,25 @@ KERNELS = {
     },
     "k2b": {
         "source": PLANE, "entry": "slab_plane_adj_bf16",
-        "fp32": "slab_plane_adj", "kernel": "adj_bf16_kernel",
+        "beside": "slab_plane_adj", "kernel": "adj_bf16_kernel",
         "smem": "kBSmem", "threads": "kAdjThreads",
         "variants": {
-            "no_pass_b": [(
-                "      if (w.nvc > 0) {\n        // pass B of chunk k",
-                "      if (w.nvc > 0 && V < 0) {\n        // pass B of chunk k")],
-            "no_pass_a": [(
-                "      if (w.nvc > 0 && pa.uci() == w.nuc - 1) {",
-                "      if (w.nvc > 0 && pa.uci() == w.nuc - 1 && V < 0) {")],
-            "skeleton_only": [(
-                "      if (w.nvc > 0) {\n        // pass B of chunk k",
-                "      if (w.nvc > 0 && V < 0) {\n        // pass B of chunk k"), (
-                "      if (w.nvc > 0 && pa.uci() == w.nuc - 1) {",
-                "      if (w.nvc > 0 && pa.uci() == w.nuc - 1 && V < 0) {")],
+            "no_pass_b": [ADJ_NO_PASS_B],
+            "no_pass_a": [ADJ_NO_PASS_A],
+            "skeleton_only": [ADJ_NO_PASS_B, ADJ_NO_PASS_A],
             "ctas3": [(
                 "__global__ void __launch_bounds__(kAdjThreads, 4)\n"
                 "adj_bf16_kernel(",
                 "__global__ void __launch_bounds__(kAdjThreads, 3)\n"
                 "adj_bf16_kernel(")],
             "no_staging": [(
-                "  if (w.nvc > 0) {\n    const Extent c = extent(w, s);",
+                "  if (w.nvc > 0) {\n    const Extent c = extent<kBUC, kBVC>",
                 "  if (w.nvc > 0 && nu < 0) {\n"
-                "    const Extent c = extent(w, s);")],
+                "    const Extent c = extent<kBUC, kBVC>")],
         },
     },
     "k3b": {
-        "source": ARC, "entry": "slab_arc_fwd_bf16", "fp32": "slab_arc_fwd",
+        "source": ARC, "entry": "slab_arc_fwd_bf16", "beside": "slab_arc_fwd",
         "kernel": "arc_fwd_bf16_kernel", "smem": "kArcHSmem",
         "threads": "kFwdThreads",
         "variants": {
@@ -184,7 +217,7 @@ KERNELS = {
         },
     },
     "k4b": {
-        "source": ARC, "entry": "slab_arc_adj_bf16", "fp32": "slab_arc_adj",
+        "source": ARC, "entry": "slab_arc_adj_bf16", "beside": "slab_arc_adj",
         "kernel": "arc_adj_bf16_kernel", "smem": "kBSmem",
         "threads": "kAdjThreads",
         "variants": {
@@ -222,17 +255,16 @@ KERNELS = {
         },
     },
 }
-# The bf16 kernels in the parent tree (c0ab30d: the forwards the fp32
-# kernels instantiated on bf16, the adjoints their own designs), for the
-# occupancy query of a parent build.
+# The kernels in the parent tree (7bfe478: K2 as owner sweeps, the bf16
+# kernels their own designs), for the occupancy query of a parent build.
 PARENT_KERNELS = {
-    "k1b": {"kernel": "fwd_kernel<__nv_bfloat16, true>",
-            "smem": "FwdStage<__nv_bfloat16>::kSmem",
+    "k2": {"kernel": "adj_kernel", "smem": "kAdjSmem",
+           "threads": "kAdjThreads"},
+    "k1b": {"kernel": "fwd_bf16_kernel<true>", "smem": "kFwdHSmem",
             "threads": "kFwdThreads"},
     "k2b": {"kernel": "adj_bf16_kernel", "smem": "kBSmem",
             "threads": "kAdjThreads"},
-    "k3b": {"kernel": "arc_march_kernel<false, __nv_bfloat16>",
-            "smem": "fwd_smem<false, __nv_bfloat16>()",
+    "k3b": {"kernel": "arc_fwd_bf16_kernel", "smem": "kArcHSmem",
             "threads": "kFwdThreads"},
     "k4b": {"kernel": "arc_adj_bf16_kernel", "smem": "kBSmem",
             "threads": "kAdjThreads"}}
@@ -471,8 +503,11 @@ def apply(lib, entry, geom, grps):
 
 def cast(kname, grps):
     """The bf16 copies of the operand of ``kname`` over the groups, as the
-    wrappers make them on each call (timed beside the kernels)."""
+    wrappers make them on each call (timed beside the kernels); none for
+    an fp32 kernel."""
     adj = "_adj" in KERNELS[kname]["entry"]
+    if not KERNELS[kname]["entry"].endswith("_bf16"):
+        return []
     return [(y if adj else vol_or).to(torch.bfloat16)
             for vol_or, _, y, _, _ in grps]
 
@@ -488,21 +523,34 @@ def _view_rel(a, b):
 
 
 def quad_of(kname: str) -> str:
-    return "plane" if kname in ("k1b", "k2b") else "arc"
+    return "plane" if kname in ("k2", "k1b", "k2b") else "arc"
+
+
+def _identity(ax, y, vol_or, aty) -> float:
+    """The adjoint identity's defect |<Ax, y> - <x, A^T y>| / (|Ax| |y|),
+    in float64."""
+    lhs = torch.dot(ax.double().reshape(-1), y.double().reshape(-1))
+    rhs = torch.dot(vol_or.double().reshape(-1), aty.double().reshape(-1))
+    return float(abs(lhs - rhs) / (torch.linalg.norm(ax.double())
+                                   * torch.linalg.norm(y.double())))
 
 
 def errors(libs, kname, geom, grps, parent) -> dict:
-    """The full build's bf16 kernel against its plain bf16 version (a
+    """The full build's kernel against its plain version in its own tier (a
     forward's largest per-view relative L2, an adjoint's relative L2, the
-    largest over the groups) and against the fp32 kernel, whether two
-    applies give the same bits, and with a parent build the parent's bf16
-    kernel against the plain bf16 version."""
+    largest over the groups) and against the kernel beside it, whether two
+    applies give the same bits, for the fp32 adjoint the adjoint identity
+    with the build's fp32 forward, and with a parent build the parent's
+    kernel against the plain version."""
     from tomojax_torch.kernels import slab as slabk
     k = KERNELS[kname]
     lib, quad = libs[kname], quad_of(kname)
     adj = "_adj" in k["entry"]
+    prec = "bf16" if k["entry"].endswith("_bf16") else "f32x2"
     rel = _rel if adj else _view_rel
-    out = {"vs_plain": [], "vs_fp32": [], "repeat_equal": True}
+    out = {"vs_plain": [], "vs_beside": [], "repeat_equal": True}
+    if adj and prec == "f32x2":
+        out["identity"] = []
     if parent:
         out["parent_vs_plain"] = []
     for g in grps:
@@ -512,12 +560,16 @@ def errors(libs, kname, geom, grps, parent) -> dict:
         out["repeat_equal"] &= torch.equal(
             a, apply(lib, k["entry"], geom, one)[0])
         if adj:
-            ref = slabk.slab_backproject_plain(y, sc, geom, quad, prec="bf16")
+            ref = slabk.slab_backproject_plain(y, sc, geom, quad, prec=prec)
         else:
-            ref = slabk.slab_project_plain(vol_or, sc, geom, quad,
-                                           prec="bf16")
+            ref = slabk.slab_project_plain(vol_or, sc, geom, quad, prec=prec)
         out["vs_plain"].append(rel(a, ref))
-        out["vs_fp32"].append(_rel(a, apply(lib, k["fp32"], geom, one)[0]))
+        out["vs_beside"].append(_rel(a, apply(lib, k["beside"], geom,
+                                              one)[0]))
+        if "identity" in out:
+            fwd = "slab_plane_fwd" if quad == "plane" else "slab_arc_fwd"
+            ax = call(lib, fwd, geom, vol_or, sc)
+            out["identity"].append(_identity(ax, y, vol_or, a))
         if parent:
             b = apply(libs[f"parent.{kname}"], k["entry"], geom, one)[0]
             out["parent_vs_plain"].append(rel(b, ref))
@@ -624,7 +676,7 @@ def main(argv=None):
                 f"{key} {val:.3e}" if isinstance(val, float) else
                 f"{key} {val}" for key, val in err.items()), flush=True)
             runs = {"full": (libs[kname], k["entry"]),
-                    "fp32": (libs[kname], k["fp32"]),
+                    "beside": (libs[kname], k["beside"]),
                     **{v: (libs[f"{kname}.{v}"], k["entry"])
                        for v in k["variants"]}}
             if args.parent:
@@ -638,13 +690,14 @@ def main(argv=None):
             t_full = float(np.mean(times["full"]))
             rec = {"views": sum(g[1].shape[0] for g in grps),
                    "ms": times, "full_ms": t_full,
-                   "fp32_ms": float(np.mean(times["fp32"])),
+                   "beside_ms": float(np.mean(times["beside"])),
                    "cast_ms": cuda_ms(lambda: cast(kname, grps), 5),
                    "cost_ms": {v: t_full - float(np.mean(times[v]))
                                for v in k["variants"]}}
             report["ms"][f"{kname}@{pname}"] = rec
             print(f"{kname} at {pname} ({rec['views']} views): full "
-                  f"{t_full:.3f} ms, fp32 {rec['fp32_ms']:.3f} ms, cast "
+                  f"{t_full:.3f} ms, {k['beside']} {rec['beside_ms']:.3f} "
+                  f"ms, cast "
                   f"{rec['cast_ms']:.3f} ms; "
                   + ", ".join(f"{v} {np.mean(times[v]):.3f}"
                               for v in order[2:]), flush=True)

@@ -1045,18 +1045,57 @@ def test_gd_fast_on_card_tracks_cpu(cuda):
 
 def test_host_sync_counters_match_the_sync_debug_mode(cuda):
     """Every host sync that CUDA's sync debug mode finds in a CGLS init and
-    pair, one CC view and one slab LM step is one the program counts
+    pair, one CC view, one slab LM step and the exact ray family's SIRT,
+    LM step and hook reprojection is one the program counts
     (``host_sync.*``): 6 row copies in the init, the guard and 6 in the
     pair (3 orientation groups), none in the view; in the LM step (3
     groups) the mask, 3 row copies, 3 solves, 4 scalar builds' 3 host
-    constants each and 4 swap permutations."""
-    want = {"cgls_init": 6, "cgls_pair": 7, "cc_view": 0, "lm_step": 47}
+    constants each and 4 swap permutations; on the ray family 3 host
+    copies an apply (6 applies and the stop rule in a SIRT solve of 2
+    iterations; the mask, 3 applies, the active views and the solve in an
+    LM step; 3 chunks of the reprojection)."""
+    want = {"cgls_init": 6, "cgls_pair": 7, "cc_view": 0, "lm_step": 47,
+            "ray_sirt": 19, "ray_lm_step": 12, "ray_hook": 9}
     for name, fn in trace_cost.census_jobs(64, 32, cuda).items():
         sites, counters = trace_cost.sync_census(fn)
         assert sum(sites.values()) == sum(counters.values()), (
             name, sites, counters)
         if name in want:
             assert sum(counters.values()) == want[name], (name, counters)
+
+
+def test_a_span_on_the_card_times_its_work(cuda):
+    """A span given the card's device reads the device seconds of the work
+    inside it (CUDA events at its two ends): above 0, within the host's
+    wall around it, and near the same work timed by events alone."""
+    from tomojax_torch.utils import profiling
+    x = torch.randn(2048, 2048, device=cuda)
+
+    def work():
+        y = x
+        for _ in range(20):
+            y = (y @ x) * 1e-3
+        return y
+
+    ms = profiling.cuda_ms(work, 3)
+    profiling.reset()
+    torch.cuda.synchronize()
+    try:
+        with profiling.tracing():
+            t0 = time.perf_counter()
+            with profiling.span("work", cuda):
+                work()
+            with profiling.span("host"):
+                pass
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        spans, _ = profiling.records()
+    finally:
+        profiling.reset()
+    dev_s = spans[0].device_s
+    assert spans[1].device_s is None
+    assert 0.0 < dev_s <= wall
+    assert 0.5 * ms * 1e-3 < dev_s < 2.0 * ms * 1e-3
 
 
 def test_kernel_times_leave_out_the_programs_spans(cuda, tmp_path):

@@ -148,6 +148,8 @@ def _lm_step(jac, r, lam, mask_f):
     damp = lam[:, None] * torch.clamp_min(
         torch.diagonal(H, dim1=1, dim2=2), 1e-12)
     Hd = H + torch.diag_embed(damp) + torch.diag(1.0 - mask_f)
+    # the solve's error check reads its status on the host
+    profiling.count("host_sync.lm.solve")
     return -torch.linalg.solve(Hd, (g * mask_f)[..., None])[..., 0]
 
 
@@ -165,27 +167,37 @@ def _lm_views(vol, meas, geom: Geometry, theta0, cor, mask_f, lo, hi,
     lam = torch.full((n,), lm_lambda0, **kw)
     it = torch.zeros(n, dtype=torch.int32, device=vol.device)
     done = torch.zeros(n, dtype=torch.bool, device=vol.device)
-    cost = alignment_costs(vol, meas, geom, theta, cor, dtype=dtype)
+    with profiling.span("lm.cost"):
+        cost = alignment_costs(vol, meas, geom, theta, cor, dtype=dtype)
     for _ in range(max_iter):
+        # the indices of the views still running are read on the host
+        profiling.count("host_sync.lm.active")
         act = torch.nonzero(~done).flatten()
         if act.numel() == 0:
             break
-        th, m, c_act = theta[act], meas[act], cor[act]
-        c, _, r, jac = alignment_costs_grad(vol, m, geom, th, c_act,
-                                            dtype=dtype)
-        delta = _lm_step(jac, r, lam[act], mask_f)
-        th_new = torch.minimum(torch.maximum(th + delta * mask_f, lo[act]),
-                               hi[act])
-        c_new = alignment_costs(vol, m, geom, th_new, c_act, dtype=dtype)
-        improved = c_new < c
-        lam2 = torch.where(improved, torch.clamp_min(lam[act] / 3.0, 1e-12),
-                           lam[act] * 10.0)
-        rel = (c - c_new).abs() / torch.maximum(c, c_new).clamp_min(1.0)
-        theta[act] = torch.where(improved[:, None], th_new, th)
-        cost[act] = torch.where(improved, c_new, c)
-        lam[act] = lam2
-        done[act] = (improved & (rel <= eps)) | (lam2 > 1e8)
-        it[act] += 1
+        with profiling.span("lm.step"):
+            th, m, c_act = theta[act], meas[act], cor[act]
+            with profiling.span("lm.jac"):
+                c, _, r, jac = alignment_costs_grad(vol, m, geom, th, c_act,
+                                                    dtype=dtype)
+            with profiling.span("lm.solve"):
+                delta = _lm_step(jac, r, lam[act], mask_f)
+                th_new = torch.minimum(
+                    torch.maximum(th + delta * mask_f, lo[act]), hi[act])
+            with profiling.span("lm.cost"):
+                c_new = alignment_costs(vol, m, geom, th_new, c_act,
+                                        dtype=dtype)
+                improved = c_new < c
+                lam2 = torch.where(improved,
+                                   torch.clamp_min(lam[act] / 3.0, 1e-12),
+                                   lam[act] * 10.0)
+                rel = ((c - c_new).abs()
+                       / torch.maximum(c, c_new).clamp_min(1.0))
+                theta[act] = torch.where(improved[:, None], th_new, th)
+                cost[act] = torch.where(improved, c_new, c)
+                lam[act] = lam2
+                done[act] = (improved & (rel <= eps)) | (lam2 > 1e8)
+                it[act] += 1
     return RefineResult(theta6=theta, cost=cost, n_iter=it, converged=done)
 
 

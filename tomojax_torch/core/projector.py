@@ -24,6 +24,11 @@ float64 rounding.
 
 On a CUDA tensor ``index_add_`` accumulates with float atomics, so two
 backprojections may differ in their last bits.
+
+The batched entries record the spans ``ray.A``, ``ray.AT`` and
+``ray.jac`` (timed on the card's clock too), count their views
+(``ray.A.views``, …), and count the setup's three copies from host memory
+as ``host_sync.ray.setup``.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch
 from tomojax_torch.core.geometry import Geometry, Views
 from tomojax_torch.core.rotations import (der_rot_x, der_rot_y, der_rot_z,
                                           rot_x, rot_y, rot_z)
+from tomojax_torch.utils import profiling
 
 # Samples (views × rays × steps) per block of the march: bounds the
 # temporaries (~350 bytes per sample in float64).
@@ -80,6 +86,9 @@ def _ray_setup(geom: Geometry, phi, alpha, beta, t, cor, dtype,
     # cor shift: x component added to untransformed source & detector
     shift = torch.zeros((cor.shape[0], 3, 1), **kw)
     shift[:, 0, 0] = cor[:, 0]
+    # the detector grids and the origin are copied from host memory: on a
+    # card each copy makes the host wait
+    profiling.count("host_sync.ray.setup", 3)
     src = geom.source_centers(**kw)[None, :, rays] + shift
     det = geom.det_centers(**kw)[None, :, rays] + shift
     origin = geom.vox_origin(**kw)
@@ -182,13 +191,16 @@ def forward_views(vol, geom: Geometry, phi, alpha, beta, t, cor, *,
     ``rays`` of the detector); angles (V,), ``t`` and ``cor`` (V, 3), all
     on ``vol``'s device."""
     phi, alpha, beta, t, cor = _as_views(phi, alpha, beta, t, cor)
-    setup = _ray_setup(geom, phi, alpha, beta, t, cor, dtype, False, rays)
-    vol_flat = vol.reshape(-1).to(dtype)
-    acc = torch.zeros(setup.p0.shape[0], setup.p0.shape[2], dtype=dtype,
-                      device=vol.device)
-    for _, p in _step_blocks(setup, geom, dtype):
-        idx, w, _, _ = _corner_indices_weights(p, geom.vox_shape)
-        acc += (w * torch.take(vol_flat, idx)).sum(0).sum(-1)
+    with profiling.span("ray.A", vol.device):
+        profiling.count("ray.A.views", phi.shape[0])
+        setup = _ray_setup(geom, phi, alpha, beta, t, cor, dtype, False,
+                           rays)
+        vol_flat = vol.reshape(-1).to(dtype)
+        acc = torch.zeros(setup.p0.shape[0], setup.p0.shape[2], dtype=dtype,
+                          device=vol.device)
+        for _, p in _step_blocks(setup, geom, dtype):
+            idx, w, _, _ = _corner_indices_weights(p, geom.vox_shape)
+            acc += (w * torch.take(vol_flat, idx)).sum(0).sum(-1)
     return acc
 
 
@@ -199,15 +211,18 @@ def backproject_views(det_img, vol_shape, geom: Geometry, phi, alpha, beta,
     P(θ_v)ᵀ y_v`` → ``vol_shape`` (added into the flat ``out`` if given;
     ``det_img`` holds the block ``rays`` of each view)."""
     phi, alpha, beta, t, cor = _as_views(phi, alpha, beta, t, cor)
-    setup = _ray_setup(geom, phi, alpha, beta, t, cor, dtype, False, rays)
-    y = det_img.reshape(setup.p0.shape[0], -1).to(dtype)
-    n_vox = vol_shape[0] * vol_shape[1] * vol_shape[2]
-    if out is None:
-        out = torch.zeros(n_vox, dtype=dtype, device=y.device)
-    for _, p in _step_blocks(setup, geom, dtype):
-        idx, w, _, _ = _corner_indices_weights(p, geom.vox_shape)
-        out.index_add_(0, idx.reshape(-1),
-                       (w * y[None, :, :, None]).reshape(-1))
+    with profiling.span("ray.AT", det_img.device):
+        profiling.count("ray.AT.views", phi.shape[0])
+        setup = _ray_setup(geom, phi, alpha, beta, t, cor, dtype, False,
+                           rays)
+        y = det_img.reshape(setup.p0.shape[0], -1).to(dtype)
+        n_vox = vol_shape[0] * vol_shape[1] * vol_shape[2]
+        if out is None:
+            out = torch.zeros(n_vox, dtype=dtype, device=y.device)
+        for _, p in _step_blocks(setup, geom, dtype):
+            idx, w, _, _ = _corner_indices_weights(p, geom.vox_shape)
+            out.index_add_(0, idx.reshape(-1),
+                           (w * y[None, :, :, None]).reshape(-1))
     return out.reshape(vol_shape)
 
 
@@ -223,26 +238,28 @@ def forward_views_jac(vol, geom: Geometry, phi, alpha, beta, t, cor, *,
     and contracted with the static and direction parts once.
     """
     phi, alpha, beta, t, cor = _as_views(phi, alpha, beta, t, cor)
-    setup = _ray_setup(geom, phi, alpha, beta, t, cor, dtype, True)
-    vol_flat = vol.reshape(-1).to(dtype)
-    V = setup.p0.shape[0]
-    kw = dict(dtype=dtype, device=vol.device)
-    det = torch.zeros(V, geom.n_det, **kw)
-    g_sum = torch.zeros(3, V, geom.n_det, **kw)
-    g_step = torch.zeros(3, V, geom.n_det, **kw)
-    for c, p in _step_blocks(setup, geom, dtype):
-        idx, w, parts, mask = _corner_indices_weights(p, geom.vox_shape)
-        vals = torch.take(vol_flat, idx)
-        det += (w * vals).sum(0).sum(-1)
-        # a zero weight still has a nonzero weight gradient: mask dw
-        # explicitly rather than reusing w's zeros
-        gval = ((vals * mask)[:, None] * _corner_weight_gradients(parts)
-                ).sum(0)                                     # (3, V, R, S)
-        g_sum += gval.sum(-1)
-        g_step += (gval * (c * setup.inv_rlen)).sum(-1)
-    jac_t = torch.einsum("vdp,dvr->vpr", setup.rpa, g_sum)
-    jac_a = (torch.einsum("vpdr,dvr->vpr", setup.der_ang, g_sum)
-             + torch.einsum("vpd,dvr->vpr", setup.der_dir, g_step))
+    with profiling.span("ray.jac", vol.device):
+        profiling.count("ray.jac.views", phi.shape[0])
+        setup = _ray_setup(geom, phi, alpha, beta, t, cor, dtype, True)
+        vol_flat = vol.reshape(-1).to(dtype)
+        V = setup.p0.shape[0]
+        kw = dict(dtype=dtype, device=vol.device)
+        det = torch.zeros(V, geom.n_det, **kw)
+        g_sum = torch.zeros(3, V, geom.n_det, **kw)
+        g_step = torch.zeros(3, V, geom.n_det, **kw)
+        for c, p in _step_blocks(setup, geom, dtype):
+            idx, w, parts, mask = _corner_indices_weights(p, geom.vox_shape)
+            vals = torch.take(vol_flat, idx)
+            det += (w * vals).sum(0).sum(-1)
+            # a zero weight still has a nonzero weight gradient: mask dw
+            # explicitly rather than reusing w's zeros
+            gval = ((vals * mask)[:, None] * _corner_weight_gradients(parts)
+                    ).sum(0)                                 # (3, V, R, S)
+            g_sum += gval.sum(-1)
+            g_step += (gval * (c * setup.inv_rlen)).sum(-1)
+        jac_t = torch.einsum("vdp,dvr->vpr", setup.rpa, g_sum)
+        jac_a = (torch.einsum("vpdr,dvr->vpr", setup.der_ang, g_sum)
+                 + torch.einsum("vpd,dvr->vpr", setup.der_dir, g_step))
     return det, torch.cat([jac_t, jac_a], dim=1)
 
 

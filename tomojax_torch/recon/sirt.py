@@ -6,7 +6,9 @@ Counterpart of ``tomojax.recon.sirt``. The update is
 
 with W = 1/(A·1), V = 1/(Aᵀ·1) computed matrix-free (zero sums invert to
 zero), an optional positivity clamp, and the semi-convergence stop: quit
-(``stop_reason`` 1) as soon as the RMS error rises.
+(``stop_reason`` 1) as soon as the RMS error rises. Spans: ``sirt.init``
+(the two sums), ``sirt.iter`` per iteration; the stop rule's read of the
+error is the host sync ``host_sync.sirt.stop``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from tomojax_torch.core.operators import TomoOperator
+from tomojax_torch.utils import profiling
 
 
 class SIRTResult(NamedTuple):
@@ -44,22 +47,26 @@ def sirt(op: TomoOperator, b, *, niter: int = 100, x0=None,
         ground_truth, dtype=dt, device=dev).reshape(-1)
     norm_factor = torch.linalg.norm(b if gt is None else gt)
 
-    W = _safe_inv(op.row_sums())   # (n_proj, n_det)
-    V = _safe_inv(op.col_sums())   # vol_shape
+    with profiling.span("sirt.init"):
+        W = _safe_inv(op.row_sums())   # (n_proj, n_det)
+        V = _safe_inv(op.col_sums())   # vol_shape
     conv = torch.zeros((niter,), dtype=dt, device=dev)
     rms = torch.zeros((niter,), dtype=dt, device=dev)
     k, stop = 0, 0
     while k < niter and stop == 0:
-        res = b - op.A(x)
-        x = x + V * op.AT(W * res)
-        if positivity:
-            x = torch.clamp_min(x, 0.0)
-        conv[k] = torch.linalg.norm(res)
-        if gt is None:
-            rms[k] = conv[k] / norm_factor
-        else:
-            rms[k] = torch.linalg.norm(x.reshape(-1) - gt) / norm_factor
-        stop = 1 if (k > 0 and bool(rms[k] > rms[k - 1])) else 0
-        k += 1
+        with profiling.span("sirt.iter"):
+            res = b - op.A(x)
+            x = x + V * op.AT(W * res)
+            if positivity:
+                x = torch.clamp_min(x, 0.0)
+            conv[k] = torch.linalg.norm(res)
+            if gt is None:
+                rms[k] = conv[k] / norm_factor
+            else:
+                rms[k] = torch.linalg.norm(x.reshape(-1) - gt) / norm_factor
+            if k > 0:
+                profiling.count("host_sync.sirt.stop")
+                stop = 1 if bool(rms[k] > rms[k - 1]) else 0
+            k += 1
     return SIRTResult(x=x, rms_error=rms, convergence=conv, n_iter=k,
                       stop_reason=stop)

@@ -8,10 +8,12 @@ the card, at config 5's shapes by default (512³, 1024 views of 512²).
    and left) and per ``count`` with the switch off and on, beside an empty
    loop's;
 2. ``census`` (the card only): the host syncs of one CGLS init and one
-   pair on the plane operator, of one CC view and of one slab LM step,
-   each as ``torch.cuda.set_sync_debug_mode("warn")`` finds them (by the
-   port's file and line that called the op) beside the program's
-   ``host_sync.*`` counters;
+   pair on the plane operator, of one CC view, of one slab LM step, and on
+   the exact ray family of a SIRT solve of two iterations, one exact LM
+   step and the moment hook's reprojection, each as
+   ``torch.cuda.set_sync_debug_mode("warn")`` finds them (by the port's
+   file and line that called the op) beside the program's ``host_sync.*``
+   counters;
 3. ``chain``: the CC chain over every view, in turns untraced (host µs per
    view, the chain ended by reading its offsets) and under
    ``profiling.tracing()`` (the mean ``cc.view`` span and its stages).
@@ -33,11 +35,14 @@ import numpy as np
 import torch
 
 from tomojax_torch.align import cc
+from tomojax_torch.align.pipeline import _family_synth
+from tomojax_torch.align.refine import refine_views
 from tomojax_torch.align.slab_refine import refine_views_slab
 from tomojax_torch.core import slab_projector as sp
 from tomojax_torch.core.geometry import Geometry, Views
 from tomojax_torch.core.operators import make_operator
 from tomojax_torch.recon.cgls import cgls_init, cgls_steps
+from tomojax_torch.recon.sirt import sirt
 from tomojax_torch.utils import profiling
 
 # the checkout's root: sites are named by their path below it
@@ -132,10 +137,23 @@ def census_jobs(n: int, n_proj: int, device) -> dict:
     def pair_step():
         cgls_steps(op, b, state, nsteps=1, niter=10)
 
+    # the exact ray family: 8 views, the hook's reprojection in chunks of 3
+    r = min(n, 32)
+    g_ray = Geometry(n_proj=8, vox_shape=(r,) * 3, det_shape=(r, r))
+    op_ray = make_operator(g_ray, v_lm, family="ray", device=device)
+    vol_ray = torch.rand(g_ray.vox_shape, device=device)
+    b_ray = op_ray.A(vol_ray)
+    ray = {"ray_sirt": lambda: sirt(op_ray, b_ray, niter=2, positivity=True),
+           "ray_lm_step": lambda: refine_views(vol_ray, b_ray, g_ray, v_lm,
+                                               max_iter=1),
+           "ray_hook": lambda: _family_synth(vol_ray, g_ray, v_lm, "ray",
+                                             None, torch.float32, 3)}
     lm()
+    for fn in ray.values():
+        fn()
     return {"cgls_init": lambda: cgls_init(op, b), "cgls_pair": pair_step,
             "cc_view": lambda: cc.cross_correlation_chain(
-                pair, upsample_factor=100), "lm_step": lm}
+                pair, upsample_factor=100), "lm_step": lm, **ray}
 
 
 def sync_census(fn) -> tuple:

@@ -19,9 +19,11 @@ span holds its name, its start and end on the host clock
 self time is its duration less its children's (:func:`child_seconds`).
 While the profiler records, each span is also a ``record_function``: it
 shows on the trace's host timeline, the clock the device's kernels are
-on. With the switch off, :func:`span` returns a shared no-op and
-:func:`count` returns at once: neither allocates, calls into torch or
-reads a clock.
+on. A span given a CUDA ``device`` also records a CUDA event at each end,
+on that device's current stream, and :func:`records` gives the device
+seconds between them (``device_s``; None on the CPU). With the switch
+off, :func:`span` returns a shared no-op and :func:`count` returns at
+once: neither allocates, calls into torch or reads a clock.
 """
 
 from __future__ import annotations
@@ -109,17 +111,21 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 class Span(NamedTuple):
-    """One recorded span: host seconds on ``time.perf_counter``'s clock
-    and the index of the enclosing span in :func:`records` (-1: none)."""
+    """One recorded span: host seconds on ``time.perf_counter``'s clock,
+    the index of the enclosing span in :func:`records` (-1: none) and, for
+    a span on a CUDA device, the device seconds between its two events
+    (None otherwise)."""
 
     name: str
     t0: float
     t1: float
     parent: int
+    device_s: float | None = None
 
 
 _tracing = 0    # depth of open tracing() blocks
-_spans = []     # [name, t0, t1, parent] per span, in order of entry
+_spans = []     # [name, t0, t1, parent, device] per span, in order of
+#                 entry; device: None, the two CUDA events, or their seconds
 _open = []      # indices of the spans entered and not yet left
 _counters = {}
 
@@ -140,26 +146,37 @@ _OFF = _Off()
 
 class _On:
     """A recording span: appended to the records on entry, its end written
-    on exit."""
+    on exit; on a CUDA ``device``, a timing event recorded at each end."""
 
-    __slots__ = ("name", "i", "rf")
+    __slots__ = ("name", "device", "i", "rf")
 
-    def __init__(self, name):
+    def __init__(self, name, device):
         self.name = name
+        self.device = device
 
     def __enter__(self):
         i = self.i = len(_spans)
-        _spans.append([self.name, 0.0, 0.0, _open[-1] if _open else -1])
+        events = None
+        if self.device is not None and self.device.type == "cuda":
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        _spans.append([self.name, 0.0, 0.0, _open[-1] if _open else -1,
+                       events])
         _open.append(i)
         self.rf = None
         if _autograd_profiler._is_profiler_enabled:
             self.rf = torch.profiler.record_function(self.name)
             self.rf.__enter__()
+        if events is not None:
+            events[0].record(torch.cuda.current_stream(self.device))
         _spans[i][1] = time.perf_counter()
         return i
 
     def __exit__(self, *exc):
         t = time.perf_counter()
+        events = _spans[self.i][4]
+        if events is not None:
+            events[1].record(torch.cuda.current_stream(self.device))
         if self.rf is not None:
             self.rf.__exit__(*exc)
         _spans[self.i][2] = t
@@ -167,13 +184,15 @@ class _On:
         return False
 
 
-def span(name: str):
+def span(name: str, device=None):
     """``with span("cc.view"):`` records the block as a span (and as a
     ``record_function`` while the profiler records); ``as i`` gives its
-    index in :func:`records`, None with the switch off."""
+    index in :func:`records`, None with the switch off. With a CUDA
+    ``device`` (a ``torch.device``) the span also times the device's work
+    inside it (:attr:`Span.device_s`)."""
     if not (_tracing or _autograd_profiler._is_profiler_enabled):
         return _OFF
-    return _On(name)
+    return _On(name, device)
 
 
 def count(name: str, n: int = 1) -> None:
@@ -199,8 +218,16 @@ def tracing():
 def records():
     """``(spans, counters)`` recorded since the last :func:`reset`: a list
     of :class:`Span` in order of entry (a span still open has ``t1`` 0)
-    and a dict of counts."""
-    return [Span(*s) for s in _spans], dict(_counters)
+    and a dict of counts. A closed span's device seconds are read here
+    once, after the device has reached its end."""
+    for s in _spans:
+        if isinstance(s[4], tuple) and s[2] > 0.0:
+            start, end = s[4]
+            end.synchronize()
+            s[4] = 1e-3 * start.elapsed_time(end)
+    return ([Span(name, t0, t1, parent,
+                  dev if isinstance(dev, float) else None)
+             for name, t0, t1, parent, dev in _spans], dict(_counters))
 
 
 def reset() -> None:

@@ -95,11 +95,14 @@ script exits non-zero:
    data): each rel-L2 ≤ 0.25 (the JAX record: slab 0.185); K3 and K4
    launched, then held against their plain versions at config 1's shapes
    and jittered views with phase 5's tolerances, two applies of each
-   bit-identical. The ray A on the card (fp32) against float64 on the CPU
-   (per-view relative L2 ≤ 1e-5; also the simulated dataset, ≤ 1e-6),
-   its adjoint identity (≤ 1e-5), the max abs difference of two Aᵀ
-   (``index_add_``'s float atomics; printed, not bounded) and the time
-   per A and Aᵀ.
+   bit-identical. The ray A on the card (fp32, kernel R1) against float64
+   on the CPU (per-view relative L2 ≤ 1e-5; also the simulated dataset,
+   ≤ 1e-6), its adjoint identity (≤ 1e-5), two Aᵀ (R2, a gather)
+   bit-identical and the time per A and Aᵀ; R1 and R2 launched by
+   ``cli simulate`` and config 1's ray CGLS, then alone: their time per
+   apply beside their bound (11.268 µs at 64³ × 90) and the plain march's,
+   and their distance from the march (≤ 1e-6; R2's against the march's
+   samples summed in float64).
 
 11. The exact-family alignment path at 64³ × 90 views. 11a: ``cli align``
    at its defaults (the ray family, SIRT 100, box LM on the exact
@@ -151,10 +154,10 @@ script exits non-zero:
    and CPU: fp32's pixel-edge flips put both ~1e-3 off; ty, zero in this
    family, printed); two forwards' difference
    (float atomics) and the times printed; ``native`` (g++) forward and
-   adjoint against the ray family in float64 on the card ≤ 1e-12 over 4
-   views. 12e: ``utils.profiling.trace`` around one CGLS iteration at
-   512³: the device busy share and the top kernels' shares of device
-   time, K2's first; K1 and K2 must show device time.
+   adjoint against the ray family's plain march in float64 on the card
+   ≤ 1e-12 over 4 views. 12e: ``utils.profiling.trace`` around one CGLS
+   iteration at 512³: the device busy share and the top kernels' shares
+   of device time, K2's first; K1 and K2 must show device time.
 13. tomojax's default slab calls at 256³ × 90 views over the full circle
    (phase 5's problem): ``slab_projector.project`` and ``backproject``
    with no ``quad`` must launch K3 and K4 once per orientation group and
@@ -242,6 +245,7 @@ from tomojax_torch.core import voxel_projector as vox
 from tomojax_torch.core.geometry import Geometry, Views
 from tomojax_torch.core.operators import make_operator
 from tomojax_torch.kernels import _build
+from tomojax_torch.kernels import ray as rayk
 from tomojax_torch.kernels import resample as rs
 from tomojax_torch.kernels import slab as slabk
 from tomojax_torch.recon.cgls import cgls_init, cgls_steps
@@ -264,6 +268,7 @@ C2_FISTA_MAX = 0.10        # config 2 (reference: 0.0788 / 0.0795)
 C1_REL_L2_MAX = 0.25       # config 1, each family (reference: slab 0.185)
 TOL_RAY = 1e-5             # ray family: per-view rel L2 vs float64, and
                            # the adjoint identity
+TOL_RAY_KERNEL = 1e-6      # R1/R2 vs the plain march's samples
 C4_REL_L2_MAX = 0.21       # config 4, outer 5 (reference: 0.193 plane,
                            # 0.180 arc)
 C4_T_MAX = 0.05            # px, gauge-corrected max |tx|, |tz| error
@@ -275,12 +280,13 @@ PLAIN_VIEWS = 8            # views per slice of the resample plain versions
 KERNEL_SOURCE = "tomojax_torch/kernels/csrc/slab_plane.cu"
 ARC_SOURCE = "tomojax_torch/kernels/csrc/slab_arc.cu"
 RESAMPLE_SOURCE = "tomojax_torch/kernels/csrc/resample.cu"
+RAY_SOURCE = "tomojax_torch/kernels/csrc/ray.cu"
 COUNTED = (slabk.slab_plane_fwd, slabk.slab_plane_adj, slabk.slab_arc_fwd,
            slabk.slab_arc_adj, slabk.slab_project_jac,
            slabk.slab_project_field, rs.resample_fwd, rs.resample_transpose,
            rs.resample_rows_raw, slabk.slab_plane_fwd_bf16,
            slabk.slab_plane_adj_bf16, slabk.slab_arc_fwd_bf16,
-           slabk.slab_arc_adj_bf16)
+           slabk.slab_arc_adj_bf16, rayk.ray_fwd, rayk.ray_adj)
 # phase 14: the bf16 tier's kernels and their fp32 counterparts per
 # quadrature: (K1b/K3b, K2b/K4b, K1/K3, K2/K4)
 BF16_KERNELS = {
@@ -1155,6 +1161,12 @@ def phase_config1(tmp, dev, n=64, n_proj=90):
               f"config 1 {fam} rel-L2 {r['recon_rel_l2_vs_phantom']} > "
               f"{C1_REL_L2_MAX}")
     launches = (slabk.slab_arc_fwd.launches, slabk.slab_arc_adj.launches)
+    ray_launches = {"fwd": rayk.ray_fwd.launches,
+                    "adj": rayk.ray_adj.launches}
+    print(f"config 1 ray kernel launches (cli simulate, config1's ray CGLS):"
+          f" R1 {ray_launches['fwd']}, R2 {ray_launches['adj']}")
+    check(min(ray_launches.values()) > 0,
+          f"config 1 did not launch R1 and R2: {ray_launches}")
     # the kernels against their plain versions at config 1's own shapes
     # (its jittered views), after the counts are read
     geom, vol_np, views = config1.problem(n, n_proj)
@@ -1191,7 +1203,7 @@ def phase_config1(tmp, dev, n=64, n_proj=90):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     y = torch.randn((n_proj, nu * nv), generator=gen, device=dev)
     aty = op.AT(y)
-    repeat = float((op.AT(y) - aty).abs().max())
+    repeat = torch.equal(op.AT(y), aty)
     lhs = torch.dot(sino.double().reshape(-1), y.double().reshape(-1))
     rhs = torch.dot(vol.double().reshape(-1), aty.double().reshape(-1))
     dot = float(abs(lhs - rhs) / (torch.linalg.norm(sino.double())
@@ -1201,13 +1213,63 @@ def phase_config1(tmp, dev, n=64, n_proj=90):
     print(f"ray A (fp32, card) vs float64 CPU: max per-view rel L2 "
           f"{rel:.3e} (tol {TOL_RAY}; CPU A {cpu_s:.2f} s)")
     print(f"ray adjoint identity |<Ax,y>-<x,ATy>|/(|Ax||y|): {dot:.3e} "
-          f"(tol {TOL_RAY}); two card AT applies differ by max abs "
-          f"{repeat:.3e} (float atomics)")
+          f"(tol {TOL_RAY}); two card AT applies bit-identical: {repeat}")
     print(f"ray A {t_A:.3f} ms, AT {t_AT:.3f} ms per apply ({n}^3, "
           f"{n_proj} views)")
     check(rel <= TOL_RAY, f"ray A vs float64: {rel}")
     check(dot <= TOL_RAY, f"ray adjoint identity {dot}")
-    return {"A": t_A, "AT": t_AT}
+    check(repeat, "two ray AT applies differ (R2 is a gather)")
+    return {"A": t_A, "AT": t_AT, "launches": ray_launches,
+            **ray_kernels(geom, views, vol, y, dev)}
+
+
+def ray_kernels(geom, views, vol, y, dev):
+    """R1 and R2 alone (the setup made beforehand; R2's map included) at
+    ``geom``'s shapes beside their bound and the plain march, and their
+    largest differences from it (R2's against the march's samples summed
+    in float64)."""
+    args = [getattr(views, f).to(dev) for f in ("phi", "alpha", "beta",
+                                                 "t", "cor")]
+    setup = rproj._ray_setup(geom, *args, torch.float32, False)
+    vol = vol.float().contiguous()
+    out = torch.zeros(geom.n_vox, device=dev)
+    before = (rayk.ray_fwd.launches, rayk.ray_adj.launches)
+    fwd = rayk.ray_fwd(vol, setup.p0, setup.d_hat, geom)
+    adj = rayk.ray_adj(y, setup.p0, setup.d_hat, *args[:3], geom,
+                       out.clone())
+    check((rayk.ray_fwd.launches, rayk.ray_adj.launches)
+          == (before[0] + 1, before[1] + 1), "R1/R2 launch counters")
+    ref = rproj._march_forward(vol, setup, geom, torch.float32)
+    ref_t = rproj._march_adjoint(y.double(), setup, geom, torch.float32,
+                                 torch.zeros(geom.n_vox, dtype=torch.float64,
+                                             device=dev))
+    shape = (geom.n_proj, *geom.det_shape)
+    fwd_rel = float(per_view_rel(fwd.double().reshape(shape),
+                                 ref.double().reshape(shape)).max())
+    adj_rel = float(torch.linalg.norm(adj.double() - ref_t)
+                    / torch.linalg.norm(ref_t))
+    ms = {"fwd": cuda_ms(lambda: rayk.ray_fwd(vol, setup.p0, setup.d_hat,
+                                              geom), 20),
+          "adj": cuda_ms(lambda: rayk.ray_adj(y, setup.p0, setup.d_hat,
+                                              *args[:3], geom, out), 20),
+          "fwd_plain": cuda_ms(lambda: rproj._march_forward(
+              vol, setup, geom, torch.float32), 3),
+          "adj_plain": cuda_ms(lambda: rproj._march_adjoint(
+              y, setup, geom, torch.float32, out), 3)}
+    nbytes = 4.0 * (geom.n_vox + geom.n_proj * geom.n_det) + 24.0 * geom.n_proj
+    flops = 2.0 * 8 * geom.n_proj * geom.n_det * geom.n_steps
+    bnd = roofline.bound(nbytes, flops)
+    print(f"R1 ray_fwd {ms['fwd']:.4f} ms, R2 ray_adj {ms['adj']:.4f} ms per "
+          f"apply ({geom.vox_shape[0]}^3, {geom.n_proj} views) against the "
+          f"bound {bnd[0] * 1e3:.3f} us ({bnd[1]}) and the plain march's "
+          f"{ms['fwd_plain']:.3f} / {ms['adj_plain']:.3f} ms; vs the march: "
+          f"R1 max per-view rel L2 {fwd_rel:.3e}, R2 rel L2 {adj_rel:.3e} "
+          f"(tol {TOL_RAY_KERNEL})")
+    check(fwd_rel <= TOL_RAY_KERNEL and adj_rel <= TOL_RAY_KERNEL,
+          f"R1/R2 vs the plain march: {fwd_rel}, {adj_rel}")
+    return {"kernels": {**ms, "bound": bnd, "fwd_abs": float(
+        (fwd - ref).abs().max()), "adj_abs": float(
+        (adj.double() - ref_t).abs().max())}}
 
 
 def synced(fn, acc, key):
@@ -1302,8 +1364,8 @@ def phase_exact_align(tmp, dev, ray_ms, n=EXACT_N, n_proj=EXACT_VIEWS,
                                                     "hook")}
     print(f"exact align wall: {wall:.2f} s ({n}^3, {n_proj} views, {outers} "
           f"outers, ray + lm): recon {tot['recon']:.2f} s, LM "
-          f"{tot['refine']:.2f} s, hook {tot['hook']:.3f} s; slab and "
-          f"resample kernel launches {launched or 0} (the ray family is "
+          f"{tot['refine']:.2f} s, hook {tot['hook']:.3f} s; kernel "
+          f"launches {launched or 0} (R1/R2 only: the ray Jacobian is "
           "plain PyTorch)")
 
     # the LM's time per step at the path's chunk (2^23 // n_vox views)
@@ -1873,20 +1935,21 @@ def phase_voxel(dev):
         args = [getattr(v64, f)[i] for f in ("phi", "alpha", "beta", "t",
                                                 "cor")]
         a_nat = native.forward_view(vol_np, g1, *(a.numpy() for a in args))
-        a_ray = rproj.forward_view(vol64_dev, g1, *(a.to(dev) for a in args),
-                                   dtype=torch.float64).cpu().numpy()
+        a_ray = rproj.forward_views_plain(
+            vol64_dev, g1, *(a.to(dev) for a in args),
+            dtype=torch.float64)[0].cpu().numpy()
         yv = y[i].double().cpu().numpy()
         b_nat = native.backproject_view(yv, g1, *(a.numpy() for a in args))
-        b_ray = rproj.backproject_view(torch.as_tensor(yv, device=dev),
-                                       g1.vox_shape, g1,
-                                       *(a.to(dev) for a in args),
-                                       dtype=torch.float64).cpu().numpy()
+        b_ray = rproj.backproject_views_plain(
+            torch.as_tensor(yv, device=dev), g1.vox_shape, g1,
+            *(a.to(dev) for a in args),
+            dtype=torch.float64).cpu().numpy()
         worst = max(worst,
                     np.linalg.norm(a_nat - a_ray) / np.linalg.norm(a_ray),
                     np.linalg.norm(b_nat - b_ray) / np.linalg.norm(b_ray))
     print(f"12d native (g++ build {build_s:.2f} s) forward and adjoint vs the "
-          f"ray family in float64 on the card over {NATIVE_VIEWS} views: max "
-          f"rel L2 {worst:.3e} (tol {TOL_NATIVE})")
+          f"ray family's plain march in float64 on the card over "
+          f"{NATIVE_VIEWS} views: max rel L2 {worst:.3e} (tol {TOL_NATIVE})")
     check(worst <= TOL_NATIVE, f"native vs ray family: {worst}")
 
 
@@ -2326,6 +2389,16 @@ def main():
          **timing(kr["raw"], kr["fwd_plain"], kr["bound_fwd"],
                   kr["fwd_lib"])},
     ]
+    # the exact ray family's kernels replace no TPU kernel (tomojax's ray
+    # family is a lax.scan); no single PyTorch call computes a ray march
+    rk = ray_ms["kernels"]
+    for kname, key in (("ray_fwd", "fwd"), ("ray_adj", "adj")):
+        kernels.append({
+            "name": kname, "route": "cuda", "source": RAY_SOURCE,
+            "replaces": "none (ROADMAP P8)",
+            "launches": ray_ms["launches"][key],
+            "max_abs_err": rk[f"{key}_abs"],
+            **timing(rk[key], rk[f"{key}_plain"], rk["bound"])})
     # the bf16 tier (phase 14): the bf16=True variants of the same two
     # Pallas kernels; K1b/K2b launched by 14b's CGLS, K3b/K4b by 14c's align
     for kname, quad, key, line, n in (

@@ -1,8 +1,8 @@
-"""The CUDA kernels K1-K5, K7 and K8 and the bf16 tier's K1b-K4b against
-their plain PyTorch versions,
+"""The CUDA kernels K1-K5, K7 and K8, the bf16 tier's K1b-K4b and the
+exact ray family's R1/R2 against their plain PyTorch versions,
 on the card, and the plain-PyTorch modules (cross-correlation, the
-regularized solvers, the exact ray family and its LM) and the CV driver on
-the card against the CPU.
+regularized solvers, the exact ray family's Jacobian and its LM) and the
+CV driver on the card against the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 no JAX, so on the card it runs without the JAX conftest:
@@ -35,6 +35,7 @@ from tomojax_torch.core import slab_projector as sp
 from tomojax_torch.core.geometry import Geometry, Views
 from tomojax_torch.core.operators import make_operator
 from tomojax_torch.kernels import _build
+from tomojax_torch.kernels import ray as rp_kernels
 from tomojax_torch.kernels import resample as rs
 from tomojax_torch.kernels import slab as slabk
 from tomojax_torch.recon import cgls, fista_tv, lasso_fista, tikhonov_gd
@@ -1211,6 +1212,106 @@ def test_ray_operator_on_card_tracks_cpu_float64(cuda):
     assert float(abs(lhs - rhs) / scale) <= 1e-5
 
 
+def _ray_case(device, case):
+    """``(geom, views (phi, alpha, beta, t, cor), vol, y, rays)`` on the
+    card. ``cell``: c1.flagship's shape, 64³ × 90 views of 64² over [0, π]
+    with ``cli simulate``'s jitter (tx, tz ±2 px, α, β ±1°). ``odd``: a
+    non-cubic volume, a non-square detector wider than it (rays that miss
+    the volume), step 0.7, shifts ±6 px. ``block``: one view of ``odd``'s
+    geometry at step 1.3, over a block of detector rays."""
+    rng = np.random.default_rng({"cell": 0, "odd": 1, "block": 2}[case])
+    if case == "cell":
+        n_proj, shift = 90, 2.0
+        geom = Geometry(n_proj=n_proj, vox_shape=(64,) * 3,
+                        det_shape=(64, 64))
+        phi = np.linspace(0.0, np.pi, n_proj)
+        vol = phantom.shepp3d(64)
+        rays = slice(None)
+    else:
+        n_proj, shift = (7, 6.0) if case == "odd" else (1, 3.0)
+        geom = Geometry(n_proj=n_proj, vox_shape=(33, 40, 27),
+                        det_shape=(45, 31),
+                        step_size=0.7 if case == "odd" else 1.3)
+        phi = rng.uniform(0.0, 2 * np.pi, n_proj)
+        vol = rng.random(geom.vox_shape, np.float32)
+        rays = slice(None) if case == "odd" else slice(200, 1100)
+    amax = np.deg2rad(1.0)
+    t = np.zeros((n_proj, 3))
+    t[:, [0, 2]] = rng.uniform(-shift, shift, (n_proj, 2))
+    views = tuple(torch.as_tensor(a, dtype=torch.float32, device=device)
+                  for a in (phi, rng.uniform(-amax, amax, n_proj),
+                            rng.uniform(-amax, amax, n_proj), t,
+                            np.zeros((n_proj, 3))))
+    _, R = rp_kernels.ray_block(geom, rays)
+    y = torch.as_tensor(rng.standard_normal((n_proj, R)),
+                        dtype=torch.float32, device=device)
+    return geom, views, torch.as_tensor(vol, device=device), y, rays
+
+
+@pytest.mark.parametrize("case", ["cell", "odd", "block"])
+def test_ray_kernels_match_plain_repeat_and_transpose(cuda, case):
+    """R1 and R2 against the plain march on the card, in float32: A per
+    view and Aᵀ within 1e-6 relative L2 (R2 against the march's float32
+    samples and weights summed in float64: the march's own float atomics
+    sit near 1e-6), the adjoint identity within 1e-6, two R2 applies
+    bit-identical (a gather, no atomics), R2's map its plain version's
+    (``gather_map``), float64 refused."""
+    from tomojax_torch.core import projector as rproj
+    geom, views, vol, y, rays = _ray_case(cuda, case)
+    before = (rp_kernels.ray_fwd.launches, rp_kernels.ray_adj.launches)
+    ax = rproj.forward_views(vol, geom, *views, rays=rays)
+    aty = rproj.backproject_views(y, geom.vox_shape, geom, *views,
+                                  rays=rays)
+    assert (rp_kernels.ray_fwd.launches, rp_kernels.ray_adj.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = rproj.forward_views_plain(vol, geom, *views, rays=rays)
+    setup = rproj._ray_setup(geom, *views, torch.float32, False, rays)
+    ref_t = rproj._march_adjoint(
+        y.double(), setup, geom, torch.float32,
+        torch.zeros(geom.n_vox, dtype=torch.float64, device=cuda))
+    rel_a = (torch.linalg.norm(ax.double() - ref.double(), dim=1)
+             / torch.linalg.norm(ref.double(), dim=1))
+    assert float(rel_a.max()) <= 1e-6, rel_a.max()
+    rel_t = float(torch.linalg.norm(aty.double().reshape(-1) - ref_t)
+                  / torch.linalg.norm(ref_t))
+    assert rel_t <= 1e-6, rel_t
+    lhs = torch.dot(ax.double().reshape(-1), y.double().reshape(-1))
+    rhs = torch.dot(vol.double().reshape(-1), aty.double().reshape(-1))
+    scale = torch.linalg.norm(ax.double()) * torch.linalg.norm(y.double())
+    assert float(abs(lhs - rhs) / scale) <= 1e-6
+    again = rproj.backproject_views(y, geom.vox_shape, geom, *views,
+                                    rays=rays)
+    assert torch.equal(again, aty)
+    gmap = rp_kernels._adj_launch(y, setup.p0, setup.d_hat, *views[:3], geom,
+                                  torch.zeros(geom.n_vox, device=cuda), rays)
+    want = rp_kernels.gather_map(setup.p0, setup.d_hat, *views[:3], geom,
+                                 rays)
+    assert torch.allclose(gmap, want, rtol=1e-6, atol=1e-6), (
+        (gmap - want).abs().max())
+    with pytest.raises(TypeError, match="float32"):
+        rproj.forward_views(vol.double(), geom, *views, rays=rays,
+                            dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        rproj.backproject_views(y.double(), geom.vox_shape, geom, *views,
+                                rays=rays, dtype=torch.float64)
+
+
+def test_sirt_on_the_ray_operator_launches_the_kernels(cuda):
+    """A short SIRT through ``make_operator`` on the card launches R1 and
+    R2 once for each apply: the two sums, then one of each an
+    iteration."""
+    from tomojax_torch.recon import sirt
+    geom, views, vol, _ = _problem(n=32, n_proj=12)
+    op = make_operator(geom, views, device=cuda)
+    assert op.family == "ray"
+    b = op.A(torch.as_tensor(vol, device=cuda))
+    before = (rp_kernels.ray_fwd.launches, rp_kernels.ray_adj.launches)
+    res = sirt(op, b, niter=4, positivity=True)
+    after = (rp_kernels.ray_fwd.launches, rp_kernels.ray_adj.launches)
+    assert res.n_iter >= 1
+    assert after == (before[0] + 1 + res.n_iter, before[1] + 1 + res.n_iter)
+
+
 def _exact_problem(n=32, n_proj=12, seed=0):
     """Noise-free ray-family data of jittered views over [0.2, π + 0.2),
     float64, and starts ±0.3 px off with zero tilts."""
@@ -1308,7 +1409,8 @@ def nccl_world_of_one(cuda, tmp_path):
 
 def test_sharded_operators_in_a_nccl_world_of_one(nccl_world_of_one):
     """Over NCCL in a world of one: the angle-sharded slab_plane and ray
-    operators equal the unsharded ones to the bit; the volume-sharded slab
+    operators equal the unsharded ones to the bit (the ray Aᵀ is R2's
+    gather, with no atomics); the volume-sharded slab
     (plane and arc) and voxel operators agree within 1e-5."""
     from tomojax_torch.dist import (make_mesh, make_sharded_operator,
                                     make_volume_sharded_operator,
@@ -1330,10 +1432,7 @@ def test_sharded_operators_in_a_nccl_world_of_one(nccl_world_of_one):
         ops = make_sharded_operator(geom, views, mesh, family=fam,
                                     device=cuda)
         assert torch.equal(ops.A(x), op.A(x))
-        if fam == "slab_plane":   # the ray Aᵀ adds with float atomics
-            assert torch.equal(ops.AT(y), op.AT(y))
-        else:
-            assert rel(ops.AT(y), op.AT(y)) <= 1e-5
+        assert torch.equal(ops.AT(y), op.AT(y))
     for quad, fam in (("plane", "slab_plane"), ("arc", "slab")):
         op = make_operator(geom, views, family=fam, device=cuda)
         ops = make_volume_sharded_slab_operator(geom, views, mesh, quad=quad,

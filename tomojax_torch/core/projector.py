@@ -22,8 +22,14 @@ blocks, so a block's samples go through one gather (or one
 volume. Sums are taken in another order than tomojax's, which agrees to
 float64 rounding.
 
-On a CUDA tensor ``index_add_`` accumulates with float atomics, so two
-backprojections may differ in their last bits.
+On a CUDA tensor :func:`forward_views` and :func:`backproject_views` launch
+the hand-written kernels R1 and R2 (``tomojax_torch.kernels.ray``: one
+thread per ray, and a gather over voxels with no atomics, so two
+backprojections give the same bits), in float32 only: the plain march
+(:func:`forward_views_plain`, :func:`backproject_views_plain`) is their
+CPU path and the card tests' yardstick. The kernels take the setup's
+``p0`` and ``d̂`` and round each sample as the march does, so they read
+the same samples, corners and weights.
 
 The batched entries record the spans ``ray.A``, ``ray.AT`` and
 ``ray.jac`` (timed on the card's clock too), count their views
@@ -40,6 +46,7 @@ import torch
 from tomojax_torch.core.geometry import Geometry, Views
 from tomojax_torch.core.rotations import (der_rot_x, der_rot_y, der_rot_z,
                                           rot_x, rot_y, rot_z)
+from tomojax_torch.kernels import ray as rayk
 from tomojax_torch.utils import profiling
 
 # Samples (views × rays × steps) per block of the march: bounds the
@@ -185,23 +192,48 @@ def _as_views(phi, alpha, beta, t, cor):
             torch.as_tensor(cor).reshape(-1, 3))
 
 
+def _march_forward(vol, setup: _RaySetup, geom: Geometry, dtype):
+    vol_flat = vol.reshape(-1).to(dtype)
+    acc = torch.zeros(setup.p0.shape[0], setup.p0.shape[2], dtype=dtype,
+                      device=vol.device)
+    for _, p in _step_blocks(setup, geom, dtype):
+        idx, w, _, _ = _corner_indices_weights(p, geom.vox_shape)
+        acc += (w * torch.take(vol_flat, idx)).sum(0).sum(-1)
+    return acc
+
+
+def _march_adjoint(y, setup: _RaySetup, geom: Geometry, dtype, out):
+    for _, p in _step_blocks(setup, geom, dtype):
+        idx, w, _, _ = _corner_indices_weights(p, geom.vox_shape)
+        out.index_add_(0, idx.reshape(-1),
+                       (w * y[None, :, :, None]).reshape(-1))
+    return out
+
+
 def forward_views(vol, geom: Geometry, phi, alpha, beta, t, cor, *,
                   dtype=torch.float32, rays: slice = slice(None)):
     """Forward-project V views at once → ``(V, n_det)`` (or the block
     ``rays`` of the detector); angles (V,), ``t`` and ``cor`` (V, 3), all
-    on ``vol``'s device."""
+    on ``vol``'s device. On the card the kernel R1 (float32 only)."""
     phi, alpha, beta, t, cor = _as_views(phi, alpha, beta, t, cor)
     with profiling.span("ray.A", vol.device):
         profiling.count("ray.A.views", phi.shape[0])
         setup = _ray_setup(geom, phi, alpha, beta, t, cor, dtype, False,
                            rays)
-        vol_flat = vol.reshape(-1).to(dtype)
-        acc = torch.zeros(setup.p0.shape[0], setup.p0.shape[2], dtype=dtype,
-                          device=vol.device)
-        for _, p in _step_blocks(setup, geom, dtype):
-            idx, w, _, _ = _corner_indices_weights(p, geom.vox_shape)
-            acc += (w * torch.take(vol_flat, idx)).sum(0).sum(-1)
-    return acc
+        if vol.device.type == "cuda":
+            return rayk.ray_fwd(vol.reshape(geom.vox_shape).to(dtype)
+                                .contiguous(), setup.p0, setup.d_hat, geom,
+                                rays)
+        return _march_forward(vol, setup, geom, dtype)
+
+
+def forward_views_plain(vol, geom: Geometry, phi, alpha, beta, t, cor, *,
+                        dtype=torch.float32, rays: slice = slice(None)):
+    """:func:`forward_views` by the plain march, on any device and in any
+    dtype: its CPU path, and R1's yardstick on the card."""
+    phi, alpha, beta, t, cor = _as_views(phi, alpha, beta, t, cor)
+    setup = _ray_setup(geom, phi, alpha, beta, t, cor, dtype, False, rays)
+    return _march_forward(vol, setup, geom, dtype)
 
 
 def backproject_views(det_img, vol_shape, geom: Geometry, phi, alpha, beta,
@@ -209,7 +241,8 @@ def backproject_views(det_img, vol_shape, geom: Geometry, phi, alpha, beta,
                       rays: slice = slice(None)):
     """Adjoint of :func:`forward_views`, summed over the V views: ``Σ_v
     P(θ_v)ᵀ y_v`` → ``vol_shape`` (added into the flat ``out`` if given;
-    ``det_img`` holds the block ``rays`` of each view)."""
+    ``det_img`` holds the block ``rays`` of each view). On the card the
+    kernel R2 (float32 only)."""
     phi, alpha, beta, t, cor = _as_views(phi, alpha, beta, t, cor)
     with profiling.span("ray.AT", det_img.device):
         profiling.count("ray.AT.views", phi.shape[0])
@@ -219,11 +252,26 @@ def backproject_views(det_img, vol_shape, geom: Geometry, phi, alpha, beta,
         n_vox = vol_shape[0] * vol_shape[1] * vol_shape[2]
         if out is None:
             out = torch.zeros(n_vox, dtype=dtype, device=y.device)
-        for _, p in _step_blocks(setup, geom, dtype):
-            idx, w, _, _ = _corner_indices_weights(p, geom.vox_shape)
-            out.index_add_(0, idx.reshape(-1),
-                           (w * y[None, :, :, None]).reshape(-1))
+        if y.device.type == "cuda":
+            rayk.ray_adj(y.contiguous(), setup.p0, setup.d_hat, phi, alpha,
+                         beta, geom, out, rays)
+        else:
+            _march_adjoint(y, setup, geom, dtype, out)
     return out.reshape(vol_shape)
+
+
+def backproject_views_plain(det_img, vol_shape, geom: Geometry, phi, alpha,
+                            beta, t, cor, *, dtype=torch.float32,
+                            rays: slice = slice(None)):
+    """:func:`backproject_views` by the plain march (``index_add_``; float
+    atomics on the card), on any device and in any dtype: its CPU path,
+    and R2's yardstick on the card."""
+    phi, alpha, beta, t, cor = _as_views(phi, alpha, beta, t, cor)
+    setup = _ray_setup(geom, phi, alpha, beta, t, cor, dtype, False, rays)
+    y = det_img.reshape(setup.p0.shape[0], -1).to(dtype)
+    out = torch.zeros(vol_shape[0] * vol_shape[1] * vol_shape[2],
+                      dtype=dtype, device=y.device)
+    return _march_adjoint(y, setup, geom, dtype, out).reshape(vol_shape)
 
 
 def forward_views_jac(vol, geom: Geometry, phi, alpha, beta, t, cor, *,

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "slab_plane.cu", CSRC / "slab_arc.cu",
-           CSRC / "resample.cu")
+           CSRC / "resample.cu", CSRC / "ray.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -49,6 +49,17 @@ _RESAMPLE_T = [_P, _P, _P, _P, *[_I] * 5, *[_L] * 11, _P]
 # int fn(const float* a, float* q_rcp, float* q_div, int n, float edy,
 #        cudaStream_t): the march's division against __fdiv_rn (a test hook)
 _DIV_CHECK = [_P, _P, _P, _I, ctypes.c_float, _P]
+# int ray_fwd(const float* vol, const float* p0, const float* d_hat,
+#             float* out, int V, int R, int nx, int ny, int nz, int n_steps,
+#             float step, cudaStream_t);
+# int ray_adj(const float* y, const float* p0, const float* d_hat,
+#             const float* phi, const float* alpha, const float* beta,
+#             float* map, float* out, int V, int R, int nu, int nv,
+#             int r_off, int nx, int ny, int nz, int n_steps, float step,
+#             double du, double dv, cudaStream_t)
+_RAY_FWD = [_P, _P, _P, _P, *[_I] * 6, ctypes.c_float, _P]
+_RAY_ADJ = [*[_P] * 8, *[_I] * 9, ctypes.c_float, ctypes.c_double,
+            ctypes.c_double, _P]
 _SIGNATURES = {
     "slab_plane_fwd": _PLANE,
     "slab_plane_adj": _PLANE,
@@ -62,6 +73,8 @@ _SIGNATURES = {
     "slab_arc_div_check": _DIV_CHECK,
     "resample_fwd": _RESAMPLE_FWD,
     "resample_transpose": _RESAMPLE_T,
+    "ray_fwd": _RAY_FWD,
+    "ray_adj": _RAY_ADJ,
 }
 
 

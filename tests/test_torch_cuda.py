@@ -925,15 +925,28 @@ def test_bf16_forwards_match_plain_and_repeat(cuda, quad, case):
         assert 1e-6 <= r <= 3e-3, r
 
 
-# SHA-256 of the fp32 kernels' outputs on _problem(48)'s orientation groups
-# (the adjoints on seeded cotangents) on an NVIDIA H100 80GB HBM3: K1 and
-# K3-K5 from c0ab30d's build (the bf16 tier's kernels of their own leave
-# them as they were), K2 from its gather schedule's build (the same matrix
-# entries as the owner sweeps before it, summed in another order).
-FP32_ENTRIES = (("slab_plane_fwd", "plane"), ("slab_plane_adj", "plane"),
-                ("slab_arc_fwd", "arc"), ("slab_arc_adj", "arc"),
-                ("slab_arc_jac", "arc"))
-FP32_DIGESTS = {
+# SHA-256 of each kernel's outputs on an NVIDIA H100 80GB HBM3. The slab
+# kernels on _problem(48)'s orientation groups (the adjoints on seeded
+# cotangents): K1 and K3-K5 from c0ab30d's build (the bf16 tier's kernels
+# of their own leave them as they were), K2 from its gather schedule's
+# build (the same matrix entries as the owner sweeps before it, summed in
+# another order), K1b-K4b from c702356's build. K7 and K8 on
+# _resample_case, R1 and R2 (its output and its map) on _ray_case("odd"),
+# from c702356's build.
+# Every entry gives the same bits on every apply (no atomics; K4's and
+# K4b's two sides are added in a fixed order).
+SLAB_ENTRIES = {
+    "slab_plane_fwd": (slabk.slab_plane_fwd, "plane"),
+    "slab_plane_adj": (slabk.slab_plane_adj, "plane"),
+    "slab_arc_fwd": (slabk.slab_arc_fwd, "arc"),
+    "slab_arc_adj": (slabk.slab_arc_adj, "arc"),
+    "slab_arc_jac": (slabk.slab_project_jac, "arc"),
+    "slab_plane_fwd_bf16": (slabk.slab_plane_fwd_bf16, "plane"),
+    "slab_plane_adj_bf16": (slabk.slab_plane_adj_bf16, "plane"),
+    "slab_arc_fwd_bf16": (slabk.slab_arc_fwd_bf16, "arc"),
+    "slab_arc_adj_bf16": (slabk.slab_arc_adj_bf16, "arc"),
+}
+DIGESTS = {
     "slab_plane_fwd":
         "0c51a2f4d986e405472350803eb83b498f54bce573e47ddc4375458605d14cf7",
     "slab_plane_adj":
@@ -944,37 +957,67 @@ FP32_DIGESTS = {
         "f2d8e89d91adb65ac1980bf9f10cfebc8e49fda21047b8425436c1ec24e22f3e",
     "slab_arc_jac":
         "049049102df4df93d287167b27e0218e40fca45c520ed7f6f6508993911ae7c4",
+    "slab_plane_fwd_bf16":
+        "95ab780aa9302cc9139e9efef0af7579d5c07248b4404841dec0387f75fbe324",
+    "slab_plane_adj_bf16":
+        "d05ad4558fcd8be7fbe83a708aee7e34e600881f253ee2278fc0aefc86e52501",
+    "slab_arc_fwd_bf16":
+        "09e0599e15e4e577bc3c2d8091ed91927270081c3b82bd7ea4a109f5299fc279",
+    "slab_arc_adj_bf16":
+        "9088266a7c018a64236f03577ce3ea41adfe1936ac7cb27373cf80bc35b46e9a",
+    "resample_fwd":
+        "25957d0d28ea6bff8a4631588531ffce938f28db7c05271b6060fdab0bb5a0f1",
+    "resample_transpose":
+        "8d58db298bd2018063800566dbc1d39897c7aded01aaf3aed134be25a86d4480",
+    "ray_fwd":
+        "b27e10cb7e4f45e61f551b2066ee0b6af984f317602a8c1c6fa418ddca7f101a",
+    "ray_adj":
+        "1c9ed344aef86a9fd44a097457d000abb54ae2a40f2ee66840c41bda14d9d1ae",
 }
 
 
-def _fp32_digests(run, device):
-    """Each fp32 entry's SHA-256 over _problem(48)'s groups; ``run(entry,
-    geom, inp, scalars)`` → the entry's output."""
+def _sha(*outs):
+    h = hashlib.sha256()
+    for out in outs:
+        h.update(out.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _digests(device):
+    """Each entry of DIGESTS: the SHA-256 of its outputs on its case."""
+    from tomojax_torch.core import projector as rproj
     geom, views, vol, _ = _problem(n=48)
     out = {}
-    for entry, quad in FP32_ENTRIES:
-        h = hashlib.sha256()
+    for entry, (fn, quad) in SLAB_ENTRIES.items():
         gen = np.random.default_rng(21)
+        outs = []
         for vol_or, sc in _groups(geom, views, vol, device, quad):
             inp = vol_or
             if "_adj" in entry:
                 inp = torch.as_tensor(gen.standard_normal(
                     (sc.shape[0],) + geom.det_shape), dtype=torch.float32,
                     device=device)
-            h.update(run(entry, geom, inp, sc).cpu().numpy().tobytes())
-        out[entry] = h.hexdigest()
+            outs.append(fn(inp, sc, geom))
+        out[entry] = _sha(*outs)
+    rows, off, slope, g = _resample_case(device)
+    out["resample_fwd"] = _sha(rs.resample_fwd(rows, off, slope, 130))
+    out["resample_transpose"] = _sha(rs.resample_transpose(g, off, slope,
+                                                           96))
+    geom, rviews, vol, y, rays = _ray_case(device, "odd")
+    setup = rproj._ray_setup(geom, *rviews, torch.float32, False, rays)
+    out["ray_fwd"] = _sha(rp_kernels.ray_fwd(vol, setup.p0, setup.d_hat,
+                                             geom, rays))
+    aty = torch.zeros(geom.n_vox, device=device)
+    gmap = rp_kernels._adj_launch(y, setup.p0, setup.d_hat, *rviews[:3],
+                                  geom, aty, rays)
+    out["ray_adj"] = _sha(aty, gmap)
     return out
 
 
 def test_fp32_kernels_keep_their_bits(cuda):
-    """K1-K5 through their wrappers give the recorded builds' bits."""
-    fns = {"slab_plane_fwd": slabk.slab_plane_fwd,
-           "slab_plane_adj": slabk.slab_plane_adj,
-           "slab_arc_fwd": slabk.slab_arc_fwd,
-           "slab_arc_adj": slabk.slab_arc_adj,
-           "slab_arc_jac": slabk.slab_project_jac}
-    got = _fp32_digests(lambda e, geom, inp, sc: fns[e](inp, sc, geom), cuda)
-    assert got == FP32_DIGESTS
+    """K1-K5, the bf16 tier's K1b-K4b, K7, K8, R1 and R2 (its map too)
+    give the recorded builds' bits."""
+    assert _digests(cuda) == DIGESTS
 
 
 def test_bf16_wrappers_raise_on_bad_input(cuda):

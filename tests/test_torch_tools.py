@@ -8,9 +8,9 @@ import torch
 
 from tomojax_torch import align as ta
 from tomojax_torch.align import pipeline as tp
+from tomojax_torch.kernels import _build
 from tomojax_torch.tools import (adj_split, config1, config2, config3,
-                                 config4_floor, config4_profile, k1_split,
-                                 trace_cost)
+                                 config4_floor, config4_profile, trace_cost)
 
 torch.set_num_threads(1)
 
@@ -72,37 +72,33 @@ def test_config4_floor_prints_both_families(capsys):
         assert len(rel) == 2 and rel[1] <= rel[0] < 1.0
 
 
-def test_k1_split_variants_apply_to_the_kernel_source():
-    """Each of tools/k1_split's variants matches its text in slab_plane.cu
-    exactly once and changes it (the tool itself needs the card)."""
-    src = k1_split.SOURCE.read_text()
-    for name in k1_split.VARIANTS:
-        out = k1_split.variant_source(name)
-        assert out != src, name
-        assert "fwd_kernel" in out
-
-
 @pytest.mark.parametrize("kernel", sorted(adj_split.KERNELS))
 def test_adj_split_variants_apply_to_the_kernel_source(kernel):
-    """Each of tools/adj_split's variants of K2 and the bf16 kernels
-    (K1b-K4b) matches its text in the source exactly once and changes it;
-    the occupancy entry the tool appends names the kernel that the source
-    defines (the tool itself needs the card)."""
+    """Each of tools/adj_split's variants of K1, K2 and the bf16 kernels
+    (K1b-K4b) matches its text in the source or a header it includes
+    exactly once and changes it; the occupancy entry the tool appends to
+    the source names the kernel that the source defines (the tool itself
+    needs the card)."""
     k = adj_split.KERNELS[kernel]
-    src = k["source"].read_text()
-    assert f"{k['kernel']}(" in src and f"int {k['smem']} =" in src
-    for name in k["variants"]:
-        out = adj_split.variant_source(kernel, name)
-        assert out != src, name
-        assert k["kernel"] in out
-    assert "adj_split_occupancy" in adj_split.with_occupancy(k, src)
+    name = k["source"].name
+    texts = _build.texts(k["source"])
+    assert f"{k['kernel']}(" in texts[name]
+    assert f"int {k['smem']} =" in texts[name]
+    for v in k["variants"]:
+        out = adj_split.variant_source(kernel, v)
+        assert out.keys() == texts.keys() and out != texts, v
+        assert k["kernel"] in out[name]
+    out = adj_split.with_occupancy(k, texts)
+    assert "adj_split_occupancy" in out[name]
+    assert {f: t for f, t in out.items() if f != name} == {
+        f: t for f, t in texts.items() if f != name}
 
 
 def test_adj_split_counting_build_applies():
     """tools/adj_split's counting build: each of its edits matches
     slab_plane.cu exactly once, one counter per (kernel, step kind), and
     the entry that reads them is appended."""
-    out = adj_split.count_source()
+    out = adj_split.count_source()[adj_split.PLANE.name]
     assert out.count("atomicAdd(&split_steps[") == 2
     assert "split_steps[6]" in out
     assert 'extern "C" int split_step_counts(' in out

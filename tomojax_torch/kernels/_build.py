@@ -1,13 +1,17 @@
 """Build ``csrc/*.cu`` with nvcc into a shared library and load it (ctypes).
 
-The library has a plain C interface, so it builds in seconds (no PyTorch
-headers); each source compiles in its own nvcc process, all started
-together, so the build takes as long as its slowest source, and one more
-nvcc links them. It goes into ``build/kernels/`` at the repository root
-(listed in ``.gitignore``), named by a hash of the sources and flags, so
-an edited source is rebuilt and never loaded stale. nvcc is
-``$CUDA_HOME/bin/nvcc``, else ``/usr/local/cuda/bin/nvcc``, else the one
-on ``PATH``.
+The one module that knows how ``csrc/`` is compiled: the kernel library
+here, and the tools' builds of other texts (``tools/adj_split``,
+``tools/fmad_check``) through :func:`compile_libraries`. The library has a
+plain C interface, so it builds in seconds (no PyTorch headers); each
+source compiles in its own nvcc process, all started together, so the
+build takes as long as its slowest source, and one more nvcc links them.
+Every compile gets ``-I csrc/`` for the headers the sources include
+(``common.cuh``). The library goes into ``build/kernels/`` at the
+repository root (listed in ``.gitignore``), named by a hash of the flags,
+the sources and the headers they include, so an edited source or header is
+rebuilt and never loaded stale. nvcc is ``$CUDA_HOME/bin/nvcc``, else
+``/usr/local/cuda/bin/nvcc``, else the one on ``PATH``.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -24,6 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "slab_plane.cu", CSRC / "slab_arc.cu",
            CSRC / "resample.cu", CSRC / "ray.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+_INCLUDE = re.compile(r'^#include "([^"]+)"', re.M)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -90,26 +96,76 @@ def _nvcc() -> str:
     return found
 
 
+def files(*sources: Path) -> list[Path]:
+    """The sources and every header they include with quotes (found beside
+    the source that includes it), each once."""
+    out, todo = [], list(sources)
+    while todo:
+        f = todo.pop(0)
+        if f not in out:
+            out.append(f)
+            todo += [f.parent / name
+                     for name in _INCLUDE.findall(f.read_text())]
+    return out
+
+
+def texts(*sources: Path) -> dict[str, str]:
+    """``{file name: text}`` of :func:`files`."""
+    return {f.name: f.read_text() for f in files(*sources)}
+
+
 def library_path() -> Path:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        h.update(src.read_bytes())
+    for f in files(*SOURCES):
+        h.update(f.read_bytes())
     return BUILD_DIR / f"libtomojax_torch_{h.hexdigest()[:16]}.so"
 
 
-def _run(cmds):
-    """Run the commands in parallel; raise with the output of any that
-    failed."""
+def _run(cmds) -> list[str]:
+    """Run the commands in parallel → the output of each; raise with the
+    output of any that failed."""
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True))
              for cmd in cmds]
-    failed = []
+    outs, failed = [], []
     for cmd, proc in procs:
         out, _ = proc.communicate()
+        outs.append(out)
         if proc.returncode != 0:
             failed.append(f"{' '.join(cmd)}\n{out}")
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return outs
+
+
+def compile_libraries(libs: dict[str, dict[str, str]], out_dir: Path,
+                      extra=(), csrc: Path = CSRC) -> dict[str, str]:
+    """Build each library ``libs[name]``, given as ``{file name: text}``,
+    into ``out_dir/<name>.so``: the texts are written to ``out_dir/<name>/``
+    (a header among them is found there before ``csrc``'s), and each
+    ``.cu`` text compiles with ``NVCC_FLAGS``, ``extra`` and ``-I csrc`` in
+    its own nvcc process, all libraries' at once, then one nvcc a library
+    links. Returns each library's compiler output."""
+    nvcc = _nvcc()
+    compiles, links = [], []
+    for name, srcs in libs.items():
+        d = out_dir / name
+        d.mkdir(parents=True, exist_ok=True)
+        objs = []
+        for fname, text in srcs.items():
+            (d / fname).write_text(text)
+            if fname.endswith(".cu"):
+                objs.append(d / f"{fname[:-3]}.o")
+                compiles.append((name, [
+                    nvcc, *NVCC_FLAGS, *extra, "-I", str(csrc), "-c", "-o",
+                    str(objs[-1]), str(d / fname)]))
+        links.append([nvcc, *NVCC_FLAGS, *extra, "-shared", "-o",
+                      str(out_dir / f"{name}.so"), *map(str, objs)])
+    outs = dict.fromkeys(libs, "")
+    for (name, _), out in zip(compiles, _run([c for _, c in compiles])):
+        outs[name] += out
+    _run(links)
+    return outs
 
 
 def build() -> Path:
@@ -118,29 +174,27 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{out.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
-    tmp = BUILD_DIR / f"{tag}.tmp"
-    nvcc = _nvcc()
+    tmp = BUILD_DIR / f"{out.stem}.{os.getpid()}"
     try:
-        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-              for src, obj in zip(SOURCES, objs)])
-        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
-               *map(str, objs)]])
-        os.replace(tmp, out)
+        compile_libraries({"lib": texts(*SOURCES)}, tmp)
+        os.replace(tmp / "lib.so", out)
     finally:
-        for f in (*objs, tmp):
-            f.unlink(missing_ok=True)
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+def load_library(path: Path) -> ctypes.CDLL:
+    """Load a built library and declare the signature of each entry point
+    it exports."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
-    """Build if needed, load, and declare each entry point's signature."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    """Build if needed and load the kernel library."""
+    return load_library(build())

@@ -78,6 +78,8 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -136,27 +138,6 @@ __device__ __forceinline__ float lerp_at(const float* src, float o, float s,
                        ? src[static_cast<int>(kf) + 1]
                        : 0.0f;
   return __fadd_rn(__fmul_rn(__fsub_rn(1.0f, t), v0), __fmul_rn(t, v1));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // K7's operands and tiling. Strides are in elements; row (a1, a2) of view

@@ -151,6 +151,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 // Values of a staged type per 16-byte copy.
@@ -159,11 +161,6 @@ __host__ __device__ constexpr int per16() {
   return 16 / static_cast<int>(sizeof(TS));
 }
 
-// Per-view scalar layout: tomojax_torch/core/slab_projector.py S_*.
-constexpr int NS = 21;
-constexpr int S_EDY = 0, S_EDX = 1, S_EDZ = 2, S_RX = 3, S_RZ = 4,
-              S_EUX = 5, S_EVX = 6, S_EVZ = 7, S_CXB = 8, S_CZB = 9,
-              S_GZX = 10, S_B1 = 11, S_EUY = 12, S_EVY = 13;
 // Jacobian building blocks, tomojax_torch/core/slab_projector.JAC_PASSES.
 constexpr int NJP = 12;
 
@@ -379,22 +376,6 @@ template <bool kJac>
 constexpr int fwd_smem() {
   return 4 * (kRing * kSX * ArcStage<float>::kSZ + tab_width<kJac>() * kTab) +
          kChunk * (2 * sizeof(short4) + sizeof(unsigned));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -1111,19 +1092,6 @@ static_assert(kBRows * kBVC <= kAdjThreads, "a pass-B thread per row part");
 constexpr int kBSmem = 4 * 2 * kTX * kBP + 4 * kBMaxBranch * kTX * kBP;
 static_assert(8 * kTX * kAP <= kBSmem, "the output staging fits");
 
-// The lerp weight that position pos gives tap k: 1 - |pos - k| where
-// positive (1 - w for k = floor(pos), w for k + 1: taps_of's and the
-// plain version's weights), else 0.
-__device__ __forceinline__ float hat(float pos, float k) {
-  return fmaxf(0.0f, 1.0f - fabsf(pos - k));
-}
-
-// i as a float, for |i| < 2^22: 1.5 * 2^23 + i in the mantissa, less
-// 1.5 * 2^23 (I2F issues at a quarter of the FMA rate).
-__device__ __forceinline__ float int_to_float(int i) {
-  return __int_as_float(0x4B400000 + i) - 12582912.0f;
-}
-
 // ceil(x) for |x| < 2^22: x + 1.5 * 2^23 rounded up, less 1.5 * 2^23 (two
 // adds: FRND issues at a quarter of the FMA rate). It equals ceilf(x) but
 // for the sign of a zero, which no use of the march index sees (it enters
@@ -1149,13 +1117,6 @@ __device__ __forceinline__ Sample sample_of(const Arc& p, float jb,
 // floor(q) + 1 for |q| < 2^22 (an add rounded down: no FRND or F2I).
 __device__ __forceinline__ int floor_plus_one(float q) {
   return __float_as_int(__fadd_rd(q, 12582912.0f)) - 0x4B400000 + 1;
-}
-
-// The most integers that an open interval of width w can hold, at least
-// one and at most cap (NaN: cap).
-__device__ __forceinline__ int candidates(float w, int cap) {
-  const float c = fminf(ceilf(w), static_cast<float>(cap));
-  return max(1, static_cast<int>(c));
 }
 
 // Pass B of one entry (x, v) for the branches b0 .. b0 + nbr - 1: over kC
@@ -1437,37 +1398,11 @@ constexpr int kArcHSmem =
               static_cast<int>(sizeof(unsigned)));
 static_assert(4 * (kArcHSmem + 1024) <= 228 * 1024, "4 K3b CTAs an SM");
 
-// A table's word at a 32-bit shared address (its floor bias folded in).
-__device__ __forceinline__ unsigned lds_u32(unsigned a) {
-  unsigned v;
-  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(a));
-  return v;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// The bias that the floor's sum carries: element floor(q) of an array at
-// byte a with byte stride t lies at a - kFloorBias * t + bits(q + 1.5 *
-// 2^23 rounded down) * t, modulo 2^32.
-constexpr unsigned kFloorBias = 0x4B400000u;
-
 // A value the compiler must take as unknown (a constant folded into an
 // address would be split again, the load offsets being 24-bit).
 __device__ __forceinline__ unsigned opaque(unsigned x) {
   asm("" : "+r"(x));
   return x;
-}
-
-// bf16 bits (low half) widened to fp32 by a shift; a pair word's halves by
-// a shift and a mask (no conversion instruction).
-__device__ __forceinline__ float widen_lo(unsigned b) {
-  return __uint_as_float(b << 16);
-}
-
-__device__ __forceinline__ float widen_hi(unsigned b) {
-  return __uint_as_float(b & 0xFFFF0000u);
 }
 
 // (lo, hi) rounded to bf16 (nearest even) by one cvt.rn.bf16x2.f32.

@@ -138,12 +138,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-namespace {
+#include "common.cuh"
 
-// Per-view scalar layout: tomojax_torch/core/slab_projector.py S_*.
-constexpr int NS = 21;
-constexpr int S_RX = 3, S_RZ = 4, S_EUX = 5, S_EVX = 6, S_CXB = 8,
-              S_CZB = 9, S_GZX = 10, S_SCALE = 17, S_ZAV = 20;
+namespace {
 
 struct Plane {
   float rx, rz, eux, evx, cxb, czb, gzx, zav, scale;
@@ -183,27 +180,6 @@ __device__ __forceinline__ float x_at(const Plane& p, float cx, float u,
 __device__ __forceinline__ float zeta_at(const Plane& p, float cx, float cz,
                                          float x, float v) {
   return fmaf(p.zav, v, fmaf(p.gzx, x - cx, cz));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // Integer range [lo, hi] (clamped to [0, n)) holding every index i whose
@@ -655,36 +631,10 @@ static_assert(kWin / 2 >= 3,
               "a refill writes no window slot that its iteration reads");
 static_assert(4 * (kFwdHSmem + 1024) <= 228 * 1024, "4 K1b CTAs an SM");
 
-// A pair table's word at a 32-bit shared address.
-__device__ __forceinline__ unsigned lds_u32(unsigned a) {
-  unsigned v;
-  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(a));
-  return v;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// bf16 bits b (in the low half) widened to fp32 by a shift, not a
-// conversion; a pair word's halves by a shift and a mask.
-__device__ __forceinline__ float widen_lo(unsigned b) {
-  return __uint_as_float(b << 16);
-}
-
-__device__ __forceinline__ float widen_hi(unsigned b) {
-  return __uint_as_float(b & 0xFFFF0000u);
-}
-
 // One value's bf16 bits (nearest even).
 __device__ __forceinline__ unsigned short bf16_rn_bits(float x) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(x));
 }
-
-// The bias that floor_small's sum carries: element floor(q) of an array at
-// byte a with byte stride t lies at a - kFloorBias * t + bits(q + 1.5 *
-// 2^23 rounded down) * t, modulo 2^32.
-constexpr unsigned kFloorBias = 0x4B400000u;
 
 // zeta_r(x, v) = gzx*x + zc with zc = (cz_r - gzx*cx_r) + zav*v, a lane's
 // constant per slab.
@@ -923,13 +873,6 @@ struct AdjTile {
   float r, fxa, fxb, fza, fzb;   // slab and the tile's corners
 };
 
-// i as a float, for |i| < 2^22: 1.5 * 2^23 + i in the mantissa, less
-// 1.5 * 2^23 (an integer add and a float add: I2F issues at a quarter of
-// the FMA rate).
-__device__ __forceinline__ float int_to_float(int i) {
-  return __int_as_float(0x4B400000 + i) - 12582912.0f;
-}
-
 // A chunk: view, v chunk vci and u chunk uci packed as vu = vci * kPosU +
 // uci (registers are the scarce resource); an empty view is one chunk.
 constexpr int kPosShift = 12;
@@ -1011,13 +954,6 @@ __device__ __forceinline__ unsigned short bf16_bits(float x) {
 // The float of a bf16's 16 bits.
 __device__ __forceinline__ float bf16_value(unsigned short b) {
   return __uint_as_float(static_cast<unsigned>(b) << 16);
-}
-
-// The most integers that an open interval of width w can hold, at least
-// one and at most cap (NaN: cap).
-__device__ __forceinline__ int candidates(float w, int cap) {
-  const float c = fminf(ceilf(w), static_cast<float>(cap));
-  return max(1, static_cast<int>(c));
 }
 
 // View `view`'s record for the tile t. The positions follow the plain
@@ -1109,13 +1045,6 @@ __device__ __forceinline__ int first_candidate(float q, int lo, int hi,
   const int k = min(max(floor_small(q).k + 1, lo), hi);
   *f = int_to_float(k);
   return k;
-}
-
-// The lerp weight that position pos gives tap k: 1 - |pos - k| where
-// positive (1 - w for k = floor(pos), w for k + 1: the plain version's
-// weights), else 0.
-__device__ __forceinline__ float hat(float pos, float k) {
-  return fmaxf(0.0f, 1.0f - fabsf(pos - k));
 }
 
 // Pass B of one thread's entries (x = x0 + xg + kBRows*q, v) of a chunk:

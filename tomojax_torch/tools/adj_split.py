@@ -1,13 +1,14 @@
-"""Where the gather-schedule adjoints (the fp32 plane adjoint K2, the bf16
-tier's K2b and K4b) and the bf16 forwards (K1b, K3b) spend their time, and
-whether the other kernels give another build's bits. Builds
-``slab_plane.cu`` and ``slab_arc.cu`` again with one part of a kernel
-disabled at a time (text substitutions, each its own nvcc run, all started
-together, into ``build/kernels/adj_split/``) and times each variant beside
-the full kernel and the kernel of the other tier (a bf16 kernel's fp32
-counterpart; K2b beside K2), in turns:
+"""Where the plane kernels (K1, K2 and the bf16 tier's K1b, K2b), the bf16
+arc kernels (K3b, K4b) spend their time, and whether the other kernels give
+another build's bits. Builds ``slab_plane.cu`` and ``slab_arc.cu`` again
+with one part of a kernel disabled at a time (text substitutions in the
+source or a header it includes, each build its own nvcc runs, all started
+together, through ``kernels/_build.compile_libraries`` into
+``build/kernels/adj_split/``) and times each variant beside the full kernel
+and the kernel of the other tier (a kernel's counterpart in the other
+precision: K1 beside K1b, K2b beside K2), in turns:
 
-- K2, K1b and K2b at ``chip_smoke.py`` phase 3's problem (256³ Shepp
+- K1, K2, K1b and K2b at ``chip_smoke.py`` phase 3's problem (256³ Shepp
   phantom, 180 views over the full circle, ±0.02 rad tilts, ±4 px shifts)
   and at 32 of config 5's 1024 views at 512³ (phase 12b's views);
 - K3b and K4b at phase 5's problem (256³, 90 views, ±0.5° tilts, ±2 px
@@ -17,7 +18,8 @@ K2 and K2b share one schedule (``adj_gather``), so a variant of its
 phases disables the phase in both kernels of its build; each variant is
 timed only for its own kernel. With ``--parent`` (another tree's root, or
 the directory holding its ``slab_plane.cu`` and ``slab_arc.cu``) it also
-builds that tree's sources, times its kernels beside this tree's, and
+builds that tree's sources (with that directory on the include path),
+times its kernels beside this tree's, and
 compares the bits of the fp32 kernels K1-K5 and of the kernels listed in
 ``SAME_BITS`` on phase 3's and phase 5's groups. A counting build
 (``split_steps``, in the tool's own copy of ``slab_plane.cu`` only)
@@ -25,7 +27,7 @@ reports which share of K1's and K1b's (CTA, slab) steps runs from the
 tables, the direct way or not at all, on each plane problem.
 
     python -m tomojax_torch.tools.adj_split [--size 256] [--parent PATH]
-        [--kernels k2,k1b,k2b,k3b,k4b] [--out split.json]
+        [--kernels k1,k2,k1b,k2b,k3b,k4b] [--out split.json]
 
 A variant with a part disabled gives wrong values; only its time means
 something: the full kernel's time less a variant's is what that part costs
@@ -45,7 +47,6 @@ import argparse
 import ctypes
 import json
 import re
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -65,7 +66,8 @@ OUT_DIR = _build.BUILD_DIR / "adj_split"
 # Each kernel: its source, its entry, the entry timed and compared beside
 # it (the other tier's), the kernel (and the template instance, where it
 # differs) and dynamic shared memory that the occupancy query names, and
-# its variants: {name: [(text of the source, replacement)]}.
+# its variants: {name: [(text of the source or a header it includes,
+# replacement)]}.
 K1B_NO_PASS_A = ("    if (v_in) pass_a_at(ri + 1);",
                  "    if (v_in && ny < 0) pass_a_at(ri + 1);")
 K1B_NO_PASS_B = ("    if (w.w >= 0) {\n      const unsigned tb = tabs_s",
@@ -113,6 +115,30 @@ K3B_ROWS = "\n            const unsigned short* row0 = ring16 + base0 + x * kSZ;
 K3B_GRID = ("            grid_at<true>(p, r, cx, cz, static_cast<float>(x), vt, "
             "&cf,\n                          &zaff);" + K3B_ROWS)
 KERNELS = {
+    "k1": {
+        "source": PLANE, "entry": "slab_plane_fwd",
+        "beside": "slab_plane_fwd_bf16", "kernel": "fwd_kernel",
+        "instance": "fwd_kernel<true>", "smem": "kFwdSmem",
+        "threads": "kFwdThreads",
+        "variants": {
+            "no_pass_a": [(
+                "    const float zeta =\n"
+                "        zeta_at(p, cx, cz, fx + static_cast<float>(i * "
+                "kFwdWarps), fv);\n"
+                "    const Floor f = floor_small(zeta);\n"
+                "    const float* const row = q + i * kFwdWarps * kSZ + f.k;\n"
+                "    t[i * kFwdWarps * kFV] = lerp_pair(row[0], row[1], "
+                "zeta - f.f);",
+                "    t[i * kFwdWarps * kFV] = 0.0f;")],
+            "no_pass_b": [(
+                "    if (w_b.w >= 0) {\n      const float* const tab",
+                "    if (w_b.w >= 0 && ri < 0) {\n"
+                "      const float* const tab")],
+            "no_staging": [(
+                "  if (w.w >= 0) {\n    const unsigned unx",
+                "  if (w.w >= 0 && s < 0) {\n    const unsigned unx")],
+        },
+    },
     "k2": {
         "source": PLANE, "entry": "slab_plane_adj",
         "beside": "slab_plane_adj_bf16", "kernel": "adj_kernel",
@@ -255,19 +281,6 @@ KERNELS = {
         },
     },
 }
-# The kernels in the parent tree (7bfe478: K2 as owner sweeps, the bf16
-# kernels their own designs), for the occupancy query of a parent build.
-PARENT_KERNELS = {
-    "k2": {"kernel": "adj_kernel", "smem": "kAdjSmem",
-           "threads": "kAdjThreads"},
-    "k1b": {"kernel": "fwd_bf16_kernel<true>", "smem": "kFwdHSmem",
-            "threads": "kFwdThreads"},
-    "k2b": {"kernel": "adj_bf16_kernel", "smem": "kBSmem",
-            "threads": "kAdjThreads"},
-    "k3b": {"kernel": "arc_fwd_bf16_kernel", "smem": "kArcHSmem",
-            "threads": "kFwdThreads"},
-    "k4b": {"kernel": "arc_adj_bf16_kernel", "smem": "kBSmem",
-            "threads": "kAdjThreads"}}
 # The kernels whose bits the parent comparison holds: (entry, quad); the
 # arc Jacobian writes 12 fields. SAME_BITS: the bf16 kernels that this
 # tree leaves as the parent's.
@@ -281,8 +294,9 @@ COMPARED = (("slab_plane_fwd", "plane"), ("slab_plane_adj", "plane"),
 # the direct way, nothing (no tap of the tile reaches the volume).
 STEP_KINDS = ("fast", "direct", "empty")
 COUNT_EDITS = [
-    ("namespace {\n",
-     "__device__ unsigned long long split_steps[6];\n\nnamespace {\n"),
+    ("namespace {\n\nstruct Plane {",
+     "__device__ unsigned long long split_steps[6];\n\nnamespace {\n\n"
+     "struct Plane {"),
     ("    if (w_b.w >= 0) {\n      const float* const tab",
      "    if (tid == 0)\n"
      "      atomicAdd(&split_steps[w_b.w >= 0 ? 0 : w_b.w == kDirect ? 1 : 2],"
@@ -320,70 +334,56 @@ extern "C" int adj_split_occupancy(int* out) {{
 """
 
 
-def _apply(edits, s: str, what: str) -> str:
+def _apply(edits, texts: dict[str, str], what: str) -> dict[str, str]:
+    """``texts`` ({file name: text}) with each edit made in the one file
+    that holds its text; raises unless the text occurs exactly once."""
+    texts = dict(texts)
     for old, new in edits:
-        if s.count(old) != 1:
-            raise ValueError(f"{what}: the text to replace occurs "
-                             f"{s.count(old)} times")
-        s = s.replace(old, new)
-    return s
+        where = [f for f, s in texts.items() if old in s]
+        n = sum(s.count(old) for s in texts.values())
+        if n != 1:
+            raise ValueError(f"{what}: the text to replace occurs {n} times "
+                             f"(in {', '.join(where) or 'no file'})")
+        texts[where[0]] = texts[where[0]].replace(old, new)
+    return texts
 
 
-def variant_source(kernel: str, name: str, text: str | None = None) -> str:
-    """The kernel's source (or ``text``) with its variant ``name`` applied;
-    raises if a substitution does not match exactly once."""
+def variant_source(kernel: str, name: str) -> dict[str, str]:
+    """The kernel's source and the headers it includes, as ``{file name:
+    text}``, with its variant ``name`` applied."""
     k = KERNELS[kernel]
-    s = k["source"].read_text() if text is None else text
-    return _apply(k["variants"][name], s,
-                  f"{kernel} {name} in {k['source'].name}")
+    return _apply(k["variants"][name], _build.texts(k["source"]),
+                  f"{kernel} {name}")
 
 
-def count_source(text: str | None = None) -> str:
-    """``slab_plane.cu`` (or ``text``) with K1's and K1b's step counters
+def count_source() -> dict[str, str]:
+    """``slab_plane.cu`` and its headers with K1's and K1b's step counters
     and the entry ``split_step_counts`` that reads and resets them."""
-    s = PLANE.read_text() if text is None else text
-    return _apply(COUNT_EDITS, s, "the counting build") + _COUNT_ENTRY
+    out = _apply(COUNT_EDITS, _build.texts(PLANE), "the counting build")
+    out[PLANE.name] += _COUNT_ENTRY
+    return out
 
 
-def with_occupancy(names: dict, text: str) -> str:
-    """``text`` with an entry that reports the registers, local bytes,
-    CTAs per SM and shared bytes per CTA of the kernel ``names`` gives
-    (``instance`` or ``kernel``, ``smem``, ``threads``)."""
-    return text + _OCCUPANCY.format(
+def with_occupancy(names: dict, texts: dict[str, str]) -> dict[str, str]:
+    """``texts`` with an entry appended to the kernel's source that reports
+    the registers, local bytes, CTAs per SM and shared bytes per CTA of the
+    kernel ``names`` gives (``source``, ``instance`` or ``kernel``,
+    ``smem``, ``threads``)."""
+    src = names["source"].name
+    return {**texts, src: texts[src] + _OCCUPANCY.format(
         kernel=names.get("instance", names["kernel"]), smem=names["smem"],
-        threads=names["threads"])
+        threads=names["threads"])}
 
 
-def build(sources: dict[str, str]) -> tuple[dict, dict]:
-    """One shared library per source text, all nvcc runs together, with
-    ``-Xptxas -v`` → (libraries, ptxas lines per build)."""
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _build._nvcc()
-    procs = {}
-    for name, text in sources.items():
-        cu = OUT_DIR / f"{name}.cu"
-        cu.write_text(text)
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o",
-               str(OUT_DIR / f"{name}.so"), str(cu)]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True)
-    libs, ptxas, failed = {}, {}, []
-    for name, proc in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{out}")
-            continue
-        ptxas[name] = out
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    for name in sources:
-        lib = ctypes.CDLL(str(OUT_DIR / f"{name}.so"))
-        for entry, argtypes in _build._SIGNATURES.items():
-            fn = getattr(lib, entry, None)
-            if fn is not None:
-                fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        libs[name] = lib
-    return libs, ptxas
+def build(sources: dict[str, dict[str, str]], csrc: Path = _build.CSRC
+          ) -> tuple[dict, dict]:
+    """One shared library per ``{file name: text}``, all nvcc runs
+    together, with ``-Xptxas -v`` and ``csrc`` on the include path →
+    (libraries, ptxas lines per build)."""
+    ptxas = _build.compile_libraries(sources, OUT_DIR, ("-Xptxas", "-v"),
+                                     csrc)
+    return ({name: _build.load_library(OUT_DIR / f"{name}.so")
+             for name in sources}, ptxas)
 
 
 def ptxas_summary(text: str) -> list[dict]:
@@ -523,7 +523,7 @@ def _view_rel(a, b):
 
 
 def quad_of(kname: str) -> str:
-    return "plane" if kname in ("k2", "k1b", "k2b") else "arc"
+    return "plane" if KERNELS[kname]["source"] == PLANE else "arc"
 
 
 def _identity(ax, y, vol_or, aty) -> float:
@@ -597,12 +597,10 @@ def step_counts(lib, geom, grps) -> dict:
     return out
 
 
-def parent_sources(path: str) -> dict[str, str]:
-    root = Path(path)
-    csrc = root / "tomojax_torch" / "kernels" / "csrc"
-    d = csrc if csrc.is_dir() else root
-    return {"plane": (d / "slab_plane.cu").read_text(),
-            "arc": (d / "slab_arc.cu").read_text()}
+def parent_csrc(path: str) -> Path:
+    """Another tree's ``csrc/`` (``path`` is its root or that directory)."""
+    csrc = Path(path) / "tomojax_torch" / "kernels" / "csrc"
+    return csrc if csrc.is_dir() else Path(path)
 
 
 def main(argv=None):
@@ -624,19 +622,21 @@ def main(argv=None):
     sources = {}
     for kname in names:
         k = KERNELS[kname]
-        sources[kname] = with_occupancy(k, k["source"].read_text())
+        sources[kname] = with_occupancy(k, _build.texts(k["source"]))
         for v in k["variants"]:
             sources[f"{kname}.{v}"] = variant_source(kname, v)
     counting = "k1b" in names
     if counting:
         sources["count"] = count_source()
-    if args.parent:
-        par = parent_sources(args.parent)
-        for kname in names:
-            sources[f"parent.{kname}"] = with_occupancy(
-                PARENT_KERNELS[kname], par[quad_of(kname)])
     libs, ptxas = build(sources)
-    full = [n for n in sources if n in KERNELS or n.startswith("parent.")]
+    if args.parent:
+        par = parent_csrc(args.parent)
+        plibs, pptxas = build({f"parent.{kname}": with_occupancy(
+            KERNELS[kname], _build.texts(par / KERNELS[kname]["source"].name))
+            for kname in names}, par)
+        libs.update(plibs)
+        ptxas.update(pptxas)
+    full = [n for n in libs if n in KERNELS or n.startswith("parent.")]
     report = {"device": torch.cuda.get_device_name(0), "size": args.size,
               "ptxas": {name: ptxas_summary(ptxas[name]) for name in full},
               "occupancy": {name: occupancy(libs[name]) for name in full}}

@@ -29,29 +29,15 @@ from tomojax_torch.core.geometry import Geometry, Views
 from tomojax_torch.kernels import _build
 from tomojax_torch.kernels import slab as slabk
 
-NO_FMAD = (*_build.NVCC_FLAGS, "--fmad=false")
-ENTRIES = ("slab_plane_fwd", "slab_plane_adj", "slab_arc_fwd",
-           "slab_arc_jac")
+OUT_DIR = _build.BUILD_DIR / "fmad_check"
 
 
 def load_no_fmad() -> ctypes.CDLL:
-    """Build the sources with ``NO_FMAD`` into a library of their own and
-    load it with the default library's signatures."""
-    out_dir = _build.BUILD_DIR / "fmad_check"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    objs = [out_dir / f"{src.stem}.o" for src in _build.SOURCES]
-    lib_path = out_dir / "libtomojax_torch_no_fmad.so"
-    nvcc = _build._nvcc()
-    _build._run([[nvcc, *NO_FMAD, "-c", "-o", str(obj), str(src)]
-                 for src, obj in zip(_build.SOURCES, objs)])
-    _build._run([[nvcc, *NO_FMAD, "-shared", "-o", str(lib_path),
-                  *map(str, objs)]])
-    lib = ctypes.CDLL(str(lib_path))
-    for name in ENTRIES:
-        fn = getattr(lib, name)
-        fn.argtypes = _build._SIGNATURES[name]
-        fn.restype = ctypes.c_int
-    return lib
+    """Build the sources with ``--fmad=false`` besides the default flags
+    into a library of their own and load it."""
+    _build.compile_libraries({"no_fmad": _build.texts(*_build.SOURCES)},
+                             OUT_DIR, ("--fmad=false",))
+    return _build.load_library(OUT_DIR / "no_fmad.so")
 
 
 def groups(n, n_proj, quad, tilt, shift, device):

@@ -102,7 +102,10 @@ script exits non-zero:
    ``cli simulate`` and config 1's ray CGLS, then alone: their time per
    apply beside their bound (11.268 µs at 64³ × 90) and the plain march's,
    and their distance from the march (≤ 1e-6; R2's against the march's
-   samples summed in float64).
+   samples summed in float64); R3 alone at 64³ × 32 and × 90 views: its
+   time beside its bound (45.07 µs at 90 views) and the plain march's,
+   its det R1's to the bit, det and Jacobian per view within 1e-6 of the
+   march.
 
 11. The exact-family alignment path at 64³ × 90 views. 11a: ``cli align``
    at its defaults (the ray family, SIRT 100, box LM on the exact
@@ -268,7 +271,8 @@ C2_FISTA_MAX = 0.10        # config 2 (reference: 0.0788 / 0.0795)
 C1_REL_L2_MAX = 0.25       # config 1, each family (reference: slab 0.185)
 TOL_RAY = 1e-5             # ray family: per-view rel L2 vs float64, and
                            # the adjoint identity
-TOL_RAY_KERNEL = 1e-6      # R1/R2 vs the plain march's samples
+TOL_RAY_KERNEL = 1e-6      # R1/R2/R3 vs the plain march's samples
+RAY_JAC_VIEWS = (32, 90)   # R3 alone: the exact LM's chunk, all views
 C4_REL_L2_MAX = 0.21       # config 4, outer 5 (reference: 0.193 plane,
                            # 0.180 arc)
 C4_T_MAX = 0.05            # px, gauge-corrected max |tx|, |tz| error
@@ -286,7 +290,8 @@ COUNTED = (slabk.slab_plane_fwd, slabk.slab_plane_adj, slabk.slab_arc_fwd,
            slabk.slab_project_field, rs.resample_fwd, rs.resample_transpose,
            rs.resample_rows_raw, slabk.slab_plane_fwd_bf16,
            slabk.slab_plane_adj_bf16, slabk.slab_arc_fwd_bf16,
-           slabk.slab_arc_adj_bf16, rayk.ray_fwd, rayk.ray_adj)
+           slabk.slab_arc_adj_bf16, rayk.ray_fwd, rayk.ray_adj,
+           rayk.ray_jac)
 # phase 14: the bf16 tier's kernels and their fp32 counterparts per
 # quadrature: (K1b/K3b, K2b/K4b, K1/K3, K2/K4)
 BF16_KERNELS = {
@@ -1227,7 +1232,8 @@ def ray_kernels(geom, views, vol, y, dev):
     """R1 and R2 alone (the setup made beforehand; R2's map included) at
     ``geom``'s shapes beside their bound and the plain march, and their
     largest differences from it (R2's against the march's samples summed
-    in float64)."""
+    in float64); then R3 (:func:`ray_jac_kernel`) on ``RAY_JAC_VIEWS``
+    of the views."""
     args = [getattr(views, f).to(dev) for f in ("phi", "alpha", "beta",
                                                  "t", "cor")]
     setup = rproj._ray_setup(geom, *args, torch.float32, False)
@@ -1267,9 +1273,51 @@ def ray_kernels(geom, views, vol, y, dev):
           f"(tol {TOL_RAY_KERNEL})")
     check(fwd_rel <= TOL_RAY_KERNEL and adj_rel <= TOL_RAY_KERNEL,
           f"R1/R2 vs the plain march: {fwd_rel}, {adj_rel}")
+    jac = {v: ray_jac_kernel(geom, args, vol, v) for v in RAY_JAC_VIEWS}
     return {"kernels": {**ms, "bound": bnd, "fwd_abs": float(
         (fwd - ref).abs().max()), "adj_abs": float(
-        (adj.double() - ref_t).abs().max())}}
+        (adj.double() - ref_t).abs().max()), "jac": jac}}
+
+
+def ray_jac_kernel(geom, args, vol, n_views):
+    """R3 alone on the first ``n_views`` views (the setup made
+    beforehand) beside its bound and the plain march (``_march_jac``):
+    one launch, its det R1's to the bit, det and Jacobian per view within
+    ``TOL_RAY_KERNEL`` of the march's float32 samples."""
+    g = Geometry(n_proj=n_views, vox_shape=geom.vox_shape,
+                 det_shape=geom.det_shape, step_size=geom.step_size)
+    setup = rproj._ray_setup(g, *(a[:n_views] for a in args),
+                             torch.float32, True)
+    run = (vol, setup.p0, setup.d_hat, setup.rpa, setup.der_ang,
+           setup.der_dir, g)
+    before = rayk.ray_jac.launches
+    det, jac = rayk.ray_jac(*run)
+    check(rayk.ray_jac.launches == before + 1, "R3 launch counter")
+    check(torch.equal(det, rayk.ray_fwd(vol, setup.p0, setup.d_hat, g)),
+          "R3's det is not R1's output to the bit")
+    ref_d, ref_j = rproj._march_jac(vol, setup, g, torch.float32)
+
+    def rel(x, r):
+        x, r = x.double().flatten(1), r.double().flatten(1)
+        return float((torch.linalg.norm(x - r, dim=1)
+                      / torch.linalg.norm(r, dim=1)).max())
+
+    e = {"det_rel": rel(det, ref_d), "jac_rel": rel(jac, ref_j)}
+    ms = {"ms": cuda_ms(lambda: rayk.ray_jac(*run), 20),
+          "plain_ms": cuda_ms(lambda: rproj._march_jac(vol, setup, g,
+                                                       torch.float32), 3)}
+    nbytes = 4.0 * (g.n_vox + 7 * n_views * g.n_det) + 24.0 * n_views
+    flops = 4 * 2.0 * 8 * n_views * g.n_det * g.n_steps
+    bnd = roofline.bound(nbytes, flops)
+    print(f"R3 ray_jac {ms['ms']:.4f} ms per apply ({g.vox_shape[0]}^3, "
+          f"{n_views} views) against the bound {bnd[0] * 1e3:.3f} us "
+          f"({bnd[1]}) and the plain march's {ms['plain_ms']:.3f} ms; vs "
+          f"the march: max per-view rel L2 det {e['det_rel']:.3e}, "
+          f"Jacobian {e['jac_rel']:.3e} (tol {TOL_RAY_KERNEL}); det R1's "
+          "to the bit")
+    check(e["det_rel"] <= TOL_RAY_KERNEL and e["jac_rel"] <= TOL_RAY_KERNEL,
+          f"R3 vs the plain march: {e}")
+    return {**ms, **e, "bound": bnd}
 
 
 def synced(fn, acc, key):
@@ -1365,8 +1413,7 @@ def phase_exact_align(tmp, dev, ray_ms, n=EXACT_N, n_proj=EXACT_VIEWS,
     print(f"exact align wall: {wall:.2f} s ({n}^3, {n_proj} views, {outers} "
           f"outers, ray + lm): recon {tot['recon']:.2f} s, LM "
           f"{tot['refine']:.2f} s, hook {tot['hook']:.3f} s; kernel "
-          f"launches {launched or 0} (R1/R2 only: the ray Jacobian is "
-          "plain PyTorch)")
+          f"launches {launched or 0} (R1/R2/R3 only)")
 
     # the LM's time per step at the path's chunk (2^23 // n_vox views)
     geom = Geometry(n_proj=n_proj, vox_shape=(n,) * 3, det_shape=(n, n))

@@ -1,8 +1,8 @@
 """The CUDA kernels K1-K5, K7 and K8, the bf16 tier's K1b-K4b and the
-exact ray family's R1/R2 against their plain PyTorch versions,
+exact ray family's R1/R2/R3 against their plain PyTorch versions,
 on the card, and the plain-PyTorch modules (cross-correlation, the
-regularized solvers, the exact ray family's Jacobian and its LM) and the
-CV driver on the card against the CPU.
+regularized solvers, the exact ray family's LM) and the CV driver on the
+card against the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 no JAX, so on the card it runs without the JAX conftest:
@@ -932,7 +932,7 @@ def test_bf16_forwards_match_plain_and_repeat(cuda, quad, case):
 # build (the same matrix entries as the owner sweeps before it, summed in
 # another order), K1b-K4b from c702356's build. K7 and K8 on
 # _resample_case, R1 and R2 (its output and its map) on _ray_case("odd"),
-# from c702356's build.
+# from c702356's build; R3 (its det and its Jacobian) on the same case.
 # Every entry gives the same bits on every apply (no atomics; K4's and
 # K4b's two sides are added in a fixed order).
 SLAB_ENTRIES = {
@@ -973,6 +973,8 @@ DIGESTS = {
         "b27e10cb7e4f45e61f551b2066ee0b6af984f317602a8c1c6fa418ddca7f101a",
     "ray_adj":
         "1c9ed344aef86a9fd44a097457d000abb54ae2a40f2ee66840c41bda14d9d1ae",
+    "ray_jac":
+        "2af98b79e9e8bc6505789e538988ef66245d0be0c92caa5f3df4a4835b8e7174",
 }
 
 
@@ -1011,11 +1013,15 @@ def _digests(device):
     gmap = rp_kernels._adj_launch(y, setup.p0, setup.d_hat, *rviews[:3],
                                   geom, aty, rays)
     out["ray_adj"] = _sha(aty, gmap)
+    setup = rproj._ray_setup(geom, *rviews, torch.float32, True)
+    out["ray_jac"] = _sha(*rp_kernels.ray_jac(
+        vol, setup.p0, setup.d_hat, setup.rpa, setup.der_ang,
+        setup.der_dir, geom))
     return out
 
 
 def test_fp32_kernels_keep_their_bits(cuda):
-    """K1-K5, the bf16 tier's K1b-K4b, K7, K8, R1 and R2 (its map too)
+    """K1-K5, the bf16 tier's K1b-K4b, K7, K8, R1, R2 (its map too) and R3
     give the recorded builds' bits."""
     assert _digests(cuda) == DIGESTS
 
@@ -1337,6 +1343,111 @@ def test_ray_kernels_match_plain_repeat_and_transpose(cuda, case):
     with pytest.raises(TypeError, match="float32"):
         rproj.backproject_views(y.double(), geom.vox_shape, geom, *views,
                                 rays=rays, dtype=torch.float64)
+
+
+def _jac_case(device, n, n_proj):
+    """Config 1's views at ``n``³ × ``n_proj`` of ``n``² on the card:
+    over [0, π] with ``cli simulate``'s jitter (α, β ±1°, tx, tz ±2 px) and
+    a nonzero centre-of-rotation shift; the Shepp-Logan phantom."""
+    rng = np.random.default_rng(n * 1000 + n_proj)
+    geom = Geometry(n_proj=n_proj, vox_shape=(n,) * 3, det_shape=(n, n))
+    amax = np.deg2rad(1.0)
+    t = np.zeros((n_proj, 3))
+    t[:, [0, 2]] = rng.uniform(-2.0, 2.0, (n_proj, 2))
+    cor = np.zeros((n_proj, 3))
+    cor[:, 0] = rng.uniform(-0.5, 0.5, n_proj)
+    views = tuple(torch.as_tensor(a, dtype=torch.float32, device=device)
+                  for a in (np.linspace(0.0, np.pi, n_proj),
+                            rng.uniform(-amax, amax, n_proj),
+                            rng.uniform(-amax, amax, n_proj), t, cor))
+    return geom, views, torch.as_tensor(phantom.shepp3d(n), device=device)
+
+
+def _per_view_rel(x, ref):
+    """Relative L2 distance of each view's rows (its det, or its whole
+    Jacobian) from the reference's."""
+    x, ref = x.double().flatten(1), ref.double().flatten(1)
+    return torch.linalg.norm(x - ref, dim=1) / torch.linalg.norm(ref, dim=1)
+
+
+# R3 against the float64 plain march, per view, at most this factor times
+# the float32 plain march's distance from it: both take the same float32
+# samples, whose rounding makes most of the distance (a sample within
+# float32 rounding of a cell boundary takes the other cell's slope); R3
+# sums the steps and the epilogue in double where the plain march sums in
+# float32 (its emulation on the CPU read at most 1.06×)
+R3_FACTOR = 1.5
+
+
+@pytest.mark.parametrize("n_proj", [1, 26, 32, 90])
+@pytest.mark.parametrize("n", [16, 64])
+def test_ray_jac_tracks_float64_as_the_plain_march(cuda, n, n_proj):
+    """R3 (``forward_views_jac`` on the card) against the float64 plain
+    march: per view, its det and its Jacobian no further than
+    :data:`R3_FACTOR` times the float32 plain march's distance; its det
+    R1's output to the bit; one launch of R3 and none of R1."""
+    from tomojax_torch.core import projector as rproj
+    geom, views, vol = _jac_case(cuda, n, n_proj)
+    before = (rp_kernels.ray_jac.launches, rp_kernels.ray_fwd.launches)
+    det, jac = rproj.forward_views_jac(vol, geom, *views)
+    assert (rp_kernels.ray_jac.launches, rp_kernels.ray_fwd.launches) == (
+        before[0] + 1, before[1])
+    assert jac.shape == (n_proj, 6, geom.n_det) and jac.dtype == torch.float32
+    assert torch.equal(det, rproj.forward_views(vol, geom, *views))
+    d64, j64 = rproj.forward_views_jac_plain(
+        vol.double(), geom, *(a.double() for a in views),
+        dtype=torch.float64)
+    d32, j32 = rproj.forward_views_jac_plain(vol, geom, *views)
+    for name, x, x32, ref in (("det", det, d32, d64), ("jac", jac, j32, j64)):
+        e, e32 = _per_view_rel(x, ref), _per_view_rel(x32, ref)
+        worst = int(torch.argmax(e / e32.clamp_min(1e-30)))
+        assert bool((e <= R3_FACTOR * e32 + 1e-9).all()), (
+            name, worst, float(e[worst]), float(e32[worst]))
+
+
+def test_ray_jac_edge_cases(cuda):
+    """Samples on integer coordinates (φ = 0 and π/2, no jitter: x and z
+    land on the lattice, so in-bounds corners of weight 0 carry the
+    gradient) and a detector wider than the volume (rays that miss it):
+    R3 within 1e-5 of the float32 plain march per view (the same samples),
+    zero on every missing ray, its det R1's to the bit."""
+    from tomojax_torch.core import projector as rproj
+    geom = Geometry(n_proj=2, vox_shape=(16,) * 3, det_shape=(24, 20))
+    zero = torch.zeros(2, device=cuda)
+    views = (torch.tensor([0.0, np.pi / 2], device=cuda), zero, zero,
+             torch.zeros((2, 3), device=cuda), torch.zeros((2, 3),
+                                                            device=cuda))
+    vol = torch.as_tensor(phantom.shepp3d(16), device=cuda)
+    det, jac = rproj.forward_views_jac(vol, geom, *views)
+    d32, j32 = rproj.forward_views_jac_plain(vol, geom, *views)
+    assert float(_per_view_rel(jac, j32).max()) <= 1e-5
+    assert float(_per_view_rel(det, d32).max()) <= 1e-5
+    assert torch.equal(det, rproj.forward_views(vol, geom, *views))
+    miss = j32.abs().sum(1) == 0
+    assert int(miss.sum()) > 0
+    assert bool((jac.abs().sum(1)[miss] == 0).all())
+    assert bool((det[miss] == 0).all())
+
+
+def test_ray_jac_counts_and_refuses(cuda):
+    """Each ``forward_views_jac`` call on the card launches R3 once (an
+    exact LM step's Jacobian too); float64 on the card raises, with no
+    launch counted and no fallback."""
+    from tomojax_torch.align.refine import alignment_costs_grad
+    from tomojax_torch.core import projector as rproj
+    geom, views, vol = _jac_case(cuda, 16, 5)
+    before = rp_kernels.ray_jac.launches
+    for _ in range(3):
+        rproj.forward_views_jac(vol, geom, *views)
+    theta = torch.cat([views[3], torch.stack(views[:3], 1)], 1)
+    meas = torch.zeros((5, geom.n_det), device=cuda)
+    alignment_costs_grad(vol, meas, geom, theta, views[4])
+    assert rp_kernels.ray_jac.launches == before + 4
+    with pytest.raises(TypeError, match="float32"):
+        rproj.forward_views_jac(vol.double(), geom,
+                                *(a.double() for a in views),
+                                dtype=torch.float64)
+    assert rp_kernels.ray_jac.launches == before + 4
 
 
 def test_sirt_on_the_ray_operator_launches_the_kernels(cuda):

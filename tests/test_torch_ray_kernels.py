@@ -1,7 +1,9 @@
-"""The exact ray family's kernels R1 and R2 (``kernels/ray.py``,
-``csrc/ray.cu``) on the CPU: their entries in the build, and their step and
+"""The exact ray family's kernels R1, R2 and R3 (``kernels/ray.py``,
+``csrc/ray.cu``) on the CPU: their entries in the build, their step and
 candidate searches emulated in float32 (and R1's step range in double, as
-the kernel computes it) against the plain march.
+the kernel computes it) against the plain march, and R3's sums emulated
+(float32 per sample, double over the steps and in the epilogue) against
+the plain march in float64.
 
 R2 is a gather: for each voxel q and view it searches the candidate rays
 and steps that :func:`~tomojax_torch.kernels.ray.gather_map`'s inverse map
@@ -67,6 +69,109 @@ def test_ray_wrappers_take_only_cuda_float32():
     a = rp.forward_views(torch.rand(VOX), geom, *args)
     rp.backproject_views(a, VOX, geom, *args)
     assert (rayk.ray_fwd.launches, rayk.ray_adj.launches) == before
+
+
+def test_build_declares_r3():
+    """R3's entry is declared as ``ray.cu`` defines it: 8 pointers, 6
+    ints, the step in float, 1 / ray length in double, the stream."""
+    import ctypes
+    sig = _build._SIGNATURES["ray_jac"]
+    text = (_build.CSRC / "ray.cu").read_text()
+    params = re.search(r"^int ray_jac\(([^)]*)\)", text, re.M).group(1)
+    ctype = {"float*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+             "int": ctypes.c_int, "float": ctypes.c_float,
+             "double": ctypes.c_double}
+    want = [ctype[" ".join(p.split()[:-1]).replace("const ", "")]
+            for p in params.split(",")]
+    assert sig == want and len(sig) == 17
+
+
+def test_ray_jac_takes_only_cuda_float32():
+    """R3's wrapper raises on CPU tensors, float32 or float64, without
+    counting a launch: ``forward_views_jac`` takes the plain march on the
+    CPU, and nothing falls back on the card."""
+    geom = Geometry(n_proj=2, vox_shape=VOX, det_shape=DET)
+    before = rayk.ray_jac.launches
+    for dtype in (F32, torch.float64):
+        setup = rp._ray_setup(geom, *_views(2, 0), dtype, True)
+        with pytest.raises(ValueError, match="CUDA"):
+            rayk.ray_jac(torch.zeros(VOX, dtype=dtype), setup.p0,
+                         setup.d_hat, setup.rpa, setup.der_ang,
+                         setup.der_dir, geom)
+    rp.forward_views_jac(torch.rand(VOX), geom, *_views(2, 0))
+    assert rayk.ray_jac.launches == before
+
+
+@pytest.mark.parametrize("dtype", [F32, torch.float64])
+def test_forward_views_jac_plain_is_the_cpu_path(dtype):
+    """On the CPU ``forward_views_jac`` is the plain march:
+    ``forward_views_jac_plain`` gives its bits, in either dtype."""
+    geom = Geometry(n_proj=3, vox_shape=VOX, det_shape=DET)
+    vol = torch.rand(VOX, generator=torch.Generator().manual_seed(3),
+                     dtype=dtype)
+    views = [a.to(dtype) for a in _views(3, 4)]
+    det, jac = rp.forward_views_jac(vol, geom, *views, dtype=dtype)
+    det_p, jac_p = rp.forward_views_jac_plain(vol, geom, *views, dtype=dtype)
+    assert det.dtype == jac.dtype == dtype and jac.shape == (3, 6, geom.n_det)
+    assert torch.equal(det, det_p) and torch.equal(jac, jac_p)
+
+
+def _r3_emulated(vol, setup, geom):
+    """R3's sums on the plain march's float32 samples: per sample the
+    value and the masked weight gradient summed over the corners in
+    float32 in corner order, the steps summed in double (the gradient
+    also weighted by c_j), contracted with the setup's parts in double."""
+    vol_flat = vol.reshape(-1)
+    V, _, R = setup.p0.shape
+    f64 = torch.float64
+    acc = torch.zeros(V, R, dtype=f64)
+    g_sum = torch.zeros(3, V, R, dtype=f64)
+    g_step = torch.zeros(3, V, R, dtype=f64)
+    for c, p in rp._step_blocks(setup, geom, F32):
+        idx, w, parts, mask = rp._corner_indices_weights(p, geom.vox_shape)
+        vals = torch.take(vol_flat, idx)
+        dw = rp._corner_weight_gradients(parts)
+        s = torch.zeros(p.shape[1:], dtype=F32)
+        g = torch.zeros((3,) + p.shape[1:], dtype=F32)
+        for c8 in range(8):
+            s = s + w[c8] * vals[c8]
+            g = g + (vals[c8] * mask[c8]) * dw[c8]
+        acc += s.double().sum(-1)
+        g_sum += g.double().sum(-1)
+        g_step += (g.double() * c.double()).sum(-1)
+    jt = torch.einsum("vdp,dvr->vpr", setup.rpa.double(), g_sum)
+    ja = (torch.einsum("vpdr,dvr->vpr", setup.der_ang.double(), g_sum)
+          + torch.einsum("vpd,dvr->vpr", setup.der_dir.double(), g_step)
+          / geom.ray_length)
+    return acc.float(), torch.cat([jt, ja], 1).float()
+
+
+def _per_view_rel(x, ref):
+    """Relative L2 distance of each view's rows (its det, or its whole
+    Jacobian) from the reference's."""
+    x, ref = x.double().flatten(1), ref.flatten(1)
+    return torch.linalg.norm(x - ref, dim=1) / torch.linalg.norm(ref, dim=1)
+
+
+def test_r3_sums_track_float64_as_the_plain_march():
+    """R3's arithmetic, emulated, lies no further from the float64 plain
+    march than the float32 plain march does, per view, within the factor
+    1.5 that the card test holds R3 to (both take the same float32
+    samples, whose rounding makes most of the distance; R3 sums in double
+    where the plain march sums in float32)."""
+    geom = Geometry(n_proj=NP, vox_shape=VOX, det_shape=DET)
+    views = _views(NP, 5)
+    vol = torch.rand(VOX, generator=torch.Generator().manual_seed(6))
+    setup = rp._ray_setup(geom, *views, F32, True)
+    det, jac = _r3_emulated(vol, setup, geom)
+    d64, j64 = rp.forward_views_jac_plain(
+        vol.double(), geom, *(a.double() for a in views),
+        dtype=torch.float64)
+    d32, j32 = rp.forward_views_jac_plain(vol, geom, *views)
+    for x, x32, ref in ((det, d32, d64), (jac, j32, j64)):
+        e, e32 = _per_view_rel(x, ref), _per_view_rel(x32, ref)
+        assert bool((e <= 1.5 * e32 + 1e-9).all()), (e, e32)
+        assert float(e.max()) < 1e-5
 
 
 def _views(n, seed, aligned=False):

@@ -22,11 +22,13 @@ blocks, so a block's samples go through one gather (or one
 volume. Sums are taken in another order than tomojax's, which agrees to
 float64 rounding.
 
-On a CUDA tensor :func:`forward_views` and :func:`backproject_views` launch
-the hand-written kernels R1 and R2 (``tomojax_torch.kernels.ray``: one
-thread per ray, and a gather over voxels with no atomics, so two
-backprojections give the same bits), in float32 only: the plain march
-(:func:`forward_views_plain`, :func:`backproject_views_plain`) is their
+On a CUDA tensor :func:`forward_views`, :func:`backproject_views` and
+:func:`forward_views_jac` launch the hand-written kernels R1, R2 and R3
+(``tomojax_torch.kernels.ray``: one thread per ray; a gather over voxels
+with no atomics, so two backprojections give the same bits; R1's march
+with the Jacobian's sums beside the value, whose projection is R1's to
+the bit), in float32 only: the plain march (:func:`forward_views_plain`,
+:func:`backproject_views_plain`, :func:`forward_views_jac_plain`) is their
 CPU path and the card tests' yardstick. The kernels take the setup's
 ``p0`` and ``d̂`` and round each sample as the march does, so they read
 the same samples, corners and weights.
@@ -274,6 +276,31 @@ def backproject_views_plain(det_img, vol_shape, geom: Geometry, phi, alpha,
     return _march_adjoint(y, setup, geom, dtype, out).reshape(vol_shape)
 
 
+def _march_jac(vol, setup: _RaySetup, geom: Geometry, dtype):
+    """The plain march of the fused projection and Jacobian: per block of
+    steps, every corner's index, weight and weight gradient as tensors."""
+    vol_flat = vol.reshape(-1).to(dtype)
+    V = setup.p0.shape[0]
+    kw = dict(dtype=dtype, device=vol.device)
+    det = torch.zeros(V, geom.n_det, **kw)
+    g_sum = torch.zeros(3, V, geom.n_det, **kw)
+    g_step = torch.zeros(3, V, geom.n_det, **kw)
+    for c, p in _step_blocks(setup, geom, dtype):
+        idx, w, parts, mask = _corner_indices_weights(p, geom.vox_shape)
+        vals = torch.take(vol_flat, idx)
+        det += (w * vals).sum(0).sum(-1)
+        # a zero weight still has a nonzero weight gradient: mask dw
+        # explicitly rather than reusing w's zeros
+        gval = ((vals * mask)[:, None] * _corner_weight_gradients(parts)
+                ).sum(0)                                     # (3, V, R, S)
+        g_sum += gval.sum(-1)
+        g_step += (gval * (c * setup.inv_rlen)).sum(-1)
+    jac_t = torch.einsum("vdp,dvr->vpr", setup.rpa, g_sum)
+    jac_a = (torch.einsum("vpdr,dvr->vpr", setup.der_ang, g_sum)
+             + torch.einsum("vpd,dvr->vpr", setup.der_dir, g_step))
+    return det, torch.cat([jac_t, jac_a], dim=1)
+
+
 def forward_views_jac(vol, geom: Geometry, phi, alpha, beta, t, cor, *,
                       dtype=torch.float32):
     """Fused projection + analytic 6-DoF Jacobian of V views →
@@ -283,32 +310,28 @@ def forward_views_jac(vol, geom: Geometry, phi, alpha, beta, t, cor, *,
     ``step = c_j / ray_length``; per corner the contribution is
     ``vol[corner] · (∇_p w · g)``. Being linear in ``g``, the per-sample
     gradients are summed over the steps first (plain and ``step``-weighted)
-    and contracted with the static and direction parts once.
+    and contracted with the static and direction parts once. On the card
+    the kernel R3 (float32 only), whose ``det`` is R1's to the bit.
     """
     phi, alpha, beta, t, cor = _as_views(phi, alpha, beta, t, cor)
     with profiling.span("ray.jac", vol.device):
         profiling.count("ray.jac.views", phi.shape[0])
         setup = _ray_setup(geom, phi, alpha, beta, t, cor, dtype, True)
-        vol_flat = vol.reshape(-1).to(dtype)
-        V = setup.p0.shape[0]
-        kw = dict(dtype=dtype, device=vol.device)
-        det = torch.zeros(V, geom.n_det, **kw)
-        g_sum = torch.zeros(3, V, geom.n_det, **kw)
-        g_step = torch.zeros(3, V, geom.n_det, **kw)
-        for c, p in _step_blocks(setup, geom, dtype):
-            idx, w, parts, mask = _corner_indices_weights(p, geom.vox_shape)
-            vals = torch.take(vol_flat, idx)
-            det += (w * vals).sum(0).sum(-1)
-            # a zero weight still has a nonzero weight gradient: mask dw
-            # explicitly rather than reusing w's zeros
-            gval = ((vals * mask)[:, None] * _corner_weight_gradients(parts)
-                    ).sum(0)                                 # (3, V, R, S)
-            g_sum += gval.sum(-1)
-            g_step += (gval * (c * setup.inv_rlen)).sum(-1)
-        jac_t = torch.einsum("vdp,dvr->vpr", setup.rpa, g_sum)
-        jac_a = (torch.einsum("vpdr,dvr->vpr", setup.der_ang, g_sum)
-                 + torch.einsum("vpd,dvr->vpr", setup.der_dir, g_step))
-    return det, torch.cat([jac_t, jac_a], dim=1)
+        if vol.device.type == "cuda":
+            return rayk.ray_jac(vol.reshape(geom.vox_shape).to(dtype)
+                                .contiguous(), setup.p0, setup.d_hat,
+                                setup.rpa, setup.der_ang,
+                                setup.der_dir, geom)
+        return _march_jac(vol, setup, geom, dtype)
+
+
+def forward_views_jac_plain(vol, geom: Geometry, phi, alpha, beta, t, cor,
+                            *, dtype=torch.float32):
+    """:func:`forward_views_jac` by the plain march, on any device and in
+    any dtype: its CPU path, and R3's yardstick on the card."""
+    phi, alpha, beta, t, cor = _as_views(phi, alpha, beta, t, cor)
+    setup = _ray_setup(geom, phi, alpha, beta, t, cor, dtype, True)
+    return _march_jac(vol, setup, geom, dtype)
 
 
 # ----------------------------------------------------------------------

@@ -62,10 +62,15 @@ _DIV_CHECK = [_P, _P, _P, _I, ctypes.c_float, _P]
 #             const float* phi, const float* alpha, const float* beta,
 #             float* map, float* out, int V, int R, int nu, int nv,
 #             int r_off, int nx, int ny, int nz, int n_steps, float step,
-#             double du, double dv, cudaStream_t)
+#             double du, double dv, cudaStream_t);
+# int ray_jac(const float* vol, const float* p0, const float* d_hat,
+#             const float* rpa, const float* der_ang, const float* der_dir,
+#             float* det, float* jac, int V, int R, int nx, int ny, int nz,
+#             int n_steps, float step, double inv_rlen, cudaStream_t)
 _RAY_FWD = [_P, _P, _P, _P, *[_I] * 6, ctypes.c_float, _P]
 _RAY_ADJ = [*[_P] * 8, *[_I] * 9, ctypes.c_float, ctypes.c_double,
             ctypes.c_double, _P]
+_RAY_JAC = [*[_P] * 8, *[_I] * 6, ctypes.c_float, ctypes.c_double, _P]
 _SIGNATURES = {
     "slab_plane_fwd": _PLANE,
     "slab_plane_adj": _PLANE,
@@ -81,6 +86,7 @@ _SIGNATURES = {
     "resample_transpose": _RESAMPLE_T,
     "ray_fwd": _RAY_FWD,
     "ray_adj": _RAY_ADJ,
+    "ray_jac": _RAY_JAC,
 }
 
 

@@ -1,13 +1,14 @@
-// The exact ray family's forward R1 (ray_fwd) and its exact transpose R2
-// (ray_adj) for Hopper (sm_90a), behind a plain C interface (loaded with
-// ctypes).
+// The exact ray family's forward R1 (ray_fwd), its exact transpose R2
+// (ray_adj) and its fused forward and 6-DoF Jacobian R3 (ray_jac) for
+// Hopper (sm_90a), behind a plain C interface (loaded with ctypes).
 //
 // They replace no TPU kernel: tomojax's ray family
-// (tomojax/core/projector.py) marches its steps in a lax.scan and has no
-// Pallas kernel (ROADMAP P8). Here they replace the port's plain march
-// (core/projector.py: _step_blocks, _corner_indices_weights, torch.take,
+// (tomojax/core/projector.py) marches its steps in a lax.scan, its
+// Jacobian too, and has no Pallas kernel (ROADMAP P8). Here they replace
+// the port's plain march (core/projector.py: _step_blocks,
+// _corner_indices_weights, _corner_weight_gradients, torch.take,
 // index_add_), which spent its time on int64 index arithmetic in about
-// 200 small kernels for every block of 5 steps.
+// 200 small kernels for every block of steps.
 //
 // The function. For view v, ray k of the call's block of detector rays
 // (detector ray r_off + k = u * nv + w), step j = 0 .. n_steps - 1:
@@ -41,6 +42,34 @@
 // faster than a branch per corner, the same bits); it sums them in
 // float32 in the plain version's corner order, the steps in a register in
 // double, and writes its detector value once.
+//
+// R3 is R1's march with the Jacobian's sums beside the value's. Per
+// sample the plain version (core/projector.py: _march_jac) takes,
+// in float32 and its corner order, the value sum w * vol and the masked
+// weight gradient sum vol * mask * dw/dp (dw/dp_x = +-fl(w_y * w_z) and
+// cyclically; a corner inside the volume with weight 0 still counts:
+// the mask, not w, zeroes it). The point's derivative is g = der_ang +
+// (c_j / ray_length) * der_dir per angle (rpa per shift), linear in g, so
+// R3 keeps seven double sums a ray: the value, g_sum = sum_j grad_j and
+// g_step = sum_j c_j * grad_j, and contracts them once, in double, with
+// the setup's rpa (V, 3, 3), der_ang (V, 3, 3, R) and der_dir (V, 3, 3)
+// in an epilogue that writes det (V, R) and jac (V, 6, R) once, in the
+// order (tx, ty, tz, phi, alpha, beta). Its value is R1's to the bit (the
+// same samples, corners, float32 sums and double accumulator): the LM
+// compares the cost of R3's det with R1's to accept a step.
+//
+// What bounds R3 on an H100: the operations. benchmark/roofline_ray_jac.py
+// counts four multiply-adds per corner of each sample (the value and the
+// three gradient components): 45.07 us a 90-view apply at 64^3, against
+// 3.4 us for the bytes (the volume, the 7 outputs a ray, the views'
+// parameters). The plain version's cost was elsewhere: its temporaries,
+// (8, 3, V, R, S) float32 per block of S steps, moved gigabytes an apply,
+// and its hundreds of launches a block held the host. R3 keeps every
+// temporary in registers, so an apply is one launch that reads the volume
+// (resident in L2) and the setup and writes 7 floats a ray; it marches
+// R1's clipped step range with R1's warp layout and 8 loads issued
+// together, so its time over R1's is its added arithmetic: 0.244 ms a
+// 90-view apply at 64^3 on the H100 (R1 0.190 ms, the plain march 86 ms).
 //
 // R2 is a gather over voxels with no atomics, so two applies give the same
 // bits. A thread owns one voxel q (z fastest) and loops over the call's
@@ -139,6 +168,81 @@ __device__ __forceinline__ void step_range(float px, float py, float pz,
   j1 = min(n_steps, static_cast<int>(ceil(hi)) + 2);
 }
 
+// The plain version's corners of the sample (x, y, z) (the march's
+// _corner_indices_weights): false where none lies inside the volume (the
+// floor outside [-1, n - 1] on an axis); else the 8 values at the clamped
+// indices (z fastest, x slowest), whether each corner lies inside, and the
+// per-axis parts w*[o] (o = 0: 1 - t, o = 1: t). The 8 loads issue
+// together.
+struct Corners {
+  float val[8];
+  bool in[8];
+  float wx[2], wy[2], wz[2];
+};
+
+__device__ __forceinline__ bool corners(const float* __restrict__ vol,
+                                        float x, float y, float z, int nx,
+                                        int ny, int nz, Corners& cn) {
+  const float fx = floorf(x), fy = floorf(y), fz = floorf(z);
+  if (!(fx >= -1.f && fx < nx && fy >= -1.f && fy < ny && fz >= -1.f &&
+        fz < nz))
+    return false;
+  const int ix = static_cast<int>(fx), iy = static_cast<int>(fy),
+            iz = static_cast<int>(fz);
+  const float tx = __fsub_rn(x, fx), ty = __fsub_rn(y, fy),
+              tz = __fsub_rn(z, fz);
+  cn.wx[0] = __fsub_rn(1.f, tx);
+  cn.wx[1] = tx;
+  cn.wy[0] = __fsub_rn(1.f, ty);
+  cn.wy[1] = ty;
+  cn.wz[0] = __fsub_rn(1.f, tz);
+  cn.wz[1] = tz;
+#pragma unroll
+  for (int c8 = 0; c8 < 8; ++c8) {
+    const int X = ix + (c8 >> 2), Y = iy + ((c8 >> 1) & 1), Z = iz + (c8 & 1);
+    cn.in[c8] = X >= 0 && X < nx && Y >= 0 && Y < ny && Z >= 0 && Z < nz;
+    const int Xc = min(max(X, 0), nx - 1), Yc = min(max(Y, 0), ny - 1),
+              Zc = min(max(Z, 0), nz - 1);
+    cn.val[c8] = __ldg(vol + (static_cast<long long>(Xc) * ny + Yc) * nz + Zc);
+  }
+  return true;
+}
+
+// The sample's value: w * vol summed over the corners in float32 in the
+// plain version's order, w = fl(fl(w_x * w_y) * w_z), 0 outside the volume.
+__device__ __forceinline__ float value_sum(const Corners& cn) {
+  float s = 0.f;
+#pragma unroll
+  for (int c8 = 0; c8 < 8; ++c8) {
+    const int ox = c8 >> 2, oy = (c8 >> 1) & 1, oz = c8 & 1;
+    const float wc =
+        cn.in[c8] ? __fmul_rn(__fmul_rn(cn.wx[ox], cn.wy[oy]), cn.wz[oz])
+                  : 0.f;
+    s = __fadd_rn(s, __fmul_rn(wc, cn.val[c8]));
+  }
+  return s;
+}
+
+// The sample's masked weight gradient: vol * mask * dw/dp summed over the
+// corners in float32 in the plain version's order (its
+// _corner_weight_gradients): dw/dp_x = -fl(w_y * w_z) for a floor corner,
+// + for a ceil one, and cyclically. A corner inside the volume with
+// weight 0 still adds its gradient: the mask, not w, zeroes a corner.
+__device__ __forceinline__ void gradient_sum(const Corners& cn, float g[3]) {
+  g[0] = g[1] = g[2] = 0.f;
+#pragma unroll
+  for (int c8 = 0; c8 < 8; ++c8) {
+    const int ox = c8 >> 2, oy = (c8 >> 1) & 1, oz = c8 & 1;
+    const float vm = cn.in[c8] ? cn.val[c8] : 0.f;
+    const float gx = __fmul_rn(cn.wy[oy], cn.wz[oz]);
+    const float gy = __fmul_rn(cn.wx[ox], cn.wz[oz]);
+    const float gz = __fmul_rn(cn.wx[ox], cn.wy[oy]);
+    g[0] = __fadd_rn(g[0], __fmul_rn(vm, ox ? gx : -gx));
+    g[1] = __fadd_rn(g[1], __fmul_rn(vm, oy ? gy : -gy));
+    g[2] = __fadd_rn(g[2], __fmul_rn(vm, oz ? gz : -gz));
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
     ray_fwd_kernel(const float* __restrict__ vol, const float* __restrict__ p0,
                    const float* __restrict__ d_hat, float* __restrict__ out,
@@ -156,42 +260,73 @@ __global__ void __launch_bounds__(kThreads)
     double acc = 0.0;
     for (int j = j0; j < j1; ++j) {
       const float c = march(j, step);
-      const float x = sample(px, c, dx), y = sample(py, c, dy),
-                  z = sample(pz, c, dz);
-      const float fx = floorf(x), fy = floorf(y), fz = floorf(z);
-      // a corner is inside only where the floor lies in [-1, n - 1]
-      if (!(fx >= -1.f && fx < nx && fy >= -1.f && fy < ny && fz >= -1.f &&
-            fz < nz))
+      Corners cn;
+      if (!corners(vol, sample(px, c, dx), sample(py, c, dy),
+                   sample(pz, c, dz), nx, ny, nz, cn))
         continue;
-      const int ix = static_cast<int>(fx), iy = static_cast<int>(fy),
-                iz = static_cast<int>(fz);
-      const float tx = __fsub_rn(x, fx), ty = __fsub_rn(y, fy),
-                  tz = __fsub_rn(z, fz);
-      const float wx[2] = {__fsub_rn(1.f, tx), tx};
-      const float wy[2] = {__fsub_rn(1.f, ty), ty};
-      const float wz[2] = {__fsub_rn(1.f, tz), tz};
-      // the plain version's clamped corner indices, weight 0 outside the
-      // volume: the 8 loads issue together
-      float val[8], wc[8];
-#pragma unroll
-      for (int c8 = 0; c8 < 8; ++c8) {
-        const int ox = c8 >> 2, oy = (c8 >> 1) & 1, oz = c8 & 1;
-        const int X = ix + ox, Y = iy + oy, Z = iz + oz;
-        const bool in = X >= 0 && X < nx && Y >= 0 && Y < ny && Z >= 0 &&
-                        Z < nz;
-        const int Xc = min(max(X, 0), nx - 1), Yc = min(max(Y, 0), ny - 1),
-                  Zc = min(max(Z, 0), nz - 1);
-        val[c8] =
-            __ldg(vol + (static_cast<long long>(Xc) * ny + Yc) * nz + Zc);
-        wc[c8] = in ? __fmul_rn(__fmul_rn(wx[ox], wy[oy]), wz[oz]) : 0.f;
-      }
-      float s = 0.f;
-#pragma unroll
-      for (int c8 = 0; c8 < 8; ++c8)
-        s = __fadd_rn(s, __fmul_rn(wc[c8], val[c8]));
-      acc += static_cast<double>(s);
+      acc += static_cast<double>(value_sum(cn));
     }
     out[static_cast<long long>(v) * R + k] = static_cast<float>(acc);
+  }
+}
+
+// R3: R1's march of view v, ray k with the Jacobian's sums beside the
+// value, then the epilogue that contracts them with the setup's parts.
+// rpa[v, d, p] = dp_d / dt_p; der_ang[v, a, d, k] and der_dir[v, a, d] the
+// static and direction parts of dp_d / d angle a (phi, alpha, beta).
+__global__ void __launch_bounds__(kThreads)
+    ray_jac_kernel(const float* __restrict__ vol, const float* __restrict__ p0,
+                   const float* __restrict__ d_hat,
+                   const float* __restrict__ rpa,
+                   const float* __restrict__ der_ang,
+                   const float* __restrict__ der_dir, float* __restrict__ det,
+                   float* __restrict__ jac, int V, int R, int nx, int ny,
+                   int nz, int n_steps, float step, double inv_rlen) {
+  const int k = blockIdx.x * kThreads + threadIdx.x;
+  if (k >= R) return;
+  for (int v = blockIdx.y; v < V; v += gridDim.y) {
+    const float* pk = p0 + static_cast<long long>(v) * 3 * R + k;
+    const float px = pk[0], py = pk[R], pz = pk[2 * R];
+    const float dx = d_hat[3 * v], dy = d_hat[3 * v + 1],
+                dz = d_hat[3 * v + 2];
+    int j0, j1;
+    step_range(px, py, pz, dx, dy, dz, step, n_steps, nx, ny, nz, j0, j1);
+    double acc = 0.0;
+    double g_sum[3] = {0.0, 0.0, 0.0}, g_step[3] = {0.0, 0.0, 0.0};
+    for (int j = j0; j < j1; ++j) {
+      const float c = march(j, step);
+      Corners cn;
+      if (!corners(vol, sample(px, c, dx), sample(py, c, dy),
+                   sample(pz, c, dz), nx, ny, nz, cn))
+        continue;
+      acc += static_cast<double>(value_sum(cn));
+      float g[3];
+      gradient_sum(cn, g);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        g_sum[a] += static_cast<double>(g[a]);
+        g_step[a] = fma(static_cast<double>(g[a]), static_cast<double>(c),
+                        g_step[a]);
+      }
+    }
+    det[static_cast<long long>(v) * R + k] = static_cast<float>(acc);
+    const float* rp = rpa + 9LL * v;
+    const float* dd = der_dir + 9LL * v;
+    const float* da = der_ang + 9LL * v * R + k;
+    float* jk = jac + 6LL * v * R + k;
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      double jt = 0.0, ja = 0.0, js = 0.0;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        jt = fma(static_cast<double>(__ldg(rp + 3 * d + p)), g_sum[d], jt);
+        ja = fma(static_cast<double>(__ldg(da + (3 * p + d) * R)), g_sum[d],
+                 ja);
+        js = fma(static_cast<double>(__ldg(dd + 3 * p + d)), g_step[d], js);
+      }
+      jk[p * R] = static_cast<float>(jt);
+      jk[(3 + p) * R] = static_cast<float>(fma(js, inv_rlen, ja));
+    }
   }
 }
 
@@ -379,6 +514,21 @@ int ray_fwd(const float* vol, const float* p0, const float* d_hat, float* out,
   const dim3 grid((R + kThreads - 1) / kThreads, min(V, 65535));
   ray_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       vol, p0, d_hat, out, V, R, nx, ny, nz, n_steps, step);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// vol, p0, d_hat as ray_fwd (R: every detector ray); rpa: (V, 3, 3);
+// der_ang: (V, 3, 3, R); der_dir: (V, 3, 3); det: (V, R); jac: (V, 6, R);
+// inv_rlen: 1 / the ray's length.
+int ray_jac(const float* vol, const float* p0, const float* d_hat,
+            const float* rpa, const float* der_ang, const float* der_dir,
+            float* det, float* jac, int V, int R, int nx, int ny, int nz,
+            int n_steps, float step, double inv_rlen, void* stream) {
+  if (V <= 0 || R <= 0) return 0;
+  const dim3 grid((R + kThreads - 1) / kThreads, min(V, 65535));
+  ray_jac_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      vol, p0, d_hat, rpa, der_ang, der_dir, det, jac, V, R, nx, ny, nz,
+      n_steps, step, inv_rlen);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,15 +8,19 @@ One wrapper per hand-written kernel, each counting its launches in
 - R2 :func:`ray_adj` — its exact transpose as a gather over voxels, (V,
   R) → added into the volume, summed over the views; no atomics, so two
   applies give the same bits.
+- R3 :func:`ray_jac` — the fused forward and analytic 6-DoF Jacobian of
+  V views as one per-ray march, → ``det`` (V, R), R1's output to the bit,
+  and ``jac`` (V, 6, R).
 
-They replace no TPU kernel (tomojax's ray family is a ``lax.scan``,
-ROADMAP P8). Both are in ``csrc/ray.cu``, built by ``_build.py`` at first
-use; their plain version is ``core.projector``'s march, which
-:func:`~tomojax_torch.core.projector.forward_views` and
-:func:`~tomojax_torch.core.projector.backproject_views` take on the CPU.
+They replace no TPU kernel (tomojax's ray family and its Jacobian are
+``lax.scan`` loops, ROADMAP P8). All three are in ``csrc/ray.cu``, built by
+``_build.py`` at first use; their plain version is ``core.projector``'s
+march, which :func:`~tomojax_torch.core.projector.forward_views`,
+:func:`~tomojax_torch.core.projector.backproject_views` and
+:func:`~tomojax_torch.core.projector.forward_views_jac` take on the CPU.
 A CUDA tensor launches the kernel or raises.
 
-Both take the views' sample origins ``p0`` (V, 3, R) and directions
+All take the views' sample origins ``p0`` (V, 3, R) and directions
 ``d_hat`` (V, 3) as ``core.projector._ray_setup`` makes them, so each
 sample's position is the plain version's to the bit. :func:`gather_map`
 gives R2, per view, the affine map from (detector u, detector w, step j)
@@ -185,5 +189,29 @@ def ray_adj(y, p0, d_hat, phi, alpha, beta, geom: Geometry, out,
     return out
 
 
+def ray_jac(vol, p0, d_hat, rpa, der_ang, der_dir, geom: Geometry):
+    """R3: the fused forward and 6-DoF Jacobian of V views over every
+    detector ray → ``(det (V, R), jac (V, 6, R))``, the fields in the order
+    ``(tx, ty, tz, phi, alpha, beta)``; ``rpa`` (V, 3, 3), ``der_ang`` (V,
+    3, 3, R) and ``der_dir`` (V, 3, 3) are the setup's parts of the
+    sample's derivative. ``det`` is :func:`ray_fwd`'s output to the bit."""
+    V, R, _ = _check_rays(p0, d_hat, geom, slice(None))
+    _check("vol", vol, geom.vox_shape)
+    _check("rpa", rpa, (V, 3, 3))
+    _check("der_ang", der_ang, (V, 3, 3, R))
+    _check("der_dir", der_dir, (V, 3, 3))
+    if V * 9 * R >= 2 ** 31:
+        raise ValueError("der_ang too large for 32-bit indices")
+    det = torch.empty((V, R), dtype=torch.float32, device=vol.device)
+    jac = torch.empty((V, 6, R), dtype=torch.float32, device=vol.device)
+    _launch("ray_jac", vol.device, vol, p0, d_hat, rpa, der_ang, der_dir,
+            det, jac, V, R, *geom.vox_shape, geom.n_steps,
+            ctypes.c_float(geom.step_size),
+            ctypes.c_double(1.0 / geom.ray_length))
+    ray_jac.launches += 1
+    return det, jac
+
+
 ray_fwd.launches = 0
 ray_adj.launches = 0
+ray_jac.launches = 0
